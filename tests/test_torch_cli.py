@@ -1,0 +1,73 @@
+"""The port's DLRM CLI on the CPU, and the rules of the port's package:
+no JAX and nothing of the reference package, and no silent CPU fallback."""
+
+import os
+import re
+
+import pytest
+import torch
+
+from param_tpu_torch.cli import dlrm as cli
+
+TINY = ["--num-tables", "4", "--rows", "512", "--emb-dim", "16", "--nnz", "4",
+        "--dense-dim", "16", "--arch-mlp-bot", "32-16", "--arch-mlp-top",
+        "32-1", "--batch", "64"]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("optimizer",
+                         ["sgd", "adagrad", "sparse_sgd", "sparse_adagrad"])
+def test_train_e2e_on_cpu(optimizer, capsys):
+    rc = cli.main(TINY + ["--device", "cpu", "--train-batches", "3",
+                          "--optimizer", optimizer])
+    assert rc == 0
+    out = capsys.readouterr().out
+    losses = [float(m) for m in re.findall(r"^batch\s+\d+\s+loss (\S+)$", out,
+                                           re.M)]
+    assert len(losses) == 3 and all(l == l for l in losses)  # finite, not NaN
+    line = [ln for ln in out.splitlines() if ln.startswith("DLRM-E2E")]
+    assert len(line) == 1 and "batches=3" in line[0] and "AUC=" in line[0]
+    assert "device=cpu" in line[0]
+
+
+def test_sparse_and_dense_losses_agree(capsys):
+    """Sparse SGD is exact for sum pooling: same loss curve as dense SGD."""
+    curves = {}
+    for opt in ("sgd", "sparse_sgd"):
+        cli.main(TINY + ["--device", "cpu", "--train-batches", "3",
+                         "--optimizer", opt])
+        curves[opt] = re.findall(r"loss (\S+)", capsys.readouterr().out)
+    assert curves["sgd"] == curves["sparse_sgd"]
+
+
+def test_needs_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behaviour")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(TINY + ["--train-batches", "1"])
+
+
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(TINY + ["--device", "cpu"])  # the region bench
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(TINY + ["--device", "cpu", "--print-comms", "x.json"])
+    with pytest.raises(SystemExit):
+        cli.main(TINY + ["--device", "cpu", "--packed-tables",
+                         "--train-batches", "1"])
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|param_tpu)(\.|\s|$)", re.M)
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "param_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    bad = []
+    for f in files:
+        with open(f) as fh:
+            bad += [f"{f}: {m.group(0).strip()}"
+                    for m in _FORBIDDEN.finditer(fh.read())]
+    assert not bad, bad
