@@ -97,6 +97,7 @@ def train_e2e(model, cfg, ns) -> int:
 
     from param_tpu_torch.models.dlrm_data import data_loader
     from param_tpu_torch.ops.mlp import make_optimizer
+    from param_tpu_torch.utils.profiler import make_profiler
     from param_tpu_torch.utils.timer import sync
 
     ds = data_loader(
@@ -118,12 +119,7 @@ def train_e2e(model, cfg, ns) -> int:
         step = model.make_train_step(opt)
         st = opt.init(params)
     dev = model.device
-    prof = None
-    if ns.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
+    prof = make_profiler(dev) if ns.profile else None
     sync(dev)
     t0 = time.perf_counter()
     t_first = None
@@ -180,22 +176,12 @@ def report_profile(prof, out_dir: str, window_us: float, n_steps: int,
     profiler slows the host, so the window's wall time is not a step time:
     compare the device time per step with ``step_ms`` of a run without
     ``--profile``."""
-    import os
+    from param_tpu_torch.utils.profiler import write_trace
 
-    from torch.autograd import DeviceType
-
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    avgs = prof.key_averages()
-    if not on_cuda:
-        print(avgs.table(sort_by="self_cpu_time_total", row_limit=15))
-        print("profile: CPU run, device time not measured")
+    totals = write_trace(prof, out_dir, on_cuda)
+    if totals is None:
         return
-    print(avgs.table(sort_by="self_device_time_total", row_limit=20))
-    kernel_us = sum(e.self_device_time_total for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-    launches = sum(1 for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    kernel_us, launches = totals
     print(f"profile: {n_steps} steps, kernel time {kernel_us / 1e3 / n_steps:.3f}"
           f" ms/step over {launches / n_steps:.0f} device ops/step; wall "
           f"under the profiler {window_us / 1e3 / n_steps:.3f} ms/step")

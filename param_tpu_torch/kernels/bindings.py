@@ -29,7 +29,18 @@ _SIGNATURES = {
         "sparse_update_adagrad_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _F,
                                       _F, _P],
     },
+    "gemm": {
+        "gemm_launch": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "int4_gemm": {
+        "int4_gemm_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+        "int4_gemm_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
+
+# dtype codes of the GEMM entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @lru_cache(maxsize=None)

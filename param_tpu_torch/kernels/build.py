@@ -3,10 +3,10 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds), loaded with ctypes.  Libraries go to ``kernels/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused.  All missing
-libraries are compiled in parallel, one ``nvcc`` process per source.  A
-failed build raises.
+``.gitignore``) under a name keyed by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  All missing libraries are compiled in parallel,
+one ``nvcc`` process per source.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = {
     "emb_gather": "emb_gather.cu",
     "sparse_update": "sparse_update.cu",
+    "gemm": "gemm.cu",
+    "int4_gemm": "int4_gemm.cu",
 }
 
 NVCC_FLAGS = [
@@ -50,8 +52,12 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Library path keyed by the source, the shared headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

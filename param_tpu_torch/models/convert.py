@@ -2,8 +2,9 @@
 
 The reference's DLRM parameter tree ``{"tables": (T, E, D), "bot": [(W, b),
 ...], "top": [...]}`` (as numpy arrays) has the same layout as the port's, so
-conversion is a copy to torch tensors on ``device``.  Used by the tests so
-that both packages start from the same numbers.
+conversion is a copy to torch tensors on ``device``; so is that of an MLP's
+list of (W, b) pairs.  Used by the tests so that both packages start from
+the same numbers.
 """
 
 from __future__ import annotations
@@ -33,6 +34,15 @@ def params_from_jax(np_params, device="cuda"):
     """The reference's parameter tree (numpy leaves) as the port's params:
     fresh tensors on ``device`` that require grad."""
     return _convert(np_params, resolve_device(device), True)
+
+
+def mlp_params_from_jax(np_params, device="cuda"):
+    """The reference's MLP params, a list of (W (din, dout), b (dout,))
+    numpy pairs (e.g. from its ``init_mlp``), as the port's: fresh tensors
+    on ``device`` in the same dtypes, not requiring grad."""
+    dev = resolve_device(device)
+    return [(_tensor(w, dev, False), _tensor(b, dev, False))
+            for w, b in np_params]
 
 
 def adagrad_state_from_jax(np_acc, device="cuda"):

@@ -22,6 +22,13 @@ from param_tpu_torch.utils.device import resolve_device
 Params = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
+def mlp_flops(layers: Sequence[int], batch: int, fwd_only: bool = False) -> int:
+    """(2 or 6) * sum(l_i * l_{i+1}) * batch: a forward, or a forward and
+    its two backward products."""
+    f = sum(a * b for a, b in zip(layers[:-1], layers[1:]))
+    return (2 if fwd_only else 6) * f * batch
+
+
 def init_mlp(generator: torch.Generator, layer_dims: Sequence[int],
              dtype=torch.float32, device="cuda") -> Params:
     """He-init MLP params as a list of (W (din, dout), b (dout,)).
