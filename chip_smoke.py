@@ -43,11 +43,28 @@ Phases (any failure exits non-zero):
      bf16 rungs, and int4 / int8 at batch 1); one int4 forward
      launches K5 exactly 18 times, and a small int4 MLP on the card agrees
      with the CPU plain path.
-Timings (phases 2-4, 7-9) use CUDA events after a warm-up and report the
-median of several windows with the spread (min-max): the kernel and the
-library call replayed from a CUDA graph (the card's time, without the
-host's cost of issuing the calls; the kernel is also timed issued eagerly
-from Python), the plain version issued eagerly.  Bounds: bytes over
+ 11. K6 (flash-attention forward) against its plain version (f32
+     attention on upcast inputs) with the logsumexp: llama2 (1, 32, 2048,
+     128) causal, gpt2 (8, 12, 1024, 64), GQA 32 / 8 heads, a window of
+     512, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64) and a ragged
+     length 1000; library call F.scaled_dot_product_attention (enable_gqa
+     for GQA, the boolean mask for the window and the rectangular case).
+ 12. Transformer parity: a small block (emb 512, 8 heads; f32, f32 GQA and
+     bf16) through block_apply (flash), prefill, four windowed decode_steps
+     and an int4 decode_step on the card against the same on the CPU.
+ 13. The serving CLIs in-process at llama2 width with launch counts:
+     ``attention --dataset llama2 --paths xla,flash,dpa`` and
+     ``transformer --dataset llama2 --fwd-only`` (K6), ``decode --dataset
+     llama3-gqa``, ``serve --dataset llama2`` in bf16 and int4 (K5, exactly
+     4 launches per decode step); K5 alone at the serve path's (1, 4096) @
+     (4096, 12288) and (4096, 4096); host-clock time against the card's
+     kernel time (torch.profiler) for the llama2 block forward and the
+     bf16 / int4 decode step at batch 1 and 32.
+Timings (phases 2-4, 7-9, 11, 13) use CUDA events after a warm-up and
+report the median of several windows with the spread (min-max): the
+kernel and the library call replayed from a CUDA graph (the card's time,
+without the host's cost of issuing the calls; the kernel is also timed
+issued eagerly from Python), the plain version issued eagerly.  Bounds: bytes over
 3.35 TB/s, or operations over the H100's peak for the type (989 TF/s bf16,
 67 TF/s f32).
 Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
@@ -439,9 +456,8 @@ def main(out_path=None) -> int:
     # ---------------------------------------------------------------- 9
     k5 = {}
     G = 128
-    for m, k, n in [(mm, kk, nn) for mm in (1, 8, 32)
-                    for kk, nn in ((4096, 11008), (11008, 4096))] + \
-            [(512, 4096, 4096)]:
+
+    def k5_case(m, k, n, phase):
         x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
         packed = torch.randint(-128, 128, (k // 2, n), generator=gen,
                                device=dev, dtype=torch.int32).to(torch.int8)
@@ -461,12 +477,16 @@ def main(out_path=None) -> int:
                    max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
                    gbps=nbytes / rec["ms"] / 1e6)
         k5[f"{(m, k, n)}"] = rec
-        say(f"phase 9 K5 {rec['shape']}: max_abs_err {err:.3e} (tol "
+        say(f"phase {phase} K5 {rec['shape']}: max_abs_err {err:.3e} (tol "
             f"{tol:.3e}) | {timing_text(rec, '')} ({rec['gbps']:.0f} GB/s) "
             f"bound {b_ms:.4f} ms ({b_by}) | not the same function: "
             f"torch.matmul on the dequantized bf16 weight "
             f"{fmt(rec['dequant_matmul'])} | {smi}")
-        del x, packed, scale, want, w_bf16
+
+    for m, k, n in [(mm, kk, nn) for mm in (1, 8, 32)
+                    for kk, nn in ((4096, 11008), (11008, 4096))] + \
+            [(512, 4096, 4096)]:
+        k5_case(m, k, n, 9)
     result["phases"]["k5"] = k5
     torch.cuda.empty_cache()
 
@@ -478,7 +498,7 @@ def main(out_path=None) -> int:
     )
     from param_tpu_torch.ops.mlp import init_mlp
 
-    def drive(label, cli_main, argv, table_rows, must):
+    def drive(label, cli_main, argv, table_rows, must, phase=10):
         """Run a CLI (median of 5 timed windows) with the counts reset just
         before and read just after; its table must have ``table_rows`` rows
         of finite numbers and every kernel of ``must`` must have launched."""
@@ -491,19 +511,21 @@ def main(out_path=None) -> int:
         counts = {k: v for k, v in kernels.launch_counts.items() if v}
         out = buf.getvalue()
         rows = [ln for ln in out.splitlines()
-                if re.match(r"\s*(gemm|emb|mlp|mlp_infer)\s+\(", ln)
+                if re.match(r"\s*(gemm|emb|mlp|mlp_infer|att:\w+|decode|"
+                            r"decode-gqa|serve|serve-\w+|tf-fwd:\w+)\s+\(",
+                            ln)
                 or re.match(r"\s*\d+\s+\d+\s+\d+\s+(torch|K3)\s", ln)]
         nums = [float(x) for ln in rows
                 for x in re.findall(r"\s(-?[\d.]+(?:e[+-]?\d+)?)%?(?=\s|$)",
                                     ln.split(")")[-1])]
         if rc != 0 or len(rows) != table_rows or not nums or \
                 not all(math.isfinite(v) for v in nums):
-            fail(f"phase 10 {label}: rc {rc}, {len(rows)} result rows (want "
-                 f"{table_rows}), output:\n{out}")
+            fail(f"phase {phase} {label}: rc {rc}, {len(rows)} result rows "
+                 f"(want {table_rows}), output:\n{out}")
         missing = [k for k in must if counts.get(k, 0) <= 0]
         if missing:
-            fail(f"phase 10 {label}: {missing} not launched ({counts})")
-        say(f"phase 10 {label}: {' '.join(argv)} | {wall:.1f} s | launches "
+            fail(f"phase {phase} {label}: {missing} not launched ({counts})")
+        say(f"phase {phase} {label}: {' '.join(argv)} | {wall:.1f} s | launches "
             f"{counts} | {smi}\n{out.rstrip()}")
         return dict(argv=argv, launches=counts, wall_s=wall, output=out)
 
@@ -576,6 +598,252 @@ def main(out_path=None) -> int:
         f"small int4 MLP card vs CPU max abs err {worst:.3e} (tol 2e-2 x "
         f"max|out|, one bf16 rounding per layer) | {smi}")
     result["phases"]["cli"] = cli_runs
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 11
+    from param_tpu_torch.kernels.flash_fwd import (
+        attention_keep_mask, flash_fwd_cuda, flash_fwd_plain,
+    )
+
+    def kept_pairs(sq, sk, causal, window):
+        """(row, column) pairs the mask keeps: the work this run needs."""
+        keep = attention_keep_mask(sq, sk, causal, window, "cpu")
+        return sq * sk if keep is None else int(keep.sum())
+
+    k6 = {}
+
+    def k6_case(name, b, h, hkv, sq, sk, d, causal, window, dt, iters):
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
+        got, lse = flash_fwd_cuda(q, k, v, causal, None, window, True)
+        want, want_lse = flash_fwd_plain(q, k, v, causal, None, window, True)
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        err = check(f"K6 {name}", got, want, tol)
+        lse_err = check(f"K6 {name} lse", lse, want_lse, 1e-4)
+        del got, want, lse, want_lse
+        keep = attention_keep_mask(sq, sk, causal, window, dev)
+        if window is not None or (causal and sq != sk):
+            # SDPA's is_causal aligns top-left: give it the mask itself
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=keep, enable_gqa=hkv != h)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=hkv != h)
+        rec = timings(lambda: flash_fwd_cuda(q, k, v, causal, None, window),
+                      lambda: flash_fwd_plain(q, k, v, causal, None, window),
+                      lib, iters)
+        flops = 4 * b * h * d * kept_pairs(sq, sk, causal, window)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32)
+        shape = (f"q ({b}, {h}, {sq}, {d}) k/v ({b}, {hkv}, {sk}, {d}) "
+                 f"{str(dt)[6:]}{' causal' if causal else ''}"
+                 f"{f' window {window}' if window else ''}")
+        rec.update(shape=shape, max_abs_err=err, tol=tol, lse_err=lse_err,
+                   bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                   tflops=flops / rec["ms"] / 1e9)
+        k6[name] = rec
+        say(f"phase 11 K6 {name}: {shape} | max_abs_err {err:.3e} (tol "
+            f"{tol:.0e}), lse {lse_err:.3e} (tol 1e-4) | "
+            f"{timing_text(rec, 'F.scaled_dot_product_attention')} "
+            f"({rec['tflops']:.1f} TF/s) bound {b_ms:.4f} ms ({b_by}) | {smi}")
+        del q, k, v, keep
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    k6_case("llama2_causal", 1, 32, 32, 2048, 2048, 128, True, None, bf16, 20)
+    k6_case("gpt2", 8, 12, 12, 1024, 1024, 64, False, None, bf16, 20)
+    k6_case("gqa_causal", 1, 32, 8, 2048, 2048, 128, True, None, bf16, 20)
+    k6_case("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, bf16, 20)
+    k6_case("rect_causal", 1, 32, 32, 128, 2048, 128, True, None, bf16, 20)
+    k6_case("f32", 1, 4, 4, 512, 512, 64, True, None, f32, 20)
+    k6_case("ragged_1000", 1, 4, 4, 1000, 1000, 128, True, None, bf16, 20)
+    result["phases"]["k6"] = k6
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 12
+    from param_tpu_torch.models import transformer as tfm
+
+    def to_dev(params):
+        return {key: (tuple(t.to(dev) if isinstance(t, torch.Tensor) else t
+                            for t in val) if isinstance(val, tuple)
+                      else val.to(dev)) for key, val in params.items()}
+
+    def block_cfg(dtype, kv_heads, seq, attention="flash"):
+        return tfm.TransformerConfig(batch=2, seq=seq, emb=512, heads=8,
+                                     ffn=1024, attention=attention,
+                                     dtype=dtype, kv_heads=kv_heads)
+
+    parity = {}
+    for dtype, kv_heads in (("float32", None), ("float32", 2),
+                            ("bfloat16", None)):
+        cfg = block_cfg(dtype, kv_heads, 192)
+        p_cpu = tfm.init_params(torch.Generator().manual_seed(2), cfg, "cpu")
+        x_cpu = (torch.randn((2, 192, 512),
+                             generator=torch.Generator().manual_seed(3))
+                 * 0.1).to(p_cpu["w1"].dtype)
+        p_gpu, x_gpu = to_dev(p_cpu), x_cpu.to(dev)
+        tol_rel = 1e-4 if dtype == "float32" else 2e-2
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            outs = [("block_apply", tfm.block_apply(p_cpu, x_cpu, cfg),
+                     tfm.block_apply(p_gpu, x_gpu, cfg))]
+            pre = block_cfg(dtype, kv_heads, 160)
+            o_c, c_c = tfm.prefill(p_cpu, x_cpu[:, :160], pre, 192)
+            o_g, c_g = tfm.prefill(p_gpu, x_gpu[:, :160], pre, 192)
+            outs.append(("prefill", o_c, o_g))
+            step_cfg = block_cfg(dtype, kv_heads, 1)
+            for t in range(160, 164):
+                o_c, c_c = tfm.decode_step(p_cpu, c_c, x_cpu[:, t:t + 1], t,
+                                           step_cfg, window=64)
+                o_g, c_g = tfm.decode_step(p_gpu, c_g, x_gpu[:, t:t + 1], t,
+                                           step_cfg, window=64)
+                outs.append((f"decode_step {t}", o_c, o_g))
+            if dtype == "float32":  # the int4 decode step: K5 on the card
+                q4_c = tfm.cast_int4_params(
+                    tfm.quantize_block_weights_int4(p_cpu))
+                q4_g = to_dev(q4_c)
+                outs.append(("int4 decode_step",
+                             tfm.decode_step(q4_c, c_c, x_cpu[:, 164:165],
+                                             164, step_cfg)[0],
+                             tfm.decode_step(q4_g, c_g, x_gpu[:, 164:165],
+                                             164, step_cfg)[0]))
+        counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        if counts.get("flash_fwd", 0) != 2:
+            fail(f"phase 12 {dtype} kv_heads {kv_heads}: K6 launches "
+                 f"{counts} (want 2: block_apply and prefill)")
+        worst = 0.0
+        for label, want, got in outs:
+            want, got = want.float(), got.float().cpu()
+            err = (want - got).abs().max().item()
+            tol = tol_rel * want.abs().max().item()
+            worst = max(worst, err / want.abs().max().item())
+            if not torch.isfinite(got).all() or not err <= tol:
+                fail(f"phase 12 {dtype} kv_heads {kv_heads} {label}: card vs "
+                     f"CPU max abs err {err:.3e} > {tol:.3e}")
+        parity[f"{dtype}_kv{kv_heads}"] = dict(worst_rel_err=worst,
+                                               launches=counts)
+        say(f"phase 12 model parity {dtype} kv_heads {kv_heads}: block_apply "
+            f"(flash), prefill, 4 windowed decode_steps"
+            f"{', an int4 decode_step' if dtype == 'float32' else ''} on the "
+            f"card vs the CPU: worst err {worst:.3e} x max|out| (tol "
+            f"{tol_rel:.0e}) | launches {counts}")
+    result["phases"]["transformer_parity"] = parity
+
+    # ---------------------------------------------------------------- 13
+    LLAMA2 = (4096, 32, 11008)  # emb, heads, ffn
+    k5_case(1, 4096, 12288, 13)  # the serve path's QKV projection
+    k5_case(1, 4096, 4096, 13)   # and its output projection
+    serve_runs = {
+        "attention_llama2": drive(
+            "attention llama2", compute_cli.main,
+            ["attention", "--dataset", "llama2", "--paths", "xla,flash,dpa"],
+            9, ["flash_fwd"], 13),
+        "transformer_llama2": drive(
+            "transformer llama2 fwd", compute_cli.main,
+            ["transformer", "--dataset", "llama2", "--fwd-only", "--paths",
+             "flash,xla"], 2, ["flash_fwd"], 13),
+        "decode_llama3_gqa": drive(
+            "decode llama3-gqa", compute_cli.main,
+            ["decode", "--dataset", "llama3-gqa"], 3, [], 13),
+        "serve_llama2_bf16": drive(
+            "serve llama2 bf16", compute_cli.main,
+            ["serve", "--dataset", "llama2"], 3, [], 13),
+        "serve_llama2_int4": drive(
+            "serve llama2 int4", compute_cli.main,
+            ["serve", "--dataset", "llama2", "--dtype", "int4"], 3,
+            ["int4_gemm"], 13),
+    }
+    # 3 shapes x 16 calls x (1 untimed + 5 timed windows) x 4 projections
+    n_serve = serve_runs["serve_llama2_int4"]["launches"]["int4_gemm"]
+    if n_serve != 3 * 16 * 6 * 4:
+        fail(f"phase 13: serve int4 launched K5 {n_serve} times, not 4 per "
+             f"decode step ({3 * 16 * 6 * 4})")
+    # one full-width int4 decode step: exactly 4 K5 launches
+    e, h, ff = LLAMA2
+    cfg = tfm.TransformerConfig(batch=1, seq=1, emb=e, heads=h, ffn=ff,
+                                attention="xla")
+    p4 = tfm.cast_int4_params(tfm.quantize_block_weights_int4(
+        tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)))
+    shape = (1, h, 2048, e // h)
+    cache = {"k": torch.randn(shape, generator=gen, device=dev).bfloat16(),
+             "v": torch.randn(shape, generator=gen, device=dev).bfloat16()}
+    x1 = (torch.randn((1, 1, e), generator=gen, device=dev) * 0.1).bfloat16()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out, _ = tfm.decode_step(p4, cache, x1, 2046, cfg)
+    torch.cuda.synchronize()
+    if kernels.launch_counts["int4_gemm"] != 4 or out.shape != (1, 1, e) or \
+            not torch.isfinite(out.float()).all():
+        fail(f"phase 13: one int4 decode step launched K5 "
+             f"{kernels.launch_counts['int4_gemm']} times (want 4)")
+    say(f"phase 13 int4 decode step: 4 K5 launches per full-width llama2 "
+        f"decode step; the serve bench launched K5 {n_serve} times for "
+        f"{3 * 16 * 6} steps | {smi}")
+    del p4, cache, x1, out
+    result["phases"]["serve_cli"] = serve_runs
+
+    from torch.autograd import DeviceType
+
+    def breakdown(label, fn, n=20):
+        """Host-clock ms per call (unprofiled, synchronised), and the
+        card's kernel time per call from torch.profiler with its top
+        kernels: how far the host holds the card back."""
+        with torch.no_grad():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                    ev.self_device_time_total / 1e3 / n
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        say(f"phase 13 breakdown {label}: {wall:.4f} ms per call (host "
+            f"clock), kernels {busy:.4f} ms ({100 * busy / wall:.1f}% of it) "
+            f"| top kernels per call: "
+            + "; ".join(f"{name[:70]} {ms:.4f} ms" for name, ms in top)
+            + f" | {smi}")
+        return dict(wall_ms=wall, device_ms=busy, top=top)
+
+    rows = {}
+    for path in ("flash", "xla"):
+        cfg = tfm.TransformerConfig(batch=1, seq=2048, emb=e, heads=h,
+                                    ffn=ff, attention=path)
+        p_bf = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, dev)
+        x = (torch.randn((1, 2048, e), generator=gen, device=dev)
+             * 0.1).bfloat16()
+        rows[f"tf_fwd_{path}"] = breakdown(
+            f"transformer fwd {path} (1, 2048, 4096, 32, 11008) bf16",
+            lambda: tfm.block_apply(p_bf, x, cfg), 10)
+    cfg = tfm.TransformerConfig(batch=1, seq=1, emb=e, heads=h, ffn=ff,
+                                attention="xla")
+    p_int4 = tfm.cast_int4_params(tfm.quantize_block_weights_int4(p_bf))
+    for b in (1, 32):
+        shape = (b, h, 2048, e // h)
+        cache = {"k": torch.randn(shape, generator=gen, device=dev).bfloat16(),
+                 "v": torch.randn(shape, generator=gen, device=dev).bfloat16()}
+        x1 = (torch.randn((b, 1, e), generator=gen, device=dev)
+              * 0.1).bfloat16()
+        for name, params in (("bf16", p_bf), ("int4", p_int4)):
+            rows[f"serve_{name}_b{b}"] = breakdown(
+                f"serve decode_step {name} batch {b} (cache 2048, llama2)",
+                lambda: tfm.decode_step(params, cache, x1, 2046, cfg))
+        del cache, x1
+    del p_bf, p_int4, x
+    result["phases"]["breakdown"] = rows
 
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
@@ -615,6 +883,13 @@ def main(out_path=None) -> int:
               "param_tpu/ops/matmul.py:196",
               cli_launches("inference_int4_K5", "int4_gemm"),
               k5["(512, 4096, 4096)"]),
+        entry("int4 gemm, serve decode step (K5)", src + "int4_gemm.cu",
+              "param_tpu/ops/matmul.py:196", n_serve, k5["(1, 4096, 12288)"]),
+        entry("flash attention forward (K6)", src + "flash_fwd.cu",
+              "param_tpu/ops/attention.py:251",
+              serve_runs["attention_llama2"]["launches"]["flash_fwd"]
+              + serve_runs["transformer_llama2"]["launches"]["flash_fwd"],
+              k6["llama2_causal"]),
     ]}
     result.update(report)
     if out_path:

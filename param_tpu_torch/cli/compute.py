@@ -1,11 +1,12 @@
-"""Compute bench CLI, subcommands gemm | emb | linear (port of
-``param_tpu/cli/compute.py``).
+"""Compute bench CLI, subcommands gemm | emb | linear | attention | decode |
+serve | transformer (port of ``param_tpu/cli/compute.py``).
 
 Same subcommands and flags as the reference plus ``--device`` (default
 ``cuda``).  ``--chain N`` is the number of calls in one timed window and
-``--reps R`` the number of windows (the median is reported).  The
-attention, decode, serve and transformer benches are not ported yet
-(ROADMAP queue 1 item 9) and raise ``NotImplementedError``.
+``--reps R`` the number of windows (the median is reported).  The training
+halves (``attention --grad``, ``transformer`` without ``--fwd-only``) need
+the flash attention backward and raise ``NotImplementedError`` (ROADMAP
+queue 1 item 9b).
 
 Run:
     python -m param_tpu_torch.cli.compute gemm --dataset A --dtype bfloat16 --pallas
@@ -13,6 +14,10 @@ Run:
     python -m param_tpu_torch.cli.compute gemm --weight-resident 8 --shape 128,4096,4096 --dtype bfloat16
     python -m param_tpu_torch.cli.compute emb --dataset baseline
     python -m param_tpu_torch.cli.compute linear --shape 18,1024,1024,1024,512
+    python -m param_tpu_torch.cli.compute attention --dataset llama2 --paths xla,flash,dpa
+    python -m param_tpu_torch.cli.compute transformer --dataset llama2 --fwd-only
+    python -m param_tpu_torch.cli.compute decode --dataset llama3-gqa
+    python -m param_tpu_torch.cli.compute serve --dataset llama2 --dtype int4
 """
 
 from __future__ import annotations
@@ -20,10 +25,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-_UNPORTED = ("attention", "decode", "serve", "transformer")
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 item 9: transformer "
-               "tier, attention kernels K6/K7)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,8 +77,68 @@ def build_parser() -> argparse.ArgumentParser:
     lin.add_argument("--chain", type=int, default=8)
     lin.add_argument("--reps", type=int, default=2)
 
-    for name in _UNPORTED:  # any flags are accepted, then refused
-        sub.add_parser(name, help="not ported yet")
+    a = sub.add_parser("attention", help="fused-attention bench (flash "
+                       "kernel K6 against unfused attention)")
+    a.add_argument("--dataset", default="gpt2", choices=["gpt2", "llama2"])
+    a.add_argument("--shape", default=None,
+                   help="explicit batch,heads,seq,headdim (overrides "
+                        "--dataset)")
+    a.add_argument("--dtype", default="bfloat16")
+    a.add_argument("--paths", default="xla,flash",
+                   help="comma list of xla|flash|dpa")
+    a.add_argument("--no-causal", action="store_true",
+                   help="bidirectional attention (default causal)")
+    a.add_argument("--block-q", type=int, default=1024)
+    a.add_argument("--block-k", type=int, default=1024)
+    a.add_argument("--grad", action="store_true",
+                   help="forward + backward (needs the flash backward K7, "
+                        "not ported yet)")
+    a.add_argument("--chain", type=int, default=16)
+    a.add_argument("--reps", type=int, default=2)
+
+    dec = sub.add_parser("decode", help="serving decode step: one query "
+                         "token vs a (B,H,S,D) KV cache; GB/s of KV "
+                         "traffic vs the memory rate")
+    dec.add_argument("--dataset", default="llama2",
+                     choices=["llama2", "gpt2", "llama3-gqa"])
+    dec.add_argument("--shape", default=None,
+                     help="explicit batch,heads,kvlen,headdim (or "
+                          "batch,heads,kvheads,kvlen,headdim for GQA)")
+    dec.add_argument("--dtype", default="bfloat16")
+    dec.add_argument("--chain", type=int, default=16)
+    dec.add_argument("--reps", type=int, default=2)
+
+    srv = sub.add_parser("serve", help="whole-block decode step (cached "
+                         "attention + MLP at T=1): serving tokens/s vs "
+                         "the weight+KV streaming bound")
+    srv.add_argument("--dataset", default="llama2",
+                     choices=["llama2", "gpt2", "llama3-gqa"])
+    srv.add_argument("--shape", default=None,
+                     help="explicit batch,cachelen,emb,heads,ffn (or "
+                          "batch,cachelen,emb,heads,kvheads,ffn for GQA)")
+    srv.add_argument("--dtype", default="bfloat16",
+                     help="bfloat16/float32, or weight-only quantized "
+                          "serving: int8 (per-column scales) / int4 "
+                          "(group-128, nibble-packed weights on K5)")
+    srv.add_argument("--chain", type=int, default=16)
+    srv.add_argument("--reps", type=int, default=2)
+
+    t = sub.add_parser("transformer", help="pre-LN transformer-block bench "
+                       "(flash attention K6 vs unfused; GPT2/llama2 dims)")
+    t.add_argument("--dataset", default="all",
+                   choices=["gpt2", "gpt2-medium", "llama2", "all"])
+    t.add_argument("--shape", default=None,
+                   help="explicit batch,seq,emb,heads,ffn (overrides "
+                        "--dataset)")
+    t.add_argument("--dtype", default="bfloat16")
+    t.add_argument("--paths", default="flash,xla",
+                   help="comma list of flash|xla attention paths")
+    t.add_argument("--no-causal", action="store_true")
+    t.add_argument("--fwd-only", action="store_true",
+                   help="forward only (the train step needs the flash "
+                        "backward K7, not ported yet)")
+    t.add_argument("--chain", type=int, default=8)
+    t.add_argument("--reps", type=int, default=2)
 
     # the common flags go before or after the subcommand
     for parser, top in [(ap, True)] + [(p, False) for p in sub.choices.values()]:
@@ -98,19 +159,16 @@ def _shapes(ns, table):
     return table[ns.dataset]
 
 
+def _paths(ns):
+    return [p.strip() for p in ns.paths.split(",") if p.strip()]
+
+
 def main(argv=None) -> int:
-    ap = build_parser()
-    ns, unknown = ap.parse_known_args(argv)
-    if ns.cmd in _UNPORTED:
-        raise NotImplementedError(f"the {ns.cmd} bench {_NOT_PORTED}")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    ns = build_parser().parse_args(argv)
     logging.basicConfig(level=ns.log.upper())
 
+    from param_tpu_torch.ops import compute_bench as cb
     from param_tpu_torch.ops import datasets
-    from param_tpu_torch.ops.compute_bench import (
-        bench_emb, bench_gemm, bench_mlp, print_results,
-    )
     from param_tpu_torch.utils.device import resolve_device
     from param_tpu_torch.utils.profiler import profile_to
 
@@ -123,7 +181,7 @@ def main(argv=None) -> int:
             print("-" * 64)
             for m, n, k in _shapes(ns, datasets.GEMM_DATASETS):
                 for use_kernel, label in ((False, "torch"), (True, "K3")):
-                    r = bench_gemm([(m, n, k)], dtype=ns.dtype,
+                    r = cb.bench_gemm([(m, n, k)], dtype=ns.dtype,
                                    iters=ns.chain, reps=ns.reps,
                                    use_pallas=use_kernel,
                                    precision=ns.precision, device=dev)[0]
@@ -131,22 +189,41 @@ def main(argv=None) -> int:
                           f"{r.lat_us:>12.1f} {r.tflops:>12.3f}")
             return 0
         if ns.cmd == "gemm":
-            results = bench_gemm(
+            results = cb.bench_gemm(
                 _shapes(ns, datasets.GEMM_DATASETS), dtype=ns.dtype,
                 iters=ns.chain, reps=ns.reps, use_pallas=ns.pallas,
                 precision=ns.precision, weight_resident=ns.weight_resident,
                 device=dev)
         elif ns.cmd == "emb":
-            results = bench_emb(
+            results = cb.bench_emb(
                 _shapes(ns, datasets.EMB_DATASETS), dtype=ns.dtype,
                 iters=ns.chain, reps=ns.reps, distribution=ns.distribution,
                 max_rows=ns.max_rows or None, device=dev)
+        elif ns.cmd == "attention":
+            results = cb.bench_attention(
+                _shapes(ns, datasets.ATTN_DATASETS), dtype=ns.dtype,
+                causal=not ns.no_causal, paths=_paths(ns), iters=ns.chain,
+                reps=ns.reps, block_q=ns.block_q, block_k=ns.block_k,
+                grad=ns.grad, device=dev)
+        elif ns.cmd == "decode":
+            results = cb.bench_decode_attention(
+                _shapes(ns, datasets.DECODE_DATASETS), dtype=ns.dtype,
+                iters=ns.chain, reps=ns.reps, device=dev)
+        elif ns.cmd == "serve":
+            results = cb.bench_block_decode(
+                _shapes(ns, datasets.SERVE_DATASETS), dtype=ns.dtype,
+                iters=ns.chain, reps=ns.reps, device=dev)
+        elif ns.cmd == "transformer":
+            results = cb.bench_transformer(
+                _shapes(ns, datasets.TRANSFORMER_DATASETS), dtype=ns.dtype,
+                causal=not ns.no_causal, paths=_paths(ns), iters=ns.chain,
+                reps=ns.reps, grad=not ns.fwd_only, device=dev)
         else:
-            results = bench_mlp(
+            results = cb.bench_mlp(
                 _shapes(ns, datasets.MLP_DATASETS), dtype=ns.dtype,
                 optimizer=ns.optimizer, fwd_only=ns.fwd_only, iters=ns.chain,
                 reps=ns.reps, device=dev)
-    print_results(results, ns.dtype, dev)
+    cb.print_results(results, ns.dtype, dev)
     return 0
 
 

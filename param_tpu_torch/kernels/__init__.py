@@ -6,6 +6,8 @@
 - K3 and K4 :mod:`.gemm` (``csrc/gemm.cu``): tiled GEMM; stacked GEMMs
   sharing one weight.
 - K5 :mod:`.int4_gemm` (``csrc/int4_gemm.cu``): x @ group-int4 weights.
+- K6 :mod:`.flash_fwd` (``csrc/flash_fwd.cu``): flash-attention forward
+  (causal, sliding window, GQA, optional logsumexp).
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
@@ -21,6 +23,7 @@ launch_counts = {
     "gemm_f16": 0,
     "gemm_wres": 0,
     "int4_gemm": 0,
+    "flash_fwd": 0,
 }
 
 

@@ -37,6 +37,11 @@ _SIGNATURES = {
                           _I, _P],
         "int4_gemm_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "flash_fwd": {
+        "flash_fwd_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I,
+                             _P],
+    },
 }
 
 # dtype codes of the GEMM entry points

@@ -28,6 +28,7 @@ SOURCES = {
     "sparse_update": "sparse_update.cu",
     "gemm": "gemm.cu",
     "int4_gemm": "int4_gemm.cu",
+    "flash_fwd": "flash_fwd.cu",
 }
 
 NVCC_FLAGS = [

@@ -2,9 +2,9 @@
 
 The reference's DLRM parameter tree ``{"tables": (T, E, D), "bot": [(W, b),
 ...], "top": [...]}`` (as numpy arrays) has the same layout as the port's, so
-conversion is a copy to torch tensors on ``device``; so is that of an MLP's
-list of (W, b) pairs.  Used by the tests so that both packages start from
-the same numbers.
+conversion is a copy to torch tensors on ``device``; so are that of an MLP's
+list of (W, b) pairs and a transformer block's dict.  Used by the tests so
+that both packages start from the same numbers.
 """
 
 from __future__ import annotations
@@ -15,9 +15,15 @@ import torch
 from param_tpu_torch.utils.device import resolve_device
 
 
-def _tensor(a, dev, requires_grad: bool) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, copy=True)).to(dev)
-    return t.requires_grad_(requires_grad)
+def _tensor(a, dev, requires_grad: bool = False) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # JAX's bf16 reaches numpy as ml_dtypes.bfloat16, which
+        # torch.from_numpy refuses: carry the bits over unchanged
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(dev).requires_grad_(requires_grad)
 
 
 def _convert(tree, dev, requires_grad: bool):
@@ -50,3 +56,21 @@ def adagrad_state_from_jax(np_acc, device="cuda"):
     ``init_adagrad_state`` or optax's ``sum_of_squares``) as the port's
     Adagrad state."""
     return _convert(np_acc, resolve_device(device), False)
+
+
+def transformer_params_from_jax(np_params, device="cuda"):
+    """A transformer block's parameters from the reference (numpy leaves,
+    bf16 ones as ``ml_dtypes.bfloat16``) as the port's, bit for bit: LN
+    (gamma, beta) pairs, plain matrices, int8 (weights, scales) pairs and
+    int4 (carriers, scales, group) triples; the group stays an int."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        if np.ndim(x) == 0 and np.asarray(x).dtype.kind in "iu":
+            return int(x)  # the int4 group size
+        return _tensor(x, dev)
+
+    def conv(v):
+        return tuple(map(leaf, v)) if isinstance(v, (tuple, list)) else leaf(v)
+
+    return {k: conv(v) for k, v in np_params.items()}

@@ -1,11 +1,14 @@
-"""Compute-tier bench runners: GEMM, EmbeddingBag, MLP (port of
+"""Compute-tier bench runners: GEMM, EmbeddingBag, MLP, attention, decode,
+block serving and the transformer block (port of
 ``param_tpu/ops/compute_bench.py``).
 
 Metric formulas as in the reference (after PARAM's ``pytorch_gemm.py``,
 ``pytorch_emb.py``, ``pytorch_linear.py``): TF/s = 2MNK / t; GB/s =
 batch * nnz * dim * elem / t; QPS = batch / t; MLP TF/s = (2|6) *
-sum(l_i * l_i+1) * batch / t; ``roofline_frac`` against the card's peak for
-the dtype (:mod:`param_tpu_torch.utils.chip`).
+sum(l_i * l_i+1) * batch / t; attention TF/s from the causal-aware
+:func:`~param_tpu_torch.ops.attention.attention_flops`; decode and serve
+GB/s from the KV (and weight) bytes a step must read; ``roofline_frac``
+against the card's peak for the dtype (:mod:`param_tpu_torch.utils.chip`).
 
 Timing: CUDA events around ``iters`` calls after a warm-up, the median of
 ``reps`` such windows (:func:`param_tpu_torch.utils.timer.time_ms`).  The
@@ -18,13 +21,19 @@ shape raises; nothing is skipped.
 
 from __future__ import annotations
 
+import functools
 import itertools
+import math
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from param_tpu_torch.models import transformer as tfm
+from param_tpu_torch.ops.attention import (
+    attention_flops, flash_attention, make_attention,
+)
 from param_tpu_torch.ops.embedding import embedding_bag, embedding_bytes
 from param_tpu_torch.ops.matmul import (
     gemm_flops, matmul, matmul_pallas, matmul_weight_resident,
@@ -38,6 +47,9 @@ from param_tpu_torch.utils.logger import ComputePerfMetrics, emit_metrics
 from param_tpu_torch.utils.timer import time_ms
 
 EMB_INDEX_SETS = 8  # shifted index sets cycled through by the emb bench
+_NEEDS_TRAINING_SLICE = (
+    "is not ported yet (ROADMAP queue 1 item 9b: the transformer training "
+    "slice with the flash attention backward K7)")
 
 
 @dataclass
@@ -198,6 +210,213 @@ def bench_mlp(configs: List[tuple], dtype: str = "float32",
             op="mlp", shape=(num_layers, din, hidden, dout, batch),
             lat_us=per * 1e6, tflops=tf, qps=batch / per,
             roofline_frac=tf / peak if peak else 0.0), dtype))
+    return results
+
+
+# -------------------------------------------------------------- attention
+def _randn(gen: torch.Generator, shape, dt, dev) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=dev) * 0.1).to(dt)
+
+
+def bench_attention(shapes: List[tuple], dtype: str = "bfloat16",
+                    causal: bool = True, paths: Optional[List[str]] = None,
+                    iters: int = 16, reps: int = 2, block_q: int = 1024,
+                    block_k: int = 1024, grad: bool = False,
+                    device="cuda") -> List[ComputeResult]:
+    """One result per (batch, heads, seq, head_dim) and path: 'xla' (the
+    unfused :func:`mha_reference`), 'flash' (K6), 'dpa'
+    (``F.scaled_dot_product_attention``).  TF/s from the causal-aware flop
+    count.  ``grad`` (forward + backward) needs K7, not ported yet."""
+    if grad:
+        raise NotImplementedError(f"attention --grad {_NEEDS_TRAINING_SLICE}")
+    dev = resolve_device(device)
+    dt = dtype_from_name(dtype)
+    peak = matmul_roofline_tflops(detect_chip(dev), dtype)
+    results = []
+    for b, h, s, d in shapes:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (_randn(gen, (b, h, s, d), dt, dev) for _ in range(3))
+        for path in paths or ["xla", "flash"]:
+            if path == "flash":
+                op = functools.partial(flash_attention, causal=causal,
+                                       block_q=block_q, block_k=block_k)
+            else:
+                op = make_attention(path, causal=causal)
+            with torch.no_grad():
+                per = time_ms(lambda: op(q, k, v), iters, dev, reps=reps) / 1e3
+            tf = attention_flops(b, h, s, s, d, causal) / per / 1e12
+            results.append(_report(ComputeResult(
+                op=f"att:{path}", shape=(b, h, s, d), lat_us=per * 1e6,
+                tflops=tf, roofline_frac=tf / peak if peak else 0.0), dtype))
+        del q, k, v
+    return results
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """One query token per head against a KV cache: q (B, H_kv, G, D)
+    (G query heads per kv head), k / v (B, H_kv, S, D); f32 logits and
+    output, P in q's dtype, each kv head read once for its group."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * scale
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bkgs,bksd->bkgd", p.float(), v.float())
+
+
+def bench_decode_attention(shapes: List[tuple], dtype: str = "bfloat16",
+                           iters: int = 16, reps: int = 2,
+                           device="cuda") -> List[ComputeResult]:
+    """One result per (batch, heads, kv_len, head_dim), or (batch, heads,
+    kv_heads, kv_len, head_dim) for GQA: the decode step's attention
+    (:func:`decode_attention`, plain PyTorch as the reference's is plain
+    XLA).  GB/s of K+V bytes, against the card's memory rate."""
+    dev = resolve_device(device)
+    dt = dtype_from_name(dtype)
+    hbm = detect_chip(dev).hbm_gbs
+    results = []
+    for shape in shapes:
+        if len(shape) == 5:
+            b, h, h_kv, s, d = shape
+        else:
+            b, h, s, d = shape
+            h_kv = h
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q = _randn(gen, (b, h_kv, h // h_kv, d), dt, dev)
+        k = _randn(gen, (b, h_kv, s, d), dt, dev)
+        v = _randn(gen, (b, h_kv, s, d), dt, dev)
+        with torch.no_grad():
+            per = time_ms(lambda: decode_attention(q, k, v), iters, dev,
+                          reps=reps) / 1e3
+        gbs = 2 * b * h_kv * s * d * dtype_size(dt) / per / 1e9
+        results.append(_report(ComputeResult(
+            op="decode" if h == h_kv else "decode-gqa", shape=tuple(shape),
+            lat_us=per * 1e6, gbs=gbs, qps=b / per,
+            roofline_frac=gbs / hbm), dtype))
+        del q, k, v
+    return results
+
+
+def weight_bytes(params) -> int:
+    """Bytes a decode step streams for the four matmul weights: packed
+    nibbles or int8 values plus their scales, or the plain matrices."""
+    total = 0
+    for key in tfm.MATMUL_WEIGHTS:
+        w = params[key]
+        if isinstance(w, tuple):
+            total += sum(t.numel() * t.element_size() for t in w
+                         if isinstance(t, torch.Tensor))
+        else:
+            total += w.numel() * w.element_size()
+    return total
+
+
+def bench_block_decode(shapes: List[tuple], dtype: str = "bfloat16",
+                       iters: int = 16, reps: int = 2,
+                       device="cuda") -> List[ComputeResult]:
+    """One result per (batch, cache_len, emb, heads, ffn), or with a
+    kv_heads slot before ffn for GQA: a whole-block decode step
+    (:func:`~param_tpu_torch.models.transformer.decode_step`) on a cache
+    filled to ``cache_len - 2`` by an unfused prefill of half of it.
+    ``dtype`` int8 / int4 selects weight-only quantization (activations
+    and KV stay bf16; int4 weights are packed once and run K5).  GB/s of
+    weight + KV bytes per step, against the card's memory rate."""
+    dev = resolve_device(device)
+    quant = dtype in ("int8", "int4")
+    act_dtype = "bfloat16" if quant else dtype
+    dt = dtype_from_name(act_dtype)
+    hbm = detect_chip(dev).hbm_gbs
+    results = []
+    for shape in shapes:
+        if len(shape) == 6:
+            b, cache_len, e, h, kvh, ff = shape
+        else:
+            b, cache_len, e, h, ff = shape
+            kvh = h
+        cfg = tfm.TransformerConfig(batch=b, seq=1, emb=e, heads=h, ffn=ff,
+                                    attention="xla", dtype=act_dtype,
+                                    kv_heads=kvh)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = tfm.init_params(gen, cfg, dev)
+        prompt = _randn(gen, (b, cache_len // 2, e), dt, dev)
+        with torch.no_grad():
+            _, cache = tfm.prefill(
+                params, prompt, tfm.TransformerConfig(
+                    batch=b, seq=cache_len // 2, emb=e, heads=h, ffn=ff,
+                    attention="xla", dtype=act_dtype, kv_heads=kvh),
+                cache_len)
+        del prompt
+        if dtype == "int8":
+            params = tfm.quantize_block_weights_int8(params)
+        elif dtype == "int4":
+            # packed once, ahead of the decode loop
+            params = tfm.cast_int4_params(
+                tfm.quantize_block_weights_int4(params))
+        x1 = _randn(gen, (b, 1, e), dt, dev)
+        pos = cache_len - 2  # a near-full cache: the most KV to read
+        with torch.no_grad():
+            per = time_ms(lambda: tfm.decode_step(params, cache, x1, pos, cfg),
+                          iters, dev, reps=reps) / 1e3
+        kv_bytes = 2 * b * kvh * cfg.head_dim * cache_len * dtype_size(dt)
+        gbs = (weight_bytes(params) + kv_bytes) / per / 1e9
+        results.append(_report(ComputeResult(
+            op=f"serve-{dtype}" if quant else "serve", shape=tuple(shape),
+            lat_us=per * 1e6, gbs=gbs, qps=b / per, roofline_frac=gbs / hbm),
+            dtype))
+        del params, cache
+    return results
+
+
+def transformer_block_flops(b: int, s: int, e: int, h: int, ff: int,
+                            causal: bool = True, grad: bool = True) -> int:
+    """Matmul flops of one pre-LN block step (LN and gelu excluded): QKV
+    (E -> 3E), attention, output projection, the FFN; training counts the
+    projections' backward as 2x and attention's as 5/2x."""
+    proj = 2 * b * s * (e * 3 * e + e * e + 2 * e * ff)
+    att = attention_flops(b, h, s, s, e // h, causal)
+    if grad:
+        return 3 * proj + att * 7 // 2
+    return proj + att
+
+
+def bench_transformer(shapes: List[tuple], dtype: str = "bfloat16",
+                      causal: bool = True, paths: Optional[List[str]] = None,
+                      iters: int = 8, reps: int = 2, grad: bool = True,
+                      device="cuda") -> List[ComputeResult]:
+    """One result per (batch, seq, emb, heads, ffn) and attention path
+    ('flash': K6, 'xla': unfused): the block forward and the reference's
+    objective mean(out^2).  The train step (``grad``) needs K7, not ported
+    yet."""
+    if grad:
+        raise NotImplementedError(
+            f"transformer training (without --fwd-only) "
+            f"{_NEEDS_TRAINING_SLICE}")
+    dev = resolve_device(device)
+    dt = dtype_from_name(dtype)
+    peak = matmul_roofline_tflops(detect_chip(dev), dtype)
+    results = []
+    for b, s, e, h, ff in shapes:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x0 = _randn(gen, (b, s, e), dt, dev)
+        for path in paths or ["flash", "xla"]:
+            cfg = tfm.TransformerConfig(batch=b, seq=s, emb=e, heads=h,
+                                        ffn=ff, causal=causal, attention=path,
+                                        dtype=dtype)
+            params = tfm.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg, dev)
+
+            def step(params=params, cfg=cfg):
+                out = tfm.block_apply(params, x0, cfg)
+                return torch.mean(torch.square(out.float()))
+
+            with torch.no_grad():
+                per = time_ms(step, iters, dev, reps=reps) / 1e3
+            tf = transformer_block_flops(b, s, e, h, ff, causal,
+                                         False) / per / 1e12
+            results.append(_report(ComputeResult(
+                op=f"tf-fwd:{path}", shape=(b, s, e, h, ff),
+                lat_us=per * 1e6, tflops=tf,
+                roofline_frac=tf / peak if peak else 0.0), dtype))
+            del params
     return results
 
 

@@ -148,12 +148,94 @@ def test_cli_compare_prints_both_paths(capsys):
     assert paths == ["torch", "K3"]
 
 
-@pytest.mark.parametrize("cmd", ["attention", "decode", "serve",
-                                 "transformer"])
-def test_unported_subcommands_raise(cmd):
+@pytest.mark.parametrize("argv,ops", [
+    (["attention", "--shape", "1,2,128,64", "--paths", "xla,flash,dpa"],
+     ["att:xla", "att:flash", "att:dpa"]),
+    (["decode", "--shape", "2,4,2,64,32"], ["decode-gqa"]),
+    (["serve", "--shape", "2,64,128,4,256", "--dtype", "int4"],
+     ["serve-int4"]),
+    (["transformer", "--shape", "2,64,128,4,256", "--fwd-only"],
+     ["tf-fwd:flash", "tf-fwd:xla"]),
+])
+def test_serving_subcommands_on_cpu(argv, ops, capsys):
+    assert cli.main(argv + ["--chain", "1", "--reps", "1", "--device",
+                            "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "COMPUTE-RES chip=cpu" in out
+    for op in ops:
+        (row,) = _table_rows(out, re.escape(op))
+        assert float(row.split(")")[-1].split()[0]) > 0  # latency
+
+
+@pytest.mark.parametrize("argv", [
+    ["transformer", "--shape", "1,16,64,2,64"],
+    ["attention", "--shape", "1,2,64,32", "--grad"],
+])
+def test_training_halves_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([cmd, "--dataset", "llama2", "--paths", "flash", "--device",
-                  "cpu"])
+        cli.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 768, 12, 3072),
+                                   (1, 2048, 4096, 32, 11008)])
+@pytest.mark.parametrize("causal,grad", [(True, True), (True, False),
+                                         (False, False)])
+def test_transformer_block_flops_equal(shape, causal, grad):
+    from param_tpu.ops.compute_bench import transformer_block_flops as j_tbf
+    assert cb.transformer_block_flops(*shape, causal, grad) == \
+        j_tbf(*shape, causal, grad)
+
+
+def test_bench_attention_formulas(fixed_time):
+    from param_tpu.ops.attention import attention_flops as j_af
+    res = cb.bench_attention([(1, 2, 64, 32)], dtype="float32",
+                             paths=["xla", "flash", "dpa"], iters=1, reps=1,
+                             device="cpu")
+    tf = j_af(1, 2, 64, 64, 32, True) / (T_MS / 1e3) / 1e12
+    assert [r.op for r in res] == ["att:xla", "att:flash", "att:dpa"]
+    for r in res:
+        assert r.tflops == pytest.approx(tf)
+        assert r.roofline_frac == pytest.approx(tf / j_roofline(J_CPU,
+                                                                "float32"))
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 64, 32), (2, 4, 2, 64, 32)])
+def test_bench_decode_formulas(shape, fixed_time):
+    (r,) = cb.bench_decode_attention([shape], iters=1, reps=1, device="cpu")
+    b, h_kv, s, d = shape[0], shape[-3], shape[-2], shape[-1]
+    gbs = 2 * b * h_kv * s * d * 2 / (T_MS / 1e3) / 1e9
+    assert r.op == ("decode" if len(shape) == 4 else "decode-gqa")
+    assert r.gbs == pytest.approx(gbs)
+    assert r.qps == pytest.approx(b / (T_MS / 1e3))
+
+
+def test_decode_attention_matches_reference():
+    import jax.numpy as jnp
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal(s, dtype=np.float32) for s in
+               ((2, 2, 3, 16), (2, 2, 40, 16), (2, 2, 40, 16)))
+    logits = jnp.einsum("bkgd,bksd->bkgs", q, k) / 4.0
+    p = np.asarray(jnp.exp(logits - logits.max(-1, keepdims=True)))
+    want = np.einsum("bkgs,bksd->bkgd", p / p.sum(-1, keepdims=True), v)
+    got = cb.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+def test_bench_serve_stream_bytes(dtype, fixed_time):
+    """Weight + KV bytes per decode step, as the reference counts them."""
+    b, cache, e, h, ff = 2, 64, 128, 4, 256
+    (r,) = cb.bench_block_decode([(b, cache, e, h, ff)], dtype=dtype, iters=1,
+                                 reps=1, device="cpu")
+    n_w = e * 3 * e + e * e + 2 * e * ff
+    cols = 3 * e + e + ff + e  # output columns of the four weights
+    w_bytes = {"bfloat16": 2 * n_w, "int8": n_w + 4 * cols,
+               "int4": n_w // 2 + 4 * (n_w // 128)}[dtype]
+    kv = 2 * b * h * (e // h) * cache * 2
+    assert r.op == ("serve" if dtype == "bfloat16" else f"serve-{dtype}")
+    assert r.gbs == pytest.approx((w_bytes + kv) / (T_MS / 1e3) / 1e9)
 
 
 def test_cli_rejects_unknown_flags():

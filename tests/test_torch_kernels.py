@@ -1,4 +1,4 @@
-"""K1-K5 against numpy (plain versions, on the CPU) and against their plain
+"""K1-K6 against numpy (plain versions, on the CPU) and against their plain
 versions (CUDA kernels, on the card).
 
 This file imports neither JAX nor the reference package, so it also runs on
@@ -12,7 +12,9 @@ the kernel may fuse multiply-adds); bf16 rtol=8e-3 (one bf16 ulp of the
 rounded sum).  GEMMs (K3-K5) are held to a bound on the largest error over
 the whole output: f32 1e-5 x max|out| (sums of up to a few hundred terms in
 another order), bf16 / f16 outputs one ulp of max|out| (one rounding of an
-f32 sum on each side).
+f32 sum on each side).  K6 (flash attention) on unit-scale inputs: f32
+2e-5 absolute (the reference's flash tolerance), bf16 / f16 2e-2 absolute
+(P rounded to the input dtype before the PV product), lse 1e-4 absolute.
 """
 
 import math
@@ -23,6 +25,9 @@ import torch
 
 from param_tpu_torch import kernels
 from param_tpu_torch.kernels.emb_gather import emb_gather_cuda, emb_gather_plain
+from param_tpu_torch.kernels.flash_fwd import (
+    flash_fwd_cuda, flash_fwd_plain,
+)
 from param_tpu_torch.kernels.gemm import (
     gemm_cuda, gemm_plain, gemm_wres_cuda, gemm_wres_plain,
 )
@@ -264,3 +269,116 @@ def test_gemm_kernels_raise_on_what_they_do_not_take(cuda_device):
         int4_gemm_cuda(a, torch.zeros((4, 8), dtype=torch.int8,
                                       device=cuda_device),
                        torch.ones((1, 8), device=cuda_device))
+
+
+def _attn(b, h, hkv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.parametrize("causal,window,hkv,sq", [
+    (False, None, 4, 7), (True, None, 4, 7), (True, None, 2, 3),
+    (True, 3, 1, 7), (True, 2, 4, 5)])
+def test_flash_fwd_plain_matches_loop(causal, window, hkv, sq):
+    b, h, sk, d = 2, 4, 7, 8
+    q, k, v = _attn(b, h, hkv, sq, sk, d, seed=sq)
+    out, lse = flash_fwd_plain(q, k, v, causal, 0.3, window, return_lse=True)
+    qn, kn, vn = q.numpy(), k.numpy(), v.numpy()
+    for bi in range(b):
+        for hi in range(h):
+            kv = hi // (h // hkv)
+            for r in range(sq):
+                cols = [c for c in range(sk) if not causal or (
+                    c <= r + sk - sq and (window is None
+                                          or c > r + sk - sq - window))]
+                s = np.array([qn[bi, hi, r] @ kn[bi, kv, c] for c in cols])
+                s = s * 0.3
+                p = np.exp(s - s.max())
+                want = (p[:, None] * vn[bi, kv, cols]).sum(0) / p.sum()
+                np.testing.assert_allclose(out[bi, hi, r].numpy(), want,
+                                           rtol=1e-5, atol=1e-6)
+                np.testing.assert_allclose(
+                    lse[bi, hi, r].item(), s.max() + np.log(p.sum()),
+                    rtol=1e-5, atol=1e-6)
+
+
+def test_flash_fwd_plain_raises_like_the_kernel():
+    q, k, v = _attn(1, 4, 3, 8, 8, 8)
+    with pytest.raises(ValueError, match="inconsistent"):
+        flash_fwd_plain(q, k, v)
+    q, k, v = _attn(1, 2, 2, 9, 8, 8)
+    with pytest.raises(NotImplementedError, match="S_q <= S_k"):
+        flash_fwd_plain(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="causal"):
+        flash_fwd_plain(q, k, v, window=4)
+
+
+# (B, H, H_kv, S_q, S_k, D, causal, window): the chip_smoke phase-11 cases
+# scaled down, plus the head dim 32 and ragged lengths
+_K6_CASES = [
+    (1, 4, 4, 256, 256, 128, True, None),
+    (2, 3, 3, 192, 192, 64, False, None),
+    (1, 4, 1, 256, 256, 128, True, None),
+    (1, 4, 2, 256, 256, 128, False, None),
+    (1, 2, 2, 512, 512, 128, True, 96),
+    (1, 2, 2, 384, 384, 64, True, 64),
+    (1, 2, 2, 64, 320, 128, True, None),
+    (1, 2, 2, 100, 1000, 64, True, 300),
+    (2, 2, 2, 100, 100, 32, True, None),
+    (1, 3, 3, 250, 250, 128, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", _K6_CASES)
+def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
+                                        d, causal, window):
+    q, k, v = (t.to(cuda_device, dtype) for t in _attn(b, h, hkv, sq, sk, d,
+                                                        seed=sq + d))
+    before = kernels.launch_counts["flash_fwd"]
+    got, lse = flash_fwd_cuda(q, k, v, causal, None, window, return_lse=True)
+    want, want_lse = flash_fwd_plain(q, k, v, causal, None, window,
+                                     return_lse=True)
+    assert flash_fwd_cuda(q, k, v, causal, None, window).shape == got.shape
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_fwd"] == before + 2
+    assert got.dtype == dtype and got.shape == (b, h, sq, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_fwd_kernel_takes_strided_heads(cuda_device):
+    """Heads split out of a fused (B, S, 3 H D) projection, as the
+    transformer block passes them, with no copy."""
+    b, s, h, d = 2, 130, 4, 64
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d),
+                                               dtype=np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(h * d, dim=-1))
+    assert not q.is_contiguous()
+    got = flash_fwd_cuda(q, k, v, causal=True)
+    want = flash_fwd_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_fwd_kernel_raises_on_what_it_does_not_take(cuda_device):
+    q = torch.ones((1, 2, 16, 96), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd_cuda(q, q, q)
+    q = torch.ones((1, 2, 64, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_fwd_cuda(q, q.float(), q)
+    with pytest.raises(NotImplementedError):
+        flash_fwd_cuda(q, q, q, window=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_cuda(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
