@@ -49,6 +49,8 @@ Phases (any failure exits non-zero):
      512, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64) and a ragged
      length 1000; library call F.scaled_dot_product_attention (enable_gqa
      for GQA, the boolean mask for the window and the rectangular case).
+     Every element is held to its own bound (``flash_fwd_tolerance``), and
+     that bound must flag a planted fault (a dropped diagonal kv entry).
  12. Transformer parity: a small block (emb 512, 8 heads; f32, f32 GQA and
      bf16) through block_apply (flash), prefill, four windowed decode_steps
      and an int4 decode_step on the card against the same on the CPU.
@@ -603,6 +605,7 @@ def main(out_path=None) -> int:
     # ---------------------------------------------------------------- 11
     from param_tpu_torch.kernels.flash_fwd import (
         attention_keep_mask, flash_fwd_cuda, flash_fwd_plain,
+        flash_fwd_tolerance,
     )
 
     def kept_pairs(sq, sk, causal, window):
@@ -612,16 +615,46 @@ def main(out_path=None) -> int:
 
     k6 = {}
 
-    def k6_case(name, b, h, hkv, sq, sk, d, causal, window, dt, iters):
+    def check_k6(name, got, want, tol):
+        """Every element within its own bound (``flash_fwd_tolerance``) and,
+        for bf16 / f16, the largest error within 2e-2 as well; returns the
+        largest error and the largest ratio of error to bound."""
+        err = check(f"K6 {name}", got, want, 2e-2)
+        ratio = ((got.float() - want.float()).abs() / tol).max().item()
+        if not ratio <= 1.0:
+            fail(f"K6 {name}: an element's error is {ratio:.3f} x its bound")
+        return err, ratio
+
+    def planted_fault(q, k, v, want, tol):
+        """K6 with each row's diagonal kv entry dropped (row r attends
+        0..r-1, the fault of an off-by-one in the diagonal tile), held to
+        the bounds of the right output on the rows r >= S/2, where one
+        kv entry of ~S moves O least."""
+        bad = flash_fwd_cuda(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1], True)
+        late = slice(q.shape[2] // 2 - 1, None)
+        diff = (bad[:, :, late].float()
+                - want[:, :, 1:][:, :, late].float()).abs()
+        over = int((diff > tol[:, :, 1:][:, :, late]).sum())
+        rec = dict(elements=diff.numel(), over_bound=over,
+                   over_flat=int((diff > 2e-2).sum()),
+                   max_abs_err=diff.max().item())
+        if over == 0:
+            fail(f"K6 tolerance: a dropped diagonal kv entry is not flagged "
+                 f"({rec})")
+        return rec
+
+    def k6_case(name, b, h, hkv, sq, sk, d, causal, window, dt, iters,
+                fault=False):
         q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
         v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
         got, lse = flash_fwd_cuda(q, k, v, causal, None, window, True)
         want, want_lse = flash_fwd_plain(q, k, v, causal, None, window, True)
-        tol = 2e-5 if dt == torch.float32 else 2e-2
-        err = check(f"K6 {name}", got, want, tol)
+        tol = flash_fwd_tolerance(q, k, v, want, causal, None, window)
+        err, ratio = check_k6(name, got, want, tol)
         lse_err = check(f"K6 {name} lse", lse, want_lse, 1e-4)
-        del got, want, lse, want_lse
+        fault_rec = planted_fault(q, k, v, want, tol) if fault else None
+        del got, want, lse, want_lse, tol
         keep = attention_keep_mask(sq, sk, causal, window, dev)
         if window is not None or (causal and sq != sk):
             # SDPA's is_causal aligns top-left: give it the mask itself
@@ -639,18 +672,29 @@ def main(out_path=None) -> int:
         shape = (f"q ({b}, {h}, {sq}, {d}) k/v ({b}, {hkv}, {sk}, {d}) "
                  f"{str(dt)[6:]}{' causal' if causal else ''}"
                  f"{f' window {window}' if window else ''}")
-        rec.update(shape=shape, max_abs_err=err, tol=tol, lse_err=lse_err,
-                   bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
-                   tflops=flops / rec["ms"] / 1e9)
+        rec.update(shape=shape, max_abs_err=err, err_over_bound=ratio,
+                   lse_err=lse_err, bound_ms=b_ms, bound_by=b_by, flops=flops,
+                   bytes=nbytes, tflops=flops / rec["ms"] / 1e9,
+                   planted_fault=fault_rec)
         k6[name] = rec
-        say(f"phase 11 K6 {name}: {shape} | max_abs_err {err:.3e} (tol "
-            f"{tol:.0e}), lse {lse_err:.3e} (tol 1e-4) | "
+        bound_text = ("2e-5" if dt == torch.float32 else
+                      "u (2|O| + |P||V|) per element, and 2e-2")
+        say(f"phase 11 K6 {name}: {shape} | max_abs_err {err:.3e}, largest "
+            f"error / bound {ratio:.3f} (bound {bound_text}), lse "
+            f"{lse_err:.3e} (tol 1e-4) | "
             f"{timing_text(rec, 'F.scaled_dot_product_attention')} "
             f"({rec['tflops']:.1f} TF/s) bound {b_ms:.4f} ms ({b_by}) | {smi}")
+        if fault_rec:
+            say(f"phase 11 K6 {name} planted fault (diagonal kv entry "
+                f"dropped), rows >= S/2: {fault_rec['over_bound']} of "
+                f"{fault_rec['elements']} elements over their bound, "
+                f"{fault_rec['over_flat']} over a flat 2e-2, max abs "
+                f"err {fault_rec['max_abs_err']:.3e}")
         del q, k, v, keep
 
     bf16, f32 = torch.bfloat16, torch.float32
-    k6_case("llama2_causal", 1, 32, 32, 2048, 2048, 128, True, None, bf16, 20)
+    k6_case("llama2_causal", 1, 32, 32, 2048, 2048, 128, True, None, bf16, 20,
+            fault=True)
     k6_case("gpt2", 8, 12, 12, 1024, 1024, 64, False, None, bf16, 20)
     k6_case("gqa_causal", 1, 32, 8, 2048, 2048, 128, True, None, bf16, 20)
     k6_case("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, bf16, 20)

@@ -76,6 +76,25 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_fwd_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        want: torch.Tensor, causal: bool = False,
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Per-element f32 bound on |K6 - ``want``|, ``want`` being
+    :func:`flash_fwd_plain` on the same inputs.
+
+    f32: 2e-5, the reference's flash tolerance.  bf16 / f16, with u the
+    dtype's unit roundoff (2^-8, 2^-11): each side rounds O once, at most
+    2u |O| together, and K6 rounds P to the input dtype before the PV
+    product, at most u (|P| @ |V|) (the plain version on |v|).  A 2^-6
+    margin covers second-order terms and 2^-16 the f32 sums."""
+    if q.dtype == torch.float32:
+        return torch.full(want.shape, 2e-5, device=want.device)
+    u = 2.0 ** -8 if q.dtype == torch.bfloat16 else 2.0 ** -11
+    pv = flash_fwd_plain(q, k, v.abs(), causal, scale, window).float()
+    return (1 + 2.0 ** -6) * u * (2 * want.float().abs() + pv) + 2.0 ** -16
+
+
 def _strides(t: torch.Tensor):
     return [int(x) for x in t.stride()[:3]]
 

@@ -28,7 +28,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from param_tpu_torch.ops.attention import flash_mha, mha_reference
+from param_tpu_torch.ops.attention import (
+    decode_attention, flash_mha, mha_reference,
+)
 from param_tpu_torch.ops.matmul import matmul, matmul_int4, pack_nibbles
 from param_tpu_torch.utils.dtypes import dtype_from_name
 
@@ -153,20 +155,14 @@ def decode_step(params: Dict, cache: Dict, x: torch.Tensor, pos: int,
     hx = _ln(x, *params["ln1"])
     q, k, v = torch.split(_mm(hx, params["wqkv"]), [e, kvh * d, kvh * d],
                           dim=-1)
-    qh = q.reshape(b, kvh, grp, 1, d)  # grouped query heads per kv head
+    qh = q.reshape(b, kvh, grp, d)  # grouped query heads per kv head
     cache["k"][:, :, pos] = k.reshape(b, kvh, d).to(cache["k"].dtype)
     cache["v"][:, :, pos] = v.reshape(b, kvh, d).to(cache["v"].dtype)
-    scale = 1.0 / math.sqrt(d)
-    logits = torch.einsum("bkgqd,bksd->bkgqs", qh.float(),
-                          cache["k"].float()) * scale
     posn = torch.arange(cache["k"].shape[2], device=x.device)
     valid = posn <= pos
     if window is not None:
         valid = valid & (posn > pos - window)
-    logits = logits.masked_fill(~valid, -1e30)
-    p = torch.softmax(logits, dim=-1).to(x.dtype)
-    a = torch.einsum("bkgqs,bksd->bkgqd", p.float(),
-                     cache["v"].float()).to(x.dtype)
+    a = decode_attention(qh, cache["k"], cache["v"], valid).to(x.dtype)
     out = x + _mm(a.reshape(b, 1, e), params["wo"])
     h2 = _ln(out, *params["ln2"])
     out = out + _mm(F.gelu(_mm(h2, params["w1"]), approximate="tanh"),
@@ -223,15 +219,16 @@ def _mm(x: torch.Tensor, w):
     - int8: a product of bf16 operands with f32 sums, then the f32 column
       scale, cast to x's dtype.
     - int4: K5 (:func:`~param_tpu_torch.ops.matmul.matmul_int4`) on the
-      nibble-packed weight, x rounded to bf16, output in x's dtype.  An
-      unpacked (din, dout) carrier is packed here first; the serving loop
-      packs once with :func:`cast_int4_params`.
+      nibble-packed (din // 2, dout) weight of :func:`cast_int4_params`,
+      x rounded to bf16, output in x's dtype.
     """
     lead = x.shape[:-1]
     if isinstance(w, tuple) and len(w) == 3:
         q, scale, _ = w
-        if q.shape[0] == x.shape[-1]:  # a (din, dout) carrier
-            q = pack_nibbles(q)
+        if 2 * q.shape[0] != x.shape[-1]:
+            raise ValueError(
+                f"int4 weight {tuple(q.shape)} is not nibble-packed for "
+                f"x {tuple(x.shape)}: pack it with cast_int4_params first")
         y = matmul_int4(x.reshape(-1, x.shape[-1]), q, scale,
                         out_dtype=x.dtype)
         return y.reshape(*lead, q.shape[-1])

@@ -10,6 +10,8 @@ kernel K6 (port of ``param_tpu/ops/attention.py``).
   causal); ``block_q`` / ``block_k`` are only validated, since K6 picks
   its own tiles.
 - :func:`flash_mha`: the training path's dispatch, forward only until K7.
+- :func:`decode_attention`: one query token against a KV cache (the
+  decode step's attention, plain PyTorch as the reference's is plain XLA).
 - :func:`make_attention`: the bench's path table (``xla``, ``flash``,
   ``dpa``).
 
@@ -122,7 +124,7 @@ class _FlashForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+        return flash_fwd(q, k, v, causal, scale)
 
     @staticmethod
     def backward(ctx, grad):
@@ -131,15 +133,30 @@ class _FlashForward(torch.autograd.Function):
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None):
-    """Training-path attention dispatch.  Shapes the flash kernels do not
-    tile in the reference (S not a multiple of its 1024 block, causal
-    S_q > S_k) fall back to :func:`mha_reference`: that is the reference's
-    documented semantics, kept so both packages take the same path.  The
-    flash path is forward only here: a backward through it raises until
-    K7 is ported."""
-    if not _flash_mha_supported(q, k, causal):
+    """Training-path attention dispatch.  On CUDA tensors every shape runs
+    K6, which masks ragged sequence ends itself; causal S_q > S_k, which no
+    kernel of either package takes, raises.  On CPU tensors the shapes the
+    reference's Pallas grid cannot tile (S not a multiple of its 1024
+    block, causal S_q > S_k) fall back to :func:`mha_reference`, as the
+    reference does, so the two packages agree there.  The flash path is
+    forward only here: a backward through it raises until K7 is ported."""
+    if q.device.type == "cpu" and not _flash_mha_supported(q, k, causal):
         return mha_reference(q, k, v, causal=causal, scale=scale)
     return _FlashForward.apply(q, k, v, causal, scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One query token per head against a KV cache: q (B, H_kv, G, D)
+    (G query heads per kv head), k / v (B, H_kv, S, D), ``valid`` an
+    optional (S,) bool mask of the cache positions to attend.  f32 logits
+    and output, P in q's dtype, each kv head read once for its group."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * scale
+    if valid is not None:
+        logits = logits.masked_fill(~valid, _NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bkgs,bksd->bkgd", p.float(), v.float())
 
 
 def make_attention(path: str, *, causal: bool = False):

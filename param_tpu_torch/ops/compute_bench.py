@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import functools
 import itertools
-import math
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -32,7 +31,7 @@ import torch
 
 from param_tpu_torch.models import transformer as tfm
 from param_tpu_torch.ops.attention import (
-    attention_flops, flash_attention, make_attention,
+    attention_flops, decode_attention, flash_attention, make_attention,
 )
 from param_tpu_torch.ops.embedding import embedding_bag, embedding_bytes
 from param_tpu_torch.ops.matmul import (
@@ -250,17 +249,6 @@ def bench_attention(shapes: List[tuple], dtype: str = "bfloat16",
                 tflops=tf, roofline_frac=tf / peak if peak else 0.0), dtype))
         del q, k, v
     return results
-
-
-def decode_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """One query token per head against a KV cache: q (B, H_kv, G, D)
-    (G query heads per kv head), k / v (B, H_kv, S, D); f32 logits and
-    output, P in q's dtype, each kv head read once for its group."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * scale
-    p = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bkgs,bksd->bkgd", p.float(), v.float())
 
 
 def bench_decode_attention(shapes: List[tuple], dtype: str = "bfloat16",

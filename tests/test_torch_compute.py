@@ -209,17 +209,25 @@ def test_bench_decode_formulas(shape, fixed_time):
     assert r.qps == pytest.approx(b / (T_MS / 1e3))
 
 
-def test_decode_attention_matches_reference():
+@pytest.mark.parametrize("masked", [False, True])
+def test_decode_attention_matches_reference(masked):
+    """The one decode attention both the decode bench and decode_step run;
+    with a mask, only the valid cache positions are attended."""
     import jax.numpy as jnp
     import numpy as np
+
+    from param_tpu_torch.ops.attention import decode_attention
 
     rng = np.random.default_rng(0)
     q, k, v = (rng.standard_normal(s, dtype=np.float32) for s in
                ((2, 2, 3, 16), (2, 2, 40, 16), (2, 2, 40, 16)))
-    logits = jnp.einsum("bkgd,bksd->bkgs", q, k) / 4.0
+    valid = np.arange(40) < (25 if masked else 40)
+    logits = jnp.einsum("bkgd,bksd->bkgs", q, k[:, :, valid]) / 4.0
     p = np.asarray(jnp.exp(logits - logits.max(-1, keepdims=True)))
-    want = np.einsum("bkgs,bksd->bkgd", p / p.sum(-1, keepdims=True), v)
-    got = cb.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = np.einsum("bkgs,bksd->bkgd", p / p.sum(-1, keepdims=True),
+                     v[:, :, valid])
+    got = decode_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                           torch.from_numpy(valid) if masked else None)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
 
 
