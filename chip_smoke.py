@@ -62,7 +62,26 @@ Phases (any failure exits non-zero):
      (4096, 12288) and (4096, 4096); host-clock time against the card's
      kernel time (torch.profiler) for the llama2 block forward and the
      bf16 / int4 decode step at batch 1 and 32.
-Timings (phases 2-4, 7-9, 11, 13) use CUDA events after a warm-up and
+ 14. K7 (flash-attention backward) against its plain version (f32 on
+     upcast inputs) from K6's output and lse and a random dO: llama2 (1,
+     32, 2048, 128) causal, gpt2 (8, 12, 1024, 64), GQA 32 / 8 heads, S_q
+     128 < S_k 2048 causal, f32 (1, 4, 512, 64), a ragged length 1000 and
+     head dim 32; every element of dq, dk and dv within its own bound
+     (``flash_bwd_tolerance``), which must flag a planted fault (a dropped
+     diagonal kv entry) in each; library call
+     aten._scaled_dot_product_flash_attention_backward on SDPA's own
+     forward residuals where it computes the same function.
+ 15. Train-step parity: a small block (emb 512, 8 heads; f32, f32 GQA and
+     bf16) trained two steps by make_train_step on the card against the
+     same on the CPU, losses and every parameter; K6 and K7 launch once
+     per step.
+ 16. The training CLIs in-process at llama2 width with launch counts:
+     ``attention --dataset llama2 --grad --paths xla,flash,dpa`` (one K7
+     per K6) and ``transformer --dataset llama2 --paths flash,xla`` (K6 and
+     K7 exactly once per flash train step); host-clock time against the
+     card's kernel time for the llama2 train step on flash and xla, with
+     the shares of K6, K7 and the cuBLAS GEMMs.
+Timings (phases 2-4, 7-9, 11, 13, 14) use CUDA events after a warm-up and
 report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
@@ -173,12 +192,16 @@ def main(out_path=None) -> int:
     reg_counts = {n: [int(r) for r in re.findall(r"Used (\d+) registers",
                                                  build.build_log(n))]
                   for n in build.SOURCES}
+    spills = {n: [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             build.build_log(n))]
+              for n in build.SOURCES}
     say(f"phase 1 device: {kind} | nvidia-smi: {smi} | "
         f"capability {torch.cuda.get_device_capability(0)} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
-        f"{build_s:.1f} s | ptxas registers per kernel {reg_counts}")
+        f"{build_s:.1f} s | ptxas registers per kernel {reg_counts} | "
+        f"spill-store bytes per kernel {spills}")
     result["phases"]["device"] = dict(smi=smi, kind=kind, build_s=build_s,
-                                      registers=reg_counts)
+                                      registers=reg_counts, spills=spills)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     T, E, D, B, NNZ = 8, 100_000, 64, 2048, 10  # the CLI's default width
@@ -514,7 +537,8 @@ def main(out_path=None) -> int:
         out = buf.getvalue()
         rows = [ln for ln in out.splitlines()
                 if re.match(r"\s*(gemm|emb|mlp|mlp_infer|att:\w+|decode|"
-                            r"decode-gqa|serve|serve-\w+|tf-fwd:\w+)\s+\(",
+                            r"decode-gqa|serve|serve-\w+|tf-fwd:\w+|"
+                            r"att-grad:\w+|tf:\w+)\s+\(",
                             ln)
                 or re.match(r"\s*\d+\s+\d+\s+\d+\s+(torch|K3)\s", ln)]
         nums = [float(x) for ln in rows
@@ -828,11 +852,12 @@ def main(out_path=None) -> int:
 
     from torch.autograd import DeviceType
 
-    def breakdown(label, fn, n=20):
+    def breakdown(label, fn, n=20, grad=False, phase=13):
         """Host-clock ms per call (unprofiled, synchronised), and the
         card's kernel time per call from torch.profiler with its top
-        kernels: how far the host holds the card back."""
-        with torch.no_grad():
+        kernels: how far the host holds the card back.  ``grad`` runs
+        ``fn`` with autograd on (a train step)."""
+        with contextlib.nullcontext() if grad else torch.no_grad():
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
@@ -854,12 +879,12 @@ def main(out_path=None) -> int:
                     ev.self_device_time_total / 1e3 / n
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        say(f"phase 13 breakdown {label}: {wall:.4f} ms per call (host "
+        say(f"phase {phase} breakdown {label}: {wall:.4f} ms per call (host "
             f"clock), kernels {busy:.4f} ms ({100 * busy / wall:.1f}% of it) "
             f"| top kernels per call: "
             + "; ".join(f"{name[:70]} {ms:.4f} ms" for name, ms in top)
             + f" | {smi}")
-        return dict(wall_ms=wall, device_ms=busy, top=top)
+        return dict(wall_ms=wall, device_ms=busy, top=top, by_name=by_name)
 
     rows = {}
     for path in ("flash", "xla"):
@@ -888,6 +913,242 @@ def main(out_path=None) -> int:
         del cache, x1
     del p_bf, p_int4, x
     result["phases"]["breakdown"] = rows
+
+    # ---------------------------------------------------------------- 14
+    from param_tpu_torch.kernels.flash_bwd import (
+        flash_bwd_cuda, flash_bwd_plain, flash_bwd_tolerance,
+    )
+
+    k7 = {}
+    aten = torch.ops.aten
+
+    def check_k7(name, got, want, tols):
+        """Every element of dq, dk and dv within its own bound; returns the
+        largest error and the largest ratio of error to bound."""
+        torch.cuda.synchronize()
+        err = ratio = 0.0
+        for label, g, w, t in zip(("dq", "dk", "dv"), got, want, tols):
+            if g.shape != w.shape or not torch.isfinite(g.float()).all():
+                fail(f"K7 {name} {label}: shape {tuple(g.shape)} (want "
+                     f"{tuple(w.shape)}) or non-finite output")
+            diff = (g.float() - w.float()).abs()
+            err = max(err, diff.max().item())
+            ratio = max(ratio, (diff / t).max().item())
+        if not ratio <= 1.0:
+            fail(f"K7 {name}: an element's error is {ratio:.3f} x its bound")
+        return err, ratio
+
+    def k7_fault(q, k, v, o, lse, do, want, tols):
+        """K7 with each row's diagonal kv entry dropped (row r attends
+        0..r-1, the true lse kept): elements of dq, dk and dv over the
+        bounds of the right gradients."""
+        bad = flash_bwd_cuda(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1],
+                             o[:, :, 1:], lse[:, :, 1:].contiguous(),
+                             do[:, :, 1:], True)
+        rec = {}
+        for i, (label, cut) in enumerate((("dq", slice(1, None)),
+                                          ("dk", slice(None, -1)),
+                                          ("dv", slice(None, -1)))):
+            diff = (bad[i].float() - want[i][:, :, cut].float()).abs()
+            rec[label] = int((diff > tols[i][:, :, cut]).sum())
+        rec["elements"] = bad[0].numel()
+        if min(rec["dq"], rec["dk"], rec["dv"]) == 0:
+            fail(f"K7 tolerance: a dropped diagonal kv entry is not flagged "
+                 f"in every gradient ({rec})")
+        return rec
+
+    def k7_case(name, b, h, hkv, sq, sk, d, causal, dt, iters, fault=False,
+                no_library=None):
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
+        do = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+        o, lse = flash_fwd_cuda(q, k, v, causal, None, None, True)  # K6
+        ins = (q, k, v, o, lse, do)
+        got = flash_bwd_cuda(*ins, causal)
+        want = flash_bwd_plain(*ins, causal)
+        tols = flash_bwd_tolerance(*ins, want, causal)
+        err, ratio = check_k7(name, got, want, tols)
+        fault_rec = k7_fault(*ins, want, tols) if fault else None
+        del got, want, tols
+        torch.cuda.empty_cache()
+        if no_library is None:
+            # SDPA's flash backward on SDPA's own forward residuals
+            res = aten._scaled_dot_product_flash_attention(q, k, v, 0.0,
+                                                           causal, False)
+            out, lse_lib, cq, ck, mq, mk, seed, off, _ = res
+            lib = lambda: aten._scaled_dot_product_flash_attention_backward(  # noqa: E731
+                do, q, k, v, out, lse_lib, cq, ck, mq, mk, 0.0, causal, seed,
+                off)
+        else:
+            lib = None
+        rec = timings(lambda: flash_bwd_cuda(*ins, causal),
+                      lambda: flash_bwd_plain(*ins, causal), lib, iters)
+        flops = 10 * b * h * d * kept_pairs(sq, sk, causal, None)
+        nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + o.numel()
+                   + do.numel()) * q.element_size() + lse.numel() * 4)
+        b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32)
+        shape = (f"q ({b}, {h}, {sq}, {d}) k/v ({b}, {hkv}, {sk}, {d}) "
+                 f"{str(dt)[6:]}{' causal' if causal else ''}")
+        rec.update(shape=shape, max_abs_err=err, err_over_bound=ratio,
+                   bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                   tflops=flops / rec["ms"] / 1e9, planted_fault=fault_rec,
+                   no_library=no_library)
+        k7[name] = rec
+        bound_text = ("2^-14 (|X| + m) + 1e-6" if dt == torch.float32 else
+                      "u (2|X| + m) per element")
+        lib_text = ("aten._scaled_dot_product_flash_attention_backward"
+                    if lib else f"none ({no_library})")
+        say(f"phase 14 K7 {name}: {shape} | max_abs_err {err:.3e} over dq, "
+            f"dk, dv, largest error / bound {ratio:.3f} (bound {bound_text}) "
+            f"| {timing_text(rec, lib_text)} ({rec['tflops']:.1f} TF/s) bound "
+            f"{b_ms:.4f} ms ({b_by}) | {smi}")
+        if fault_rec:
+            say(f"phase 14 K7 {name} planted fault (diagonal kv entry "
+                f"dropped): elements over their bound dq {fault_rec['dq']}, "
+                f"dk {fault_rec['dk']}, dv {fault_rec['dv']} of "
+                f"{fault_rec['elements']} each")
+        del q, k, v, do, o, lse, ins
+        torch.cuda.empty_cache()
+
+    no_gqa = ("SDPA's flash backward takes equal q and kv heads; its GQA "
+              "repeats K / V outside the kernel")
+    k7_case("llama2_causal", 1, 32, 32, 2048, 2048, 128, True, bf16, 20,
+            fault=True)
+    k7_case("gpt2", 8, 12, 12, 1024, 1024, 64, False, bf16, 20)
+    k7_case("gqa_causal", 1, 32, 8, 2048, 2048, 128, True, bf16, 20,
+            no_library=no_gqa)
+    k7_case("rect_causal", 1, 32, 32, 128, 2048, 128, True, bf16, 20,
+            no_library="SDPA's causal mask aligns top-left, the reference's "
+                       "bottom-right for S_q < S_k")
+    k7_case("f32", 1, 4, 4, 512, 512, 64, True, f32, 20,
+            no_library="SDPA's flash backward takes only f16 / bf16")
+    k7_case("ragged_1000", 1, 4, 4, 1000, 1000, 128, True, bf16, 20)
+    k7_case("d32", 4, 16, 16, 1024, 1024, 32, True, bf16, 20)
+    result["phases"]["k7"] = k7
+
+    # ---------------------------------------------------------------- 15
+    def flat(params):
+        return [t for key in sorted(params)
+                for t in (params[key] if isinstance(params[key], tuple)
+                          else (params[key],))]
+
+    def bf16_ulp(x):
+        return torch.exp2(torch.floor(torch.log2(
+            x.abs().clamp_min(2.0 ** -126))) - 7)
+
+    train_parity = {}
+    for dtype, kv_heads in (("float32", None), ("float32", 2),
+                            ("bfloat16", None)):
+        cfg = block_cfg(dtype, kv_heads, 192)
+        lr = 0.1 if dtype == "float32" else 1.0
+        p_cpu = tfm.init_params(torch.Generator().manual_seed(4), cfg, "cpu")
+        x_cpu = (torch.randn((2, 192, 512),
+                             generator=torch.Generator().manual_seed(5))
+                 * 0.1).to(p_cpu["w1"].dtype)
+        p_gpu, x_gpu = to_dev(p_cpu), x_cpu.to(dev)
+        step = tfm.make_train_step(cfg, lr=lr)
+        p0 = flat(p_cpu)
+        worst_loss = worst_param = 0.0
+        for t in range(2):
+            p_cpu, l_cpu = step(p_cpu, x_cpu)
+            kernels.reset_launch_counts()
+            p_gpu, l_gpu = step(p_gpu, x_gpu)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts.items() if v}
+            if counts.get("flash_fwd") != 1 or counts.get("flash_bwd") != 1:
+                fail(f"phase 15 {dtype} kv_heads {kv_heads} step {t}: "
+                     f"launches {counts} (want K6 once and K7 once)")
+            rel = abs(l_gpu.item() - l_cpu.item()) / l_cpu.item()
+            worst_loss = max(worst_loss, rel)
+            if not rel <= (1e-5 if dtype == "float32" else 2e-3):
+                fail(f"phase 15 {dtype} kv_heads {kv_heads} step {t}: loss "
+                     f"card {l_gpu.item()} CPU {l_cpu.item()}")
+        for got, want, before in zip(flat(p_gpu), flat(p_cpu), p0):
+            got, want = got.float().cpu(), want.float()
+            diff = (got - want).abs()
+            if dtype == "float32":
+                tol = 1e-5 * want.abs().max().item() + 1e-7
+            else:
+                # two bf16 ulps (each step's rounding of the update may
+                # flip), plus 5e-2 of the largest update: the card's K6 / K7
+                # round P and dS to bf16 where the CPU's plain versions
+                # do not, and its GEMMs sum in another order
+                tol = 2 * bf16_ulp(torch.maximum(got.abs(), want.abs())) + \
+                    5e-2 * (want - before.float()).abs().max().item()
+            ratio = (diff / tol).max().item()
+            worst_param = max(worst_param, ratio)
+            if not ratio <= 1.0 or not torch.isfinite(got).all():
+                fail(f"phase 15 {dtype} kv_heads {kv_heads}: a parameter "
+                     f"after two steps is {ratio:.3f} x its bound from the "
+                     f"CPU's")
+        train_parity[f"{dtype}_kv{kv_heads}"] = dict(
+            worst_loss_rel=worst_loss, worst_param_over_bound=worst_param)
+        say(f"phase 15 train-step parity {dtype} kv_heads {kv_heads} (batch "
+            f"2, seq 192, emb 512, 8 heads, ffn 1024, lr {lr}): two steps on "
+            f"the card (K6 and K7 once each per step) vs the CPU: loss rel "
+            f"err {worst_loss:.3e}, largest param error / bound "
+            f"{worst_param:.3f} | {smi}")
+    result["phases"]["train_parity"] = train_parity
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 16
+    train_runs = {
+        "attention_llama2_grad": drive(
+            "attention llama2 grad", compute_cli.main,
+            ["attention", "--dataset", "llama2", "--grad", "--paths",
+             "xla,flash,dpa"], 9, ["flash_fwd", "flash_bwd"], 16),
+        "transformer_llama2_train": drive(
+            "transformer llama2 train", compute_cli.main,
+            ["transformer", "--dataset", "llama2", "--paths", "flash,xla"], 2,
+            ["flash_fwd", "flash_bwd"], 16),
+    }
+    # 8 steps x (1 untimed + 5 timed windows) on the flash path
+    tl = train_runs["transformer_llama2_train"]["launches"]
+    if tl.get("flash_fwd") != 48 or tl.get("flash_bwd") != 48:
+        fail(f"phase 16: transformer train launched {tl}, not K6 and K7 "
+             f"once per flash step (48)")
+    al = train_runs["attention_llama2_grad"]["launches"]
+    if al.get("flash_bwd") != al.get("flash_fwd"):
+        fail(f"phase 16: attention --grad launched {al}, not one K7 per K6")
+
+    def shares(row):
+        """Kernel ms per step of K6, K7, the cuBLAS GEMMs (nvjet, xmma,
+        cutlass kernels) and everything else (elementwise, reductions)."""
+        by = row["by_name"]
+        pick = lambda f: sum(ms for nm, ms in by.items() if f(nm))  # noqa: E731
+        rec = dict(
+            k6=pick(lambda nm: "flash_fwd" in nm),
+            k7=pick(lambda nm: "flash_bwd" in nm),
+            cublas=pick(lambda nm: any(t in nm.lower() for t in (
+                "gemm", "cutlass", "xmma", "nvjet", "cublas"))))
+        rec["other"] = row["device_ms"] - sum(rec.values())
+        return rec
+
+    for path in ("flash", "xla"):
+        cfg = tfm.TransformerConfig(batch=1, seq=2048, emb=e, heads=h,
+                                    ffn=ff, attention=path)
+        state = {"p": tfm.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, dev)}
+        x = (torch.randn((1, 2048, e), generator=gen, device=dev)
+             * 0.1).bfloat16()
+        step = tfm.make_train_step(cfg)
+
+        def train(state=state, step=step, x=x):
+            state["p"], loss = step(state["p"], x)
+            return loss
+
+        row = breakdown(f"train step {path} (1, 2048, 4096, 32, 11008) bf16",
+                        train, 10, grad=True, phase=16)
+        row.update(shares(row))
+        rows[f"tf_train_{path}"] = row
+        say(f"phase 16 train step {path}: kernel ms per step K6 "
+            f"{row['k6']:.4f}, K7 {row['k7']:.4f}, cuBLAS GEMMs "
+            f"{row['cublas']:.4f}, other {row['other']:.4f} of "
+            f"{row['device_ms']:.4f} | {smi}")
+        del state, x
+        torch.cuda.empty_cache()
+    result["phases"]["train_cli"] = train_runs
 
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
@@ -934,6 +1195,9 @@ def main(out_path=None) -> int:
               serve_runs["attention_llama2"]["launches"]["flash_fwd"]
               + serve_runs["transformer_llama2"]["launches"]["flash_fwd"],
               k6["llama2_causal"]),
+        entry("flash attention backward (K7)", src + "flash_bwd.cu",
+              "param_tpu/ops/attention.py:809, :841",
+              al["flash_bwd"] + tl["flash_bwd"], k7["llama2_causal"]),
     ]}
     result.update(report)
     if out_path:

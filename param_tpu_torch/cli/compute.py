@@ -3,10 +3,10 @@ serve | transformer (port of ``param_tpu/cli/compute.py``).
 
 Same subcommands and flags as the reference plus ``--device`` (default
 ``cuda``).  ``--chain N`` is the number of calls in one timed window and
-``--reps R`` the number of windows (the median is reported).  The training
-halves (``attention --grad``, ``transformer`` without ``--fwd-only``) need
-the flash attention backward and raise ``NotImplementedError`` (ROADMAP
-queue 1 item 9b).
+``--reps R`` the number of windows (the median is reported).
+``transformer`` times the block's train step by default (K6 forward, K7
+backward on the ``flash`` path) and its forward with ``--fwd-only``;
+``attention --grad`` times forward plus backward.
 
 Run:
     python -m param_tpu_torch.cli.compute gemm --dataset A --dtype bfloat16 --pallas
@@ -15,6 +15,8 @@ Run:
     python -m param_tpu_torch.cli.compute emb --dataset baseline
     python -m param_tpu_torch.cli.compute linear --shape 18,1024,1024,1024,512
     python -m param_tpu_torch.cli.compute attention --dataset llama2 --paths xla,flash,dpa
+    python -m param_tpu_torch.cli.compute attention --dataset llama2 --grad
+    python -m param_tpu_torch.cli.compute transformer --dataset llama2
     python -m param_tpu_torch.cli.compute transformer --dataset llama2 --fwd-only
     python -m param_tpu_torch.cli.compute decode --dataset llama3-gqa
     python -m param_tpu_torch.cli.compute serve --dataset llama2 --dtype int4
@@ -78,7 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
     lin.add_argument("--reps", type=int, default=2)
 
     a = sub.add_parser("attention", help="fused-attention bench (flash "
-                       "kernel K6 against unfused attention)")
+                       "kernels K6 / K7 against unfused attention)")
     a.add_argument("--dataset", default="gpt2", choices=["gpt2", "llama2"])
     a.add_argument("--shape", default=None,
                    help="explicit batch,heads,seq,headdim (overrides "
@@ -91,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--block-q", type=int, default=1024)
     a.add_argument("--block-k", type=int, default=1024)
     a.add_argument("--grad", action="store_true",
-                   help="forward + backward (needs the flash backward K7, "
-                        "not ported yet)")
+                   help="forward + backward: the gradients of q, k and v "
+                        "(flash: K6 then K7)")
     a.add_argument("--chain", type=int, default=16)
     a.add_argument("--reps", type=int, default=2)
 
@@ -123,8 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--chain", type=int, default=16)
     srv.add_argument("--reps", type=int, default=2)
 
-    t = sub.add_parser("transformer", help="pre-LN transformer-block bench "
-                       "(flash attention K6 vs unfused; GPT2/llama2 dims)")
+    t = sub.add_parser("transformer", help="pre-LN transformer-block train "
+                       "step (flash attention K6 / K7 vs unfused; "
+                       "GPT2/llama2 dims)")
     t.add_argument("--dataset", default="all",
                    choices=["gpt2", "gpt2-medium", "llama2", "all"])
     t.add_argument("--shape", default=None,
@@ -135,8 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma list of flash|xla attention paths")
     t.add_argument("--no-causal", action="store_true")
     t.add_argument("--fwd-only", action="store_true",
-                   help="forward only (the train step needs the flash "
-                        "backward K7, not ported yet)")
+                   help="forward only (default: the train step, forward + "
+                        "backward + SGD)")
     t.add_argument("--chain", type=int, default=8)
     t.add_argument("--reps", type=int, default=2)
 

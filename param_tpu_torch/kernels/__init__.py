@@ -8,6 +8,8 @@
 - K5 :mod:`.int4_gemm` (``csrc/int4_gemm.cu``): x @ group-int4 weights.
 - K6 :mod:`.flash_fwd` (``csrc/flash_fwd.cu``): flash-attention forward
   (causal, sliding window, GQA, optional logsumexp).
+- K7 :mod:`.flash_bwd` (``csrc/flash_bwd.cu``): flash-attention backward
+  (dq, dk, dv from the saved output and logsumexp; causal, GQA).
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
@@ -24,6 +26,7 @@ launch_counts = {
     "gemm_wres": 0,
     "int4_gemm": 0,
     "flash_fwd": 0,
+    "flash_bwd": 0,
 }
 
 

@@ -18,6 +18,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 
 _SIGNATURES = {
     "emb_gather": {
@@ -41,6 +42,10 @@ _SIGNATURES = {
         "flash_fwd_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I,
                              _P],
+    },
+    "flash_bwd": {
+        "flash_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _LP, _F, _I, _P],
     },
 }
 

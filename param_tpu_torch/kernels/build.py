@@ -29,6 +29,7 @@ SOURCES = {
     "gemm": "gemm.cu",
     "int4_gemm": "int4_gemm.cu",
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
 }
 
 NVCC_FLAGS = [

@@ -99,6 +99,16 @@ def _strides(t: torch.Tensor):
     return [int(x) for x in t.stride()[:3]]
 
 
+def kernel_takes(t: torch.Tensor) -> bool:
+    """Whether K6 / K7 read ``t`` through its strides: last dimension
+    contiguous and, for bf16 / f16 (16-byte copies of rows), the base
+    16-byte aligned and every stride a multiple of 8 elements."""
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype == torch.float32 or (
+        t.data_ptr() % 16 == 0 and not any(s % 8 for s in _strides(t)))
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False, scale: Optional[float] = None,
                    window: Optional[int] = None, return_lse: bool = False):
@@ -115,13 +125,10 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must share a device")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("K6 takes tensors whose last dimension is contiguous")
-    if q.dtype != torch.float32:  # 16-byte copies of rows
-        for t in (q, k, v):
-            if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
-                raise ValueError("K6 takes 16-byte aligned bf16/f16 rows "
-                                 "(strides a multiple of 8 elements)")
+    if not all(kernel_takes(t) for t in (q, k, v)):
+        raise ValueError("K6 takes tensors whose last dimension is "
+                         "contiguous (bf16/f16: 16-byte aligned rows, "
+                         "strides a multiple of 8 elements)")
     if b * h > _MAX_ROWS or max(sq, sk) >= 2**31:
         raise ValueError("attention dimensions out of the kernel's range")
     if scale is None:

@@ -1,10 +1,15 @@
-"""Pre-LN transformer block, serving and forward half (port of
+"""Pre-LN transformer block: forward, train step and serving (port of
 ``param_tpu/models/transformer.py``).
 
 One block: x + MHA(LN(x)), then x + FFN(LN(x)) with a tanh-approximated
 gelu (``jax.nn.gelu``'s default).  Attention goes through
-:func:`param_tpu_torch.ops.attention.flash_mha` (K6) or the unfused
-:func:`~param_tpu_torch.ops.attention.mha_reference` (``attention="xla"``).
+:func:`param_tpu_torch.ops.attention.flash_mha` (K6 forward, K7 backward)
+or the unfused :func:`~param_tpu_torch.ops.attention.mha_reference`
+(``attention="xla"``).
+
+Training: :func:`make_train_step` is the reference's single-device step,
+loss mean(out^2), gradients of every parameter (LN pairs included) by
+autograd, plain SGD.
 
 Serving: :func:`prefill` fills a static (B, H_kv, cache_len, d) KV cache
 and :func:`decode_step` runs one token against it (GQA, optional sliding
@@ -15,8 +20,8 @@ projection of a decode step runs K5 on the card.
 
 Parameters are a plain dict, as in the reference: ``ln1`` / ``ln2``
 (gamma, beta) pairs and the matrices ``wqkv`` (E, E + 2 H_kv d), ``wo``,
-``w1``, ``w2``.  The train step and the sharded and pipeline steps belong
-to later slices (ROADMAP queue 1 item 9b).
+``w1``, ``w2``.  The sharded (tp) and pipeline steps wait for the
+multi-device slice (ROADMAP queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -124,6 +129,47 @@ def _ffn(params: Dict, x: torch.Tensor):
 def block_apply(params: Dict, x: torch.Tensor, cfg: TransformerConfig):
     """One pre-LN block: x + MHA(LN(x)), then x + FFN(LN(x))."""
     return _ffn(params, _attend(params, x, cfg)[0])
+
+
+def _leaves(params: Dict):
+    """The parameter tensors in a fixed order (LN pairs flattened)."""
+    return [t for key in sorted(params)
+            for t in (params[key] if isinstance(params[key], tuple)
+                      else (params[key],))]
+
+
+def _rebuild(params: Dict, leaves):
+    """A dict shaped like ``params`` holding ``leaves`` (from _leaves)."""
+    it = iter(leaves)
+    return {key: (tuple(next(it) for _ in params[key])
+                  if isinstance(params[key], tuple) else next(it))
+            for key in sorted(params)}
+
+
+def value_and_grad(params: Dict, x: torch.Tensor, cfg: TransformerConfig):
+    """(loss, grads): the reference's objective mean(block(x)^2) in f32 and
+    its gradient for every parameter (a dict shaped like ``params``)."""
+    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+    with torch.enable_grad():
+        out = block_apply(_rebuild(params, leaves), x, cfg)
+        loss = torch.mean(torch.square(out.float()))
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), _rebuild(params, grads)
+
+
+def make_train_step(cfg: TransformerConfig, lr: float = 1e-4):
+    """(params, x) -> (params', loss): forward, backward and an SGD update
+    ``(w.float() - lr g.float()).to(w.dtype)`` of every parameter, as the
+    reference's step.  Not in place: params' are new tensors and the
+    caller's are left as they were (the reference's functional update)."""
+
+    def step(params: Dict, x: torch.Tensor):
+        loss, grads = value_and_grad(params, x, cfg)
+        new = [(w.float() - lr * g.float()).to(w.dtype)
+               for w, g in zip(_leaves(params), _leaves(grads))]
+        return _rebuild(params, new), loss
+
+    return step
 
 
 def prefill(params: Dict, x: torch.Tensor, cfg: TransformerConfig,

@@ -1,5 +1,5 @@
-"""Multi-head attention, forward half: the unfused reference and the flash
-kernel K6 (port of ``param_tpu/ops/attention.py``).
+"""Multi-head attention: the unfused reference and the flash kernels, K6
+forward and K7 backward (port of ``param_tpu/ops/attention.py``).
 
 - :func:`mha_reference`: straight-line attention, the parity oracle and
   the unfused path (``xla`` in the benches): f32 scores from upcast
@@ -9,7 +9,10 @@ kernel K6 (port of ``param_tpu/ops/attention.py``).
   must divide by kv heads, causal needs S_q <= S_k, a window needs
   causal); ``block_q`` / ``block_k`` are only validated, since K6 picks
   its own tiles.
-- :func:`flash_mha`: the training path's dispatch, forward only until K7.
+- :func:`flash_attention_bwd`: K7 on the card, its plain version on the
+  CPU: (dq, dk, dv) from the forward's (o, lse) and the output gradient.
+- :func:`flash_mha`: the training path's dispatch, an autograd function
+  with K6 forward and K7 backward.
 - :func:`decode_attention`: one query token against a KV cache (the
   decode step's attention, plain PyTorch as the reference's is plain XLA).
 - :func:`make_attention`: the bench's path table (``xla``, ``flash``,
@@ -29,11 +32,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from param_tpu_torch.kernels.flash_bwd import flash_bwd, kernel_layout
 from param_tpu_torch.kernels.flash_fwd import attention_keep_mask, flash_fwd
 
 _NEG_INF = -1e30
-_NEEDS_K7 = ("the flash attention backward (K7) is not ported yet (ROADMAP "
-             "queue 1 item 9b: the transformer training slice)")
 
 
 def attention_flops(b: int, h: int, sq: int, sk: int, d: int,
@@ -88,16 +90,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           return_lse=False, window=window)
 
 
-def _flash_forward(q, k, v, *, causal, scale, block_q, block_k, return_lse,
-                   window=None):
-    """Forward body; with ``return_lse`` also the (B, H, S_q) f32
-    logsumexp of each row (the residual K7 will take)."""
-    h, sq = q.shape[1], q.shape[2]
-    h_kv, sk = k.shape[1], k.shape[2]
+def _check_blocks(sq, sk, block_q, block_k) -> None:
+    """The reference's guard: its Pallas grid needs blocks that divide the
+    sequences (the port's kernels pick their own tiles)."""
     block_q, block_k = min(block_q, sq), min(block_k, sk)
     if sq % block_q or sk % block_k:
         raise ValueError(f"seq ({sq},{sk}) must divide blocks "
                          f"({block_q},{block_k})")
+
+
+def _flash_forward(q, k, v, *, causal, scale, block_q, block_k, return_lse,
+                   window=None):
+    """Forward body; with ``return_lse`` also the (B, H, S_q) f32
+    logsumexp of each row (the residual K7 takes)."""
+    h, sq = q.shape[1], q.shape[2]
+    h_kv, sk = k.shape[1], k.shape[2]
+    _check_blocks(sq, sk, block_q, block_k)
     if h % h_kv:
         raise ValueError(f"q heads {h} must divide by kv heads {h_kv}")
     if causal and sk < sq:
@@ -113,36 +121,62 @@ def _flash_forward(q, k, v, *, causal, scale, block_q, block_k, return_lse,
     return flash_fwd(q, k, v, causal, scale, window, return_lse)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = False, scale: Optional[float] = None,
+                        block_q: int = 1024, block_k: int = 1024):
+    """Flash attention backward: (dq, dk, dv) from the saved (o, lse) and
+    the output gradient ``do``; K7 on CUDA tensors, its plain version on
+    CPU tensors.  ``lse`` is the port's (B, H, S_q) f32; ``block_q`` /
+    ``block_k`` are only validated, as in :func:`flash_attention`.  GQA (k
+    and v with fewer heads than q) is taken, with dk and dv summed over
+    each kv head's query group."""
+    _check_blocks(q.shape[2], k.shape[2], block_q, block_k)
+    return flash_bwd(q, k, v, o, lse, do, causal, scale)
+
+
 def _flash_mha_supported(q, k, causal) -> bool:
     sq, sk = q.shape[2], k.shape[2]
     bq, bk = min(1024, sq), min(1024, sk)
     return sq % bq == 0 and sk % bk == 0 and not (causal and sq > sk)
 
 
-class _FlashForward(torch.autograd.Function):
-    """K6 forward; its backward (K7) belongs to the training slice."""
+class _FlashMHA(torch.autograd.Function):
+    """K6 forward with the lse, K7 backward; the residuals are (q, k, v, o,
+    lse), O(S D) as in the reference."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        return flash_fwd(q, k, v, causal, scale)
+        o, lse = flash_fwd(q, k, v, causal, scale, None, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(_NEEDS_K7)
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, kernel_layout(do), ctx.causal,
+                               ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None):
-    """Training-path attention dispatch.  On CUDA tensors every shape runs
-    K6, which masks ragged sequence ends itself; causal S_q > S_k, which no
-    kernel of either package takes, raises.  On CPU tensors the shapes the
-    reference's Pallas grid cannot tile (S not a multiple of its 1024
-    block, causal S_q > S_k) fall back to :func:`mha_reference`, as the
-    reference does, so the two packages agree there.  The flash path is
-    forward only here: a backward through it raises until K7 is ported."""
+    """Training-path attention, flash in both directions: K6 forward and K7
+    backward on CUDA tensors at every shape K6 takes (ragged sequences and
+    GQA included; causal S_q > S_k, which no kernel of either package
+    takes, raises).  On CPU tensors the shapes the reference's Pallas grid
+    cannot tile (S not a multiple of its 1024 block, causal S_q > S_k) fall
+    back to :func:`mha_reference` in both directions, as the reference
+    does, and the others run the kernels' plain versions.  Without a
+    gradient to take (no input requires one, or grad mode is off) the
+    forward computes no lse."""
     if q.device.type == "cpu" and not _flash_mha_supported(q, k, causal):
         return mha_reference(q, k, v, causal=causal, scale=scale)
-    return _FlashForward.apply(q, k, v, causal, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashMHA.apply(q, k, v, causal, scale)
+    return flash_fwd(q, k, v, causal, scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -31,7 +31,8 @@ import torch
 
 from param_tpu_torch.models import transformer as tfm
 from param_tpu_torch.ops.attention import (
-    attention_flops, decode_attention, flash_attention, make_attention,
+    attention_flops, decode_attention, flash_attention, flash_mha,
+    make_attention,
 )
 from param_tpu_torch.ops.embedding import embedding_bag, embedding_bytes
 from param_tpu_torch.ops.matmul import (
@@ -46,9 +47,6 @@ from param_tpu_torch.utils.logger import ComputePerfMetrics, emit_metrics
 from param_tpu_torch.utils.timer import time_ms
 
 EMB_INDEX_SETS = 8  # shifted index sets cycled through by the emb bench
-_NEEDS_TRAINING_SLICE = (
-    "is not ported yet (ROADMAP queue 1 item 9b: the transformer training "
-    "slice with the flash attention backward K7)")
 
 
 @dataclass
@@ -225,9 +223,10 @@ def bench_attention(shapes: List[tuple], dtype: str = "bfloat16",
     """One result per (batch, heads, seq, head_dim) and path: 'xla' (the
     unfused :func:`mha_reference`), 'flash' (K6), 'dpa'
     (``F.scaled_dot_product_attention``).  TF/s from the causal-aware flop
-    count.  ``grad`` (forward + backward) needs K7, not ported yet."""
-    if grad:
-        raise NotImplementedError(f"attention --grad {_NEEDS_TRAINING_SLICE}")
+    count.  ``grad``: each call is a forward and a backward, the gradients
+    of q, k and v of sum(op(q, k, v)) as the reference's objective, through
+    autograd ('flash' through :func:`flash_mha`, K6 then K7); the flops are
+    7/2 of the forward's (2 products forward, 5 backward)."""
     dev = resolve_device(device)
     dt = dtype_from_name(dtype)
     peak = matmul_roofline_tflops(detect_chip(dev), dtype)
@@ -236,17 +235,35 @@ def bench_attention(shapes: List[tuple], dtype: str = "bfloat16",
         gen = torch.Generator(device=dev).manual_seed(0)
         q, k, v = (_randn(gen, (b, h, s, d), dt, dev) for _ in range(3))
         for path in paths or ["xla", "flash"]:
-            if path == "flash":
-                op = functools.partial(flash_attention, causal=causal,
-                                       block_q=block_q, block_k=block_k)
+            if grad:
+                op = (functools.partial(flash_mha, causal=causal)
+                      if path == "flash" else make_attention(path,
+                                                             causal=causal))
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+                def call(op=op, leaves=leaves):
+                    out = op(*leaves)
+                    return torch.autograd.grad(out.float().sum(), leaves)
+
+                per = time_ms(call, iters, dev, reps=reps) / 1e3
+                del leaves
             else:
-                op = make_attention(path, causal=causal)
-            with torch.no_grad():
-                per = time_ms(lambda: op(q, k, v), iters, dev, reps=reps) / 1e3
-            tf = attention_flops(b, h, s, s, d, causal) / per / 1e12
+                if path == "flash":
+                    op = functools.partial(flash_attention, causal=causal,
+                                           block_q=block_q, block_k=block_k)
+                else:
+                    op = make_attention(path, causal=causal)
+                with torch.no_grad():
+                    per = time_ms(lambda: op(q, k, v), iters, dev,
+                                  reps=reps) / 1e3
+            fl = attention_flops(b, h, s, s, d, causal)
+            if grad:
+                fl = fl * 7 // 2
+            tf = fl / per / 1e12
             results.append(_report(ComputeResult(
-                op=f"att:{path}", shape=(b, h, s, d), lat_us=per * 1e6,
-                tflops=tf, roofline_frac=tf / peak if peak else 0.0), dtype))
+                op=f"att{'-grad' if grad else ''}:{path}", shape=(b, h, s, d),
+                lat_us=per * 1e6, tflops=tf,
+                roofline_frac=tf / peak if peak else 0.0), dtype))
         del q, k, v
     return results
 
@@ -369,15 +386,16 @@ def transformer_block_flops(b: int, s: int, e: int, h: int, ff: int,
 def bench_transformer(shapes: List[tuple], dtype: str = "bfloat16",
                       causal: bool = True, paths: Optional[List[str]] = None,
                       iters: int = 8, reps: int = 2, grad: bool = True,
+                      lr: float = 1e-4,
                       device="cuda") -> List[ComputeResult]:
     """One result per (batch, seq, emb, heads, ffn) and attention path
-    ('flash': K6, 'xla': unfused): the block forward and the reference's
-    objective mean(out^2).  The train step (``grad``) needs K7, not ported
-    yet."""
-    if grad:
-        raise NotImplementedError(
-            f"transformer training (without --fwd-only) "
-            f"{_NEEDS_TRAINING_SLICE}")
+    ('flash': K6, and K7 when training; 'xla': unfused).  ``grad``: each
+    timed call is one train step of
+    :func:`~param_tpu_torch.models.transformer.make_train_step` (loss
+    mean(out^2), backward, SGD at ``lr``), the params carried from step to
+    step as the reference's scan carries them; else the block forward and
+    the objective under ``no_grad``.  TF/s from
+    :func:`transformer_block_flops`."""
     dev = resolve_device(device)
     dt = dtype_from_name(dtype)
     peak = matmul_roofline_tflops(detect_chip(dev), dtype)
@@ -389,22 +407,30 @@ def bench_transformer(shapes: List[tuple], dtype: str = "bfloat16",
             cfg = tfm.TransformerConfig(batch=b, seq=s, emb=e, heads=h,
                                         ffn=ff, causal=causal, attention=path,
                                         dtype=dtype)
-            params = tfm.init_params(
-                torch.Generator(device=dev).manual_seed(0), cfg, dev)
+            state = {"params": tfm.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg, dev)}
+            if grad:
+                train_step = tfm.make_train_step(cfg, lr=lr)
 
-            def step(params=params, cfg=cfg):
-                out = tfm.block_apply(params, x0, cfg)
-                return torch.mean(torch.square(out.float()))
+                def step(state=state, train_step=train_step):
+                    state["params"], loss = train_step(state["params"], x0)
+                    return loss
 
-            with torch.no_grad():
                 per = time_ms(step, iters, dev, reps=reps) / 1e3
+            else:
+                def step(state=state, cfg=cfg):
+                    out = tfm.block_apply(state["params"], x0, cfg)
+                    return torch.mean(torch.square(out.float()))
+
+                with torch.no_grad():
+                    per = time_ms(step, iters, dev, reps=reps) / 1e3
             tf = transformer_block_flops(b, s, e, h, ff, causal,
-                                         False) / per / 1e12
+                                         grad) / per / 1e12
             results.append(_report(ComputeResult(
-                op=f"tf-fwd:{path}", shape=(b, s, e, h, ff),
+                op=f"tf{'' if grad else '-fwd'}:{path}", shape=(b, s, e, h, ff),
                 lat_us=per * 1e6, tflops=tf,
                 roofline_frac=tf / peak if peak else 0.0), dtype))
-            del params
+            del state
     return results
 
 

@@ -7,9 +7,14 @@ kernel runs in interpret mode, as ``tests/test_attention.py`` runs it; the
 port's ``flash_attention`` runs K6's plain version on CPU tensors.
 Tolerances are those of ``tests/test_attention.py``: f32 2e-5 (sums in
 another order), bf16 2e-2 (the reference rounds P to bf16 before the PV
-product, the port's plain version does not); lse 1e-5 (f32 throughout).
+product, and in the backward P and dS before their products, the port's
+plain versions do not: at most about two bf16 ulps of the largest
+gradients); lse 1e-5 (f32 throughout).  The backward's oracle is the
+reference's Pallas backward where it runs, and ``jax.grad`` of its
+``mha_reference`` for GQA, which its Pallas backward cannot take.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,18 +172,120 @@ def test_flash_mha_forward_and_fallback():
     _close(got, ja.mha_reference(jq, jk, jv, causal=True), 2e-5)
 
 
-def test_flash_mha_backward_needs_the_training_slice():
+@pytest.mark.parametrize("causal,sq,sk,bq", [
+    (True, 256, 256, 128),    # the reference's compacted lower-triangle walk
+    (False, 256, 256, 128),   # its rectangular dq / dkv grids
+    (True, 128, 256, 128),    # S_q < S_k, diagonal bottom-right
+    (True, 256, 256, 256),    # a single causal tile
+])
+def test_flash_attention_bwd_matches_reference_kernel(causal, sq, sk, bq):
+    """K7's plain version against the reference's Pallas dq / dkv kernels
+    (interpret mode), each from its own forward's (o, lse)."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(
+        [(1, 2, sq, 128), (1, 2, sk, 128), (1, 2, sk, 128), (1, 2, sq, 128)],
+        seed=20)
+    jo, jlse = ja._flash_forward(jq, jk, jv, causal=causal, scale=None,
+                                 block_q=bq, block_k=bq, interpret=None,
+                                 return_lse=True, pack_heads=False)
+    want = ja.flash_attention_bwd(jq, jk, jv, jo, jlse, jg, causal=causal,
+                                  block_q=bq, block_k=bq)
+    to, tlse = ta._flash_forward(tq, tk, tv, causal=causal, scale=None,
+                                 block_q=bq, block_k=bq, return_lse=True)
+    got = ta.flash_attention_bwd(tq, tk, tv, to, tlse, tg, causal=causal,
+                                 block_q=bq, block_k=bq)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close(g, w, 2e-5)
+
+
+def test_flash_attention_bwd_raises_like_reference():
+    (jq, jg), (tq, tg) = _inputs([(1, 2, 256, 64), (1, 2, 256, 64)])
+    jlse = jnp.zeros((2, 256, 128), jnp.float32)
+    with pytest.raises(ValueError, match="divide blocks"):
+        ja.flash_attention_bwd(jq, jq, jq, jq, jlse, jg, block_q=96)
+    with pytest.raises(ValueError, match="divide blocks"):
+        ta.flash_attention_bwd(tq, tq, tq, tq, torch.zeros((1, 2, 256)), tg,
+                               block_q=96)
+
+
+def _grads(fn, q, k, v, g):
+    """Gradients of q, k, v of sum(fn(q, k, v) * g) under autograd."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad((fn(*leaves).float() * g.float()).sum(),
+                               leaves)
+
+
+def _jax_grads(fn, q, k, v, g):
+    return jax.grad(lambda q, k, v: jnp.sum(
+        fn(q, k, v).astype(jnp.float32) * g.astype(jnp.float32)),
+        argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,d,causal", [
+    ("float32", 64, True), ("float32", 128, False), ("bfloat16", 64, True),
+    ("bfloat16", 128, True)])
+def test_flash_mha_grads_match_reference(dtype, d, causal):
+    """flash_mha's gradients (K6 and K7's plain versions) against
+    ``jax.grad`` of the reference's flash_mha (its Pallas kernels in both
+    directions)."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs([(1, 2, 128, d)] * 4, dtype,
+                                                 seed=d)
+    want = _jax_grads(lambda q, k, v: ja.flash_mha(q, k, v, causal),
+                      jq, jk, jv, jg)
+    got = _grads(lambda q, k, v: ta.flash_mha(q, k, v, causal), tq, tk, tv,
+                 tg)
+    for g, w in zip(got, want):
+        assert g.dtype == tq.dtype
+        _close(g, w, _TOL[dtype])
+
+
+@pytest.mark.parametrize("h,h_kv", [(8, 2), (4, 1)])
+def test_flash_mha_gqa_grads_match_mha_reference_grad(h, h_kv):
+    """GQA: the reference's Pallas backward reshapes K / V to B*H heads and
+    fails, so the oracle is ``jax.grad`` of its mha_reference; dk and dv
+    sum over each kv head's query group."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(
+        [(1, h, 128, 64), (1, h_kv, 128, 64), (1, h_kv, 128, 64),
+         (1, h, 128, 64)], seed=h)
+    want = _jax_grads(lambda q, k, v: ja.mha_reference(q, k, v, causal=True),
+                      jq, jk, jv, jg)
+    got = _grads(lambda q, k, v: ta.flash_mha(q, k, v, True), tq, tk, tv, tg)
+    assert got[1].shape == (1, h_kv, 128, 64)
+    for g, w in zip(got, want):
+        _close(g, w, 2e-5)
+
+
+def test_flash_mha_fallback_grads_match_reference():
+    """Causal S_q > S_k: both packages fall back to the unfused path, whose
+    gradients come from autograd (jax.grad) of plain operations."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(
+        [(1, 2, 64, 32), (1, 2, 32, 32), (1, 2, 32, 32), (1, 2, 64, 32)],
+        seed=12)
+    want = _jax_grads(lambda q, k, v: ja.flash_mha(q, k, v, True),
+                      jq, jk, jv, jg)
+    got = _grads(lambda q, k, v: ta.flash_mha(q, k, v, True), tq, tk, tv, tg)
+    for g, w in zip(got, want):
+        _close(g, w, 2e-5)
+
+
+def test_flash_mha_asks_for_the_lse_only_for_a_gradient(monkeypatch):
+    """The forward-only paths pay nothing for training: flash_mha requests
+    the lse from K6 only when a gradient will be taken."""
+    calls = []
+    real = ta.flash_fwd
+
+    def spy(*args):
+        calls.append(args[-1] if len(args) == 7 else False)
+        return real(*args)
+
+    monkeypatch.setattr(ta, "flash_fwd", spy)
     _, (tq, tk, tv) = _inputs([(1, 2, 64, 32)] * 3, seed=11)
-    tq.requires_grad_(True)
-    out = ta.flash_mha(tq, tk, tv, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
-    # the unfused fallback differentiates as plain PyTorch
-    _, (q2, k2, v2) = _inputs([(1, 2, 64, 32), (1, 2, 32, 32),
-                               (1, 2, 32, 32)], seed=12)
-    q2.requires_grad_(True)
-    ta.flash_mha(q2, k2, v2, True).sum().backward()
-    assert q2.grad is not None and torch.isfinite(q2.grad).all()
+    ta.flash_mha(tq, tk, tv, True)
+    with torch.no_grad():
+        ta.flash_mha(tq.requires_grad_(True), tk, tv, True)
+    assert calls == [False, False]
+    ta.flash_mha(tq, tk, tv, True).sum().backward()
+    assert calls == [False, False, True] and tq.grad is not None
 
 
 @pytest.mark.parametrize("path", ["xla", "flash", "dpa"])

@@ -167,13 +167,69 @@ def test_serving_subcommands_on_cpu(argv, ops, capsys):
         assert float(row.split(")")[-1].split()[0]) > 0  # latency
 
 
-@pytest.mark.parametrize("argv", [
-    ["transformer", "--shape", "1,16,64,2,64"],
-    ["attention", "--shape", "1,2,64,32", "--grad"],
+@pytest.mark.parametrize("argv,ops", [
+    (["transformer", "--shape", "2,64,128,4,256"], ["tf:flash", "tf:xla"]),
+    (["attention", "--shape", "1,2,128,64", "--grad", "--paths",
+      "xla,flash,dpa"], ["att-grad:xla", "att-grad:flash", "att-grad:dpa"]),
 ])
-def test_training_halves_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv + ["--device", "cpu"])
+def test_training_subcommands_on_cpu(argv, ops, capsys):
+    """The training halves: the block's train step (the default of
+    ``transformer``) and ``attention --grad``, one row per path."""
+    assert cli.main(argv + ["--chain", "1", "--reps", "1", "--device",
+                            "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "COMPUTE-RES chip=cpu" in out
+    for op in ops:
+        (row,) = _table_rows(out, re.escape(op))
+        assert float(row.split(")")[-1].split()[0]) > 0  # latency
+
+
+def test_bench_attention_grad_formulas_and_gradients(monkeypatch):
+    """attention --grad: 7/2 of the forward's flops, as the reference; each
+    timed call returns the gradients of q, k and v, equal on every path."""
+    from param_tpu.ops.attention import attention_flops as j_af
+
+    grads = {}
+
+    def run_once(fn, *a, **k):
+        grads[len(grads)] = fn()
+        return T_MS
+
+    monkeypatch.setattr(cb, "time_ms", run_once)
+    res = cb.bench_attention([(1, 2, 64, 32)], dtype="float32",
+                             paths=["xla", "flash", "dpa"], grad=True,
+                             device="cpu")
+    tf = j_af(1, 2, 64, 64, 32, True) * 7 // 2 / (T_MS / 1e3) / 1e12
+    assert [r.op for r in res] == ["att-grad:xla", "att-grad:flash",
+                                   "att-grad:dpa"]
+    for r in res:
+        assert r.tflops == pytest.approx(tf)
+    for path in (1, 2):
+        for got, want in zip(grads[path], grads[0]):
+            assert got.shape == (1, 2, 64, 32)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_bench_transformer_train_formulas_and_steps(monkeypatch):
+    """transformer (training): flops from transformer_block_flops with
+    grad, as the reference; every timed call is a real step on the params
+    the last one left (the loss falls)."""
+    from param_tpu.ops.compute_bench import transformer_block_flops as j_tbf
+
+    losses = []
+
+    def run_steps(fn, *a, **k):
+        losses.extend(float(fn()) for _ in range(4))
+        return T_MS
+
+    monkeypatch.setattr(cb, "time_ms", run_steps)
+    shape = (2, 32, 64, 2, 128)
+    (r,) = cb.bench_transformer([shape], dtype="float32", paths=["flash"],
+                                lr=0.1, device="cpu")
+    assert r.op == "tf:flash"
+    assert r.tflops == pytest.approx(j_tbf(*shape, True, True)
+                                     / (T_MS / 1e3) / 1e12)
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
 
 
 @pytest.mark.parametrize("shape", [(8, 1024, 768, 12, 3072),

@@ -1,4 +1,4 @@
-"""K1-K6 against numpy (plain versions, on the CPU) and against their plain
+"""K1-K7 against numpy (plain versions, on the CPU) and against their plain
 versions (CUDA kernels, on the card).
 
 This file imports neither JAX nor the reference package, so it also runs on
@@ -16,7 +16,12 @@ f32 sum on each side).  K6 (flash attention) on unit-scale inputs: f32
 2e-5 absolute (the reference's flash tolerance); bf16 / f16 every element
 within its own bound, ``flash_fwd_tolerance`` (one rounding of O on each
 side and P rounded to the input dtype before the PV product), and 2e-2
-absolute over the whole output; lse 1e-4 absolute.
+absolute over the whole output; lse 1e-4 absolute.  K7 (flash-attention
+backward) every element of dq, dk and dv within its own bound,
+``flash_bwd_tolerance`` (f32: 2^-14 of the element's magnitude terms; bf16
+/ f16: one rounding of each output per side, and P and dS rounded to the
+input dtype before their products); the plain version against autograd of
+K6's plain version 2e-5 (f32 sums in another order).
 """
 
 import math
@@ -27,6 +32,9 @@ import torch
 
 from param_tpu_torch import kernels
 from param_tpu_torch.kernels.emb_gather import emb_gather_cuda, emb_gather_plain
+from param_tpu_torch.kernels.flash_bwd import (
+    flash_bwd_cuda, flash_bwd_plain, flash_bwd_tolerance, kernel_layout,
+)
 from param_tpu_torch.kernels.flash_fwd import (
     attention_keep_mask, flash_fwd_cuda, flash_fwd_plain, flash_fwd_tolerance,
 )
@@ -456,3 +464,218 @@ def test_block_apply_runs_k6_where_the_reference_falls_back(cuda_device):
     assert kernels.launch_counts["flash_fwd"] == before + 1
     ref = want.abs().max().item()
     assert (got.cpu() - want).abs().max().item() <= 1e-4 * ref
+
+
+# ------------------------------------------------------------------ K7
+def _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype=torch.float32, seed=0,
+                device="cpu"):
+    """q, k, v, o, lse, do: o and lse from K6's plain version (K6 itself on
+    the card), do from the seeded generator."""
+    q, k, v = (t.to(device, dtype) for t in _attn(b, h, hkv, sq, sk, d,
+                                                   seed=seed))
+    fwd = flash_fwd_cuda if q.device.type == "cuda" else flash_fwd_plain
+    o, lse = fwd(q, k, v, causal, None, None, return_lse=True)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d),
+                                              dtype=np.float32))
+    return q, k, v, o, lse, do.to(device, dtype)
+
+
+_K7_CPU_CASES = [(2, 4, 4, 7, 7, 8, True), (2, 4, 2, 5, 9, 8, True),
+                 (1, 4, 1, 6, 6, 8, False), (1, 2, 2, 3, 11, 16, True),
+                 (2, 6, 3, 9, 9, 4, False)]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", _K7_CPU_CASES)
+def test_flash_bwd_plain_matches_autograd(b, h, hkv, sq, sk, d, causal):
+    """The plain backward from (o, lse) equals autograd straight through
+    K6's plain version (GQA: autograd sums the repeated kv heads)."""
+    q, k, v, _, _, do = _bwd_inputs(b, h, hkv, sq, sk, d, causal, seed=sq)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_fwd_plain(*leaves, causal, None, None, return_lse=True)
+    want = torch.autograd.grad(o, leaves, do)
+    got = flash_bwd_plain(q, k, v, o.detach(), lse.detach(), do, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_bwd_plain_raises_on_bad_shapes():
+    q, k, v, o, lse, do = _bwd_inputs(1, 2, 2, 8, 8, 8, False)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_plain(q, k, v, o, lse[:, :, :4], do)
+    with pytest.raises(ValueError, match="shape"):
+        flash_bwd_plain(q, k, v, o[:, :1], lse, do)
+    with pytest.raises(NotImplementedError, match="S_q <= S_k"):
+        flash_bwd_plain(q, k[:, :, :4], v[:, :, :4], o, lse, do, True)
+
+
+def test_kernel_layout_copies_only_what_the_kernel_cannot_read():
+    x = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    heads = x.transpose(1, 2)  # (2, 4, 8, 64): strided, last dim contiguous
+    assert kernel_layout(heads) is heads
+    summed = torch.ones((), dtype=torch.bfloat16).expand(2, 4, 8, 64)
+    assert summed.stride(-1) == 0
+    out = kernel_layout(summed)
+    assert out.is_contiguous() and torch.equal(out, summed)
+
+
+def _k7_roundings(q, k, v, o, lse, do, causal):
+    """K7's roundings on the CPU: f32 P, dP and D; P rounded to the input
+    dtype before P^T dO, dS before dS K and dS^T Q; outputs rounded once."""
+    group = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = q.float() @ kf.transpose(-1, -2) * scale
+    p = torch.exp(s - lse[..., None])
+    keep = attention_keep_mask(q.shape[2], k.shape[2], causal, None, "cpu")
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = do.float() @ vf.transpose(-1, -2)
+    ds = p * (dp - (do.float() * o.float()).sum(-1, keepdim=True)) * scale
+    pr, dsr = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    b, h, sq, d = q.shape
+
+    def gsum(t):
+        return t.reshape(b, k.shape[1], group, k.shape[2], d).sum(2)
+
+    return ((dsr @ kf).to(q.dtype),
+            gsum(dsr.transpose(-1, -2) @ q.float()).to(k.dtype),
+            gsum(pr.transpose(-1, -2) @ do.float()).to(v.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 4, 4, 256, 256, 128, True), (2, 3, 3, 192, 192, 64, False),
+    (1, 4, 2, 100, 300, 32, True)])
+def test_flash_bwd_tolerance_holds_k7_roundings(dtype, b, h, hkv, sq, sk, d,
+                                                causal):
+    """The per-element bounds admit outputs rounded as K7 rounds them."""
+    ins = _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, seed=sq + d)
+    want = flash_bwd_plain(*ins, causal)
+    tols = flash_bwd_tolerance(*ins, want, causal)
+    for got, w, tol in zip(_k7_roundings(*ins, causal), want, tols):
+        diff = (got.float() - w.float()).abs()
+        assert diff.max().item() > 0 and (diff <= tol).all(), \
+            (diff / tol).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_flash_bwd_tolerance_flags_a_dropped_kv_entry(dtype):
+    """Each row's diagonal kv entry dropped (row r attends 0..r-1, the true
+    lse kept): dq, dk and dv each have elements over their bounds."""
+    q, k, v, o, lse, do = _bwd_inputs(1, 4, 4, 256, 256, 64, True, dtype,
+                                      seed=3)
+    want = flash_bwd_plain(q, k, v, o, lse, do, True)
+    tols = flash_bwd_tolerance(q, k, v, o, lse, do, want, True)
+    bad = flash_bwd_plain(q[:, :, 1:], k[:, :, :-1], v[:, :, :-1],
+                          o[:, :, 1:], lse[:, :, 1:], do[:, :, 1:], True)
+    for i, cut in enumerate((slice(1, None), slice(None, -1),
+                             slice(None, -1))):
+        diff = (bad[i].float() - want[i][:, :, cut].float()).abs()
+        assert (diff > tols[i][:, :, cut]).any(), "qkv"[i]
+
+
+# (B, H, H_kv, S_q, S_k, D, causal): the chip_smoke phase-14 cases cut
+# down, at head dims 32, 64 and 128, with ragged and rectangular lengths
+_K7_CASES = [
+    (1, 4, 4, 256, 256, 128, True),
+    (2, 3, 3, 192, 192, 64, False),
+    (1, 4, 1, 256, 256, 128, True),
+    (1, 4, 2, 200, 200, 64, True),
+    (1, 2, 2, 64, 320, 128, True),
+    (1, 3, 3, 250, 250, 128, True),
+    (2, 2, 2, 100, 100, 32, True),
+    (1, 4, 2, 100, 300, 32, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", _K7_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
+                                        d, causal):
+    ins = _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, seed=sq + d,
+                      device=cuda_device)
+    before = kernels.launch_counts["flash_bwd"]
+    got = flash_bwd_cuda(*ins, causal)
+    want = flash_bwd_plain(*ins, causal)
+    tols = flash_bwd_tolerance(*ins, want, causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_bwd"] == before + 1
+    for g, w, tol in zip(got, want, tols):
+        assert g.dtype == dtype and g.shape == w.shape and g.is_contiguous()
+        diff = (g.float() - w.float()).abs()
+        assert (diff <= tol).all(), (diff / tol).max().item()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_takes_strided_heads(cuda_device):
+    """q, k, v split out of a fused (B, S, 3 H D) projection and dO the
+    transposed-head gradient of (B, S, H D), as the block passes them."""
+    b, s, h, d = 2, 130, 4, 64
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d),
+                                               dtype=np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(h * d, dim=-1))
+    g = torch.from_numpy(rng.standard_normal((b, s, h * d), dtype=np.float32))
+    do = g.to(cuda_device, torch.bfloat16).reshape(b, s, h, d).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = flash_fwd_cuda(q, k, v, True, return_lse=True)
+    got = flash_bwd_cuda(q, k, v, o, lse, do, True)
+    dense = [t.contiguous() for t in (q, k, v, o)] + [lse, do.contiguous()]
+    want = flash_bwd_plain(*dense, True)
+    tols = flash_bwd_tolerance(*dense, want, True)
+    torch.cuda.synchronize()
+    for x, w, tol in zip(got, want, tols):
+        assert ((x.float() - w.float()).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_raises_on_what_it_does_not_take(cuda_device):
+    ins = _bwd_inputs(1, 2, 2, 64, 64, 64, True, torch.bfloat16,
+                      device=cuda_device)
+    q, k, v, o, lse, do = ins
+    with pytest.raises(TypeError, match="lse"):
+        flash_bwd_cuda(q, k, v, o, lse.bfloat16(), do)
+    with pytest.raises(TypeError):
+        flash_bwd_cuda(q, k, v, o, lse, do.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd_cuda(q, k, v, o, lse, do.transpose(2, 3))
+    x = torch.ones((1, 2, 16, 96), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_bwd_cuda(x, x, x, x, torch.zeros((1, 2, 16),
+                                               device=cuda_device), x)
+
+
+@pytest.mark.cuda
+def test_block_apply_backward_runs_k7(cuda_device):
+    """At S = 1536 (the reference's CPU fallback shape) the block's
+    gradients on the card come from K6 and K7, once each, and agree with
+    the CPU's unfused path."""
+    from param_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(batch=1, seq=1536, emb=256, heads=4, ffn=512,
+                                dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    x_cpu = torch.randn((1, 1536, 256),
+                        generator=torch.Generator().manual_seed(1)) * 0.1
+    p_gpu = {key: (tuple(t.to(cuda_device) for t in val)
+                   if isinstance(val, tuple) else val.to(cuda_device))
+             for key, val in p_cpu.items()}
+    kernels.reset_launch_counts()
+    loss_g, grads_g = tfm.value_and_grad(p_gpu, x_cpu.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_fwd"] == 1
+    assert kernels.launch_counts["flash_bwd"] == 1
+    loss_c, grads_c = tfm.value_and_grad(p_cpu, x_cpu, cfg)
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * loss_c.item()
+    for key in ("wqkv", "wo", "w1", "w2"):
+        want = grads_c[key]
+        err = (grads_g[key].cpu() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), key
