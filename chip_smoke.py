@@ -64,11 +64,14 @@ Phases (any failure exits non-zero):
      bf16 / int4 decode step at batch 1 and 32.
  14. K7 (flash-attention backward) against its plain version (f32 on
      upcast inputs) from K6's output and lse and a random dO: llama2 (1,
-     32, 2048, 128) causal, gpt2 (8, 12, 1024, 64), GQA 32 / 8 heads, S_q
-     128 < S_k 2048 causal, f32 (1, 4, 512, 64), a ragged length 1000 and
-     head dim 32; every element of dq, dk and dv within its own bound
-     (``flash_bwd_tolerance``), which must flag a planted fault (a dropped
-     diagonal kv entry) in each; library call
+     32, 2048, 128) causal, contiguous and in the train step's layout
+     (q / k / v strided head views of one fused projection, dO a
+     transposed-head view), the other ATTN_LLAMA2 shapes (1, 32, 4096,
+     128) and (4, 32, 2048, 128) causal, gpt2 (8, 12, 1024, 64), GQA 32 /
+     8 heads, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64), a ragged
+     length 1000 and head dim 32; every element of dq, dk and dv within
+     its own bound (``flash_bwd_tolerance``), which must flag a planted
+     fault (a dropped diagonal kv entry) in each; library call
      aten._scaled_dot_product_flash_attention_backward on SDPA's own
      forward residuals where it computes the same function.
  15. Train-step parity: a small block (emb 512, 8 heads; f32, f32 GQA and
@@ -958,11 +961,26 @@ def main(out_path=None) -> int:
         return rec
 
     def k7_case(name, b, h, hkv, sq, sk, d, causal, dt, iters, fault=False,
-                no_library=None):
-        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
-        do = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+                no_library=None, fused=False):
+        """``fused``: q, k, v are the strided head views of one (b, s,
+        (h + 2 hkv) d) projection and dO the transposed-head view of a
+        (b, s, h d) gradient, as the train step hands them to K7."""
+        if fused:
+            y = torch.randn((b, sq, (h + 2 * hkv) * d), generator=gen,
+                            device=dev).to(dt)
+            cfg = tfm.TransformerConfig(batch=b, seq=sq, emb=h * d, heads=h,
+                                        ffn=1, kv_heads=hkv)
+            q, k, v = tfm._split_heads(y, cfg, b, sq)
+            do = torch.randn((b, sq, h * d), generator=gen,
+                             device=dev).to(dt).reshape(b, sq, h, d)
+            do = do.transpose(1, 2)
+            if any(t.is_contiguous() for t in (q, k, v, do)):
+                fail(f"K7 {name}: an input is not a strided view")
+        else:
+            q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
+            do = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
         o, lse = flash_fwd_cuda(q, k, v, causal, None, None, True)  # K6
         ins = (q, k, v, o, lse, do)
         got = flash_bwd_cuda(*ins, causal)
@@ -989,7 +1007,8 @@ def main(out_path=None) -> int:
                    + do.numel()) * q.element_size() + lse.numel() * 4)
         b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32)
         shape = (f"q ({b}, {h}, {sq}, {d}) k/v ({b}, {hkv}, {sk}, {d}) "
-                 f"{str(dt)[6:]}{' causal' if causal else ''}")
+                 f"{str(dt)[6:]}{' causal' if causal else ''}"
+                 f"{' strided (fused qkv, transposed dO)' if fused else ''}")
         rec.update(shape=shape, max_abs_err=err, err_over_bound=ratio,
                    bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
                    tflops=flops / rec["ms"] / 1e9, planted_fault=fault_rec,
@@ -1015,6 +1034,12 @@ def main(out_path=None) -> int:
               "repeats K / V outside the kernel")
     k7_case("llama2_causal", 1, 32, 32, 2048, 2048, 128, True, bf16, 20,
             fault=True)
+    # the train step's layout, and the other two ATTN_LLAMA2 shapes of
+    # attention --dataset llama2 --grad
+    k7_case("llama2_fused", 1, 32, 32, 2048, 2048, 128, True, bf16, 20,
+            fused=True)
+    k7_case("llama2_s4096", 1, 32, 32, 4096, 4096, 128, True, bf16, 10)
+    k7_case("llama2_b4", 4, 32, 32, 2048, 2048, 128, True, bf16, 10)
     k7_case("gpt2", 8, 12, 12, 1024, 1024, 64, False, bf16, 20)
     k7_case("gqa_causal", 1, 32, 8, 2048, 2048, 128, True, bf16, 20,
             no_library=no_gqa)
@@ -1028,11 +1053,6 @@ def main(out_path=None) -> int:
     result["phases"]["k7"] = k7
 
     # ---------------------------------------------------------------- 15
-    def flat(params):
-        return [t for key in sorted(params)
-                for t in (params[key] if isinstance(params[key], tuple)
-                          else (params[key],))]
-
     def bf16_ulp(x):
         return torch.exp2(torch.floor(torch.log2(
             x.abs().clamp_min(2.0 ** -126))) - 7)
@@ -1048,7 +1068,7 @@ def main(out_path=None) -> int:
                  * 0.1).to(p_cpu["w1"].dtype)
         p_gpu, x_gpu = to_dev(p_cpu), x_cpu.to(dev)
         step = tfm.make_train_step(cfg, lr=lr)
-        p0 = flat(p_cpu)
+        p0 = tfm.leaves(p_cpu)
         worst_loss = worst_param = 0.0
         for t in range(2):
             p_cpu, l_cpu = step(p_cpu, x_cpu)
@@ -1064,7 +1084,8 @@ def main(out_path=None) -> int:
             if not rel <= (1e-5 if dtype == "float32" else 2e-3):
                 fail(f"phase 15 {dtype} kv_heads {kv_heads} step {t}: loss "
                      f"card {l_gpu.item()} CPU {l_cpu.item()}")
-        for got, want, before in zip(flat(p_gpu), flat(p_cpu), p0):
+        for got, want, before in zip(tfm.leaves(p_gpu), tfm.leaves(p_cpu),
+                                     p0):
             got, want = got.float().cpu(), want.float()
             diff = (got - want).abs()
             if dtype == "float32":

@@ -58,21 +58,17 @@ def adagrad_state_from_jax(np_acc, device="cuda"):
     return _convert(np_acc, resolve_device(device), False)
 
 
-def transformer_params_from_jax(np_params, device="cuda",
-                                requires_grad: bool = False):
+def transformer_params_from_jax(np_params, device="cuda"):
     """A transformer block's parameters from the reference (numpy leaves,
     bf16 ones as ``ml_dtypes.bfloat16``) as the port's, bit for bit: LN
     (gamma, beta) pairs, plain matrices, int8 (weights, scales) pairs and
-    int4 (carriers, scales, group) triples; the group stays an int.
-    ``requires_grad`` marks the float tensors as leaves to differentiate
-    (for training from the reference's weights)."""
+    int4 (carriers, scales, group) triples; the group stays an int."""
     dev = resolve_device(device)
 
     def leaf(x):
         if np.ndim(x) == 0 and np.asarray(x).dtype.kind in "iu":
             return int(x)  # the int4 group size
-        t = _tensor(x, dev)
-        return t.requires_grad_(requires_grad and t.is_floating_point())
+        return _tensor(x, dev)
 
     def conv(v):
         return tuple(map(leaf, v)) if isinstance(v, (tuple, list)) else leaf(v)

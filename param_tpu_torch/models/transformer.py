@@ -131,16 +131,17 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: TransformerConfig):
     return _ffn(params, _attend(params, x, cfg)[0])
 
 
-def _leaves(params: Dict):
-    """The parameter tensors in a fixed order (LN pairs flattened)."""
+def leaves(params: Dict):
+    """The parameter tensors in a fixed order (LN pairs flattened).  Takes
+    the reference's params too, whose LN pairs are tuples as well."""
     return [t for key in sorted(params)
             for t in (params[key] if isinstance(params[key], tuple)
                       else (params[key],))]
 
 
-def _rebuild(params: Dict, leaves):
-    """A dict shaped like ``params`` holding ``leaves`` (from _leaves)."""
-    it = iter(leaves)
+def _rebuild(params: Dict, ts):
+    """A dict shaped like ``params`` holding ``ts`` (in leaves' order)."""
+    it = iter(ts)
     return {key: (tuple(next(it) for _ in params[key])
                   if isinstance(params[key], tuple) else next(it))
             for key in sorted(params)}
@@ -149,11 +150,11 @@ def _rebuild(params: Dict, leaves):
 def value_and_grad(params: Dict, x: torch.Tensor, cfg: TransformerConfig):
     """(loss, grads): the reference's objective mean(block(x)^2) in f32 and
     its gradient for every parameter (a dict shaped like ``params``)."""
-    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+    ts = [t.detach().requires_grad_(True) for t in leaves(params)]
     with torch.enable_grad():
-        out = block_apply(_rebuild(params, leaves), x, cfg)
+        out = block_apply(_rebuild(params, ts), x, cfg)
         loss = torch.mean(torch.square(out.float()))
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, ts)
     return loss.detach(), _rebuild(params, grads)
 
 
@@ -166,7 +167,7 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-4):
     def step(params: Dict, x: torch.Tensor):
         loss, grads = value_and_grad(params, x, cfg)
         new = [(w.float() - lr * g.float()).to(w.dtype)
-               for w, g in zip(_leaves(params), _leaves(grads))]
+               for w, g in zip(leaves(params), leaves(grads))]
         return _rebuild(params, new), loss
 
     return step

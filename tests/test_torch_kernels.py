@@ -613,10 +613,11 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
 
 
 @pytest.mark.cuda
-def test_flash_bwd_kernel_takes_strided_heads(cuda_device):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_kernel_takes_strided_heads(cuda_device, d):
     """q, k, v split out of a fused (B, S, 3 H D) projection and dO the
     transposed-head gradient of (B, S, H D), as the block passes them."""
-    b, s, h, d = 2, 130, 4, 64
+    b, s, h = 2, 130, 4
     rng = np.random.default_rng(6)
     qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d),
                                                dtype=np.float32))

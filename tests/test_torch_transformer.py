@@ -10,12 +10,13 @@ at different places of LN, gelu and the matmuls); weight-only int8 / int4
 steps in an f32 model 2e-5 (the same exact integer products and f32 sums,
 x rounded to bf16 on both sides); quantized weights and the nibble packing
 exactly.  Training (two SGD steps at lr 0.1 in f32 and 1.0 in bf16,
-where the update then moves most weights by one or more ulps): f32 losses 1e-6 and params 2e-5, gradients 1e-4 of
-the largest (sums in another order); bf16 losses 2e-3 relative, gradients
-2e-2 of the largest (bf16 rounding at other places of the forward and
-backward), every param within two bf16 ulps of the larger of the two
-values (each step's rounding of the update may flip) plus 2e-2 of that
-parameter's largest update (the gradients' tolerance carried through).
+where the update then moves most weights by one or more ulps): f32 losses
+1e-6 and params 2e-5, gradients 1e-4 of the largest (sums in another
+order); bf16 losses 2e-3 relative, gradients 2e-2 of the largest (bf16
+rounding at other places of the forward and backward), every param within
+two bf16 ulps of the larger of the two values (each step's rounding of the
+update may flip) plus 2e-2 of that parameter's largest update (the
+gradients' tolerance carried through).
 """
 
 import jax
@@ -37,10 +38,10 @@ def _cfgs(**kw):
     return jt.TransformerConfig(**base), tt.TransformerConfig(**base)
 
 
-def _params(jcfg, seed=0, requires_grad=False):
+def _params(jcfg, seed=0):
     jp = jt.init_params(jax.random.PRNGKey(seed), jcfg)
     np_p = jax.tree.map(np.asarray, jp)
-    return jp, transformer_params_from_jax(np_p, "cpu", requires_grad)
+    return jp, transformer_params_from_jax(np_p, "cpu")
 
 
 def _x(cfg, seed=1, seq=None):
@@ -241,12 +242,6 @@ def _train_cfgs(**kw):
     return _cfgs(**base)
 
 
-def _leaves(p):
-    """Parameter tensors (torch or numpy) in a fixed order."""
-    return [t for key in sorted(p)
-            for t in (p[key] if isinstance(p[key], tuple) else (p[key],))]
-
-
 def _bf16_ulp(x):
     """One bf16 ulp of each |x| (2^-133 at zero)."""
     x = np.maximum(np.abs(x), 2.0 ** -126)
@@ -264,8 +259,8 @@ def test_train_step_matches_reference(dtype, attention):
     lr = 0.1 if dtype == "float32" else 1.0
     jstep, tstep = jt.make_train_step(jcfg, lr=lr), \
         tt.make_train_step(tcfg, lr=lr)
-    tp0 = [t.clone() for t in _leaves(tp)]
-    jp0 = _leaves(jp)
+    tp0 = [t.clone() for t in tt.leaves(tp)]
+    jp0 = tt.leaves(jp)
     for _ in range(2):
         jp, jloss = jstep(jp, jx)
         tp_new, tloss = tstep(tp, tx)
@@ -276,7 +271,7 @@ def test_train_step_matches_reference(dtype, attention):
             assert abs(tloss.item() - float(jloss)) <= 2e-3 * float(jloss)
         tp = tp_new
     moved = 0
-    for got, want, before, jbefore in zip(_leaves(tp), _leaves(jp), tp0,
+    for got, want, before, jbefore in zip(tt.leaves(tp), tt.leaves(jp), tp0,
                                           jp0):
         want = np.asarray(want, np.float32)
         assert got.dtype == before.dtype
@@ -298,14 +293,14 @@ def test_grads_match_jax_grad(dtype, attention, heads):
     """The gradient of every parameter (LN pairs included) of the loss
     mean(out^2), against jax.grad of the reference's."""
     jcfg, tcfg = _train_cfgs(dtype=dtype, attention=attention, heads=heads)
-    jp, tp = _params(jcfg, requires_grad=True)
+    jp, tp = _params(jcfg)
     jx, tx = _x(jcfg)
     jloss, jg = jax.value_and_grad(lambda p: jnp.mean(jnp.square(
         jt.block_apply(p, jx, jcfg).astype(jnp.float32))))(jp)
     tloss, tg = tt.value_and_grad(tp, tx, tcfg)
     assert set(tg) == set(tp) and isinstance(tg["ln1"], tuple)
     rel = 1e-4 if dtype == "float32" else 2e-2
-    for got, want in zip(_leaves(tg), _leaves(jg)):
+    for got, want in zip(tt.leaves(tg), tt.leaves(jg)):
         want = np.asarray(want, np.float32)
         err = np.abs(got.float().numpy() - want).max()
         assert err <= rel * np.abs(want).max(), err
@@ -323,12 +318,12 @@ def test_gqa_flash_train_matches_reference_xla():
         jt.block_apply(p, jx, jcfg))))(jp)
     tloss, tg = tt.value_and_grad(tp, tx, tcfg)
     assert abs(tloss.item() - float(jloss)) <= 1e-6
-    for got, want in zip(_leaves(tg), _leaves(jg)):
+    for got, want in zip(tt.leaves(tg), tt.leaves(jg)):
         want = np.asarray(want)
         assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
     jp2, _ = jt.make_train_step(jcfg, lr=0.1)(jp, jx)
     tp2, _ = tt.make_train_step(tcfg, lr=0.1)(tp, tx)
-    for got, want in zip(_leaves(tp2), _leaves(jp2)):
+    for got, want in zip(tt.leaves(tp2), tt.leaves(jp2)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                    atol=2e-5)
 
@@ -337,26 +332,26 @@ def test_train_loss_decreases_and_params_are_not_updated_in_place():
     jcfg, tcfg = _train_cfgs(attention="flash", seq=64)
     _, tp = _params(jcfg)
     _, tx = _x(jcfg)
-    before = [t.clone() for t in _leaves(tp)]
+    before = [t.clone() for t in tt.leaves(tp)]
     step = tt.make_train_step(tcfg, lr=0.1)
     losses, p = [], tp
     for _ in range(4):
         p, loss = step(p, tx)
         losses.append(loss.item())
     assert all(b < a for a, b in zip(losses, losses[1:])), losses
-    for t, b in zip(_leaves(tp), before):
+    for t, b in zip(tt.leaves(tp), before):
         assert torch.equal(t, b)
 
 
-def test_params_convert_requires_grad():
+def test_leaves_pair_converted_params_with_the_reference():
+    """leaves() walks the port's params and the reference's in one order,
+    so the training tests compare like with like; _rebuild inverts it."""
     jcfg, _ = _cfgs(kv_heads=1)
-    jp = jt.init_params(jax.random.PRNGKey(0), jcfg)
-    np_p = jax.tree.map(np.asarray, jp)
-    tp = transformer_params_from_jax(np_p, "cpu", requires_grad=True)
-    assert all(t.requires_grad and t.is_leaf for t in _leaves(tp))
-    assert not any(t.requires_grad for t in _leaves(
-        transformer_params_from_jax(np_p, "cpu")))
-    q4 = transformer_params_from_jax(
-        jax.tree.map(np.asarray, jt.quantize_block_weights_int4(jp, group=64)),
-        "cpu", requires_grad=True)["wo"]
-    assert not q4[0].requires_grad and q4[1].requires_grad and q4[2] == 64
+    jp, tp = _params(jcfg)
+    got, want = tt.leaves(tp), tt.leaves(jp)
+    assert len(got) == len(want) == 8  # two LN pairs and four matrices
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    back = tt._rebuild(tp, got)
+    assert isinstance(back["ln1"], tuple) and back.keys() == tp.keys()
+    assert all(a is b for a, b in zip(tt.leaves(back), got))
