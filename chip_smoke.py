@@ -32,9 +32,11 @@ Phases (any failure exits non-zero):
      call torch.matmul on the stacked A.
   9. K5 (int4 GEMM): llama2-7B MLP projections (M, 4096) @ (4096, 11008)
      and (M, 11008) @ (11008, 4096), g = 128, at M = 1, 8, 32, and MLP_A's
-     (512, 4096) @ (4096, 4096).  No library call computes this function;
-     torch.matmul on the dequantized bf16 weight is timed beside it as a
-     different function.
+     (512, 4096) @ (4096, 4096), with bf16-exact scales.  Library call:
+     torch._weight_int4pack_mm on the same nibbles (q + 8 unsigned, zero
+     point 0, bf16 scales; the one-off _convert_weight_to_int4pack is not
+     timed); torch.matmul on the dequantized bf16 weight is timed beside it
+     as a different function.
  10. The compute-tier CLIs in-process at full width, the launch counts
      reset before each command and read after it: ``cli.compute gemm``
      (GEMM_A bf16 through K3; GEMM_C --compare; --weight-resident 8 through
@@ -84,7 +86,23 @@ Phases (any failure exits non-zero):
      K7 exactly once per flash train step); host-clock time against the
      card's kernel time for the llama2 train step on flash and xla, with
      the shares of K6, K7 and the cuBLAS GEMMs.
-Timings (phases 2-4, 7-9, 11, 13, 14) use CUDA events after a warm-up and
+ 17. K8a-d (ring all-gather, ring reduce-scatter, both-direction ring
+     all-gather, loopback) on one card: first the op API of
+     ``param_tpu_torch.ops.ring_collectives`` (ring_all_gather,
+     ring_all_reduce, ring_all_gather_bidir, loopback_remote_copy) at n 1,
+     2, 4, 8 ranks with the launch counts reset before and read after;
+     then each kernel against its plain version at n 1, 2, 4, 8 with
+     per-rank payloads of 4 KiB, 1 MiB and 64 MiB in f32 and 1 MiB in
+     bf16, every byte equal; a planted fault (rank 0 sends its first hop
+     to right + 1) must raise from the bounded wait, and the next call
+     must be right again.  With two or more cards the rings also run with
+     one rank per card; with one card the wire between cards is unchecked.
+     No library call computes these on one card (NCCL's are across cards).
+ 18. ``cli.comms`` on the card: a world of one on NCCL in-process,
+     all_reduce, all_gather, reduce_scatter, all_to_all, broadcast and
+     pt2pt from 8 B to 64 MiB with dcheck, and all_reduce / all_gather
+     replayed from CUDA graphs (``--mode graph``); every row's dcheck OK.
+Timings (phases 2-4, 7-9, 11, 13, 14, 17) use CUDA events after a warm-up and
 report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
@@ -128,6 +146,144 @@ def nvidia_smi_line() -> str:
     if r.returncode != 0:
         fail(f"nvidia-smi exited {r.returncode}: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def ring_across_cards(n: int, smi: str) -> dict:
+    """K8a-d with one rank per card (shard r on cuda:r, peers reached by
+    peer writes over NVLink) against their plain versions, every byte
+    equal, at 1 MiB and 64 MiB f32 per rank; a planted fault must raise.
+    Timed eagerly on card 0's stream (a CUDA graph captures one card's
+    stream), median of 5 windows."""
+    import torch
+
+    from param_tpu_torch.kernels import ring as k8
+    from param_tpu_torch.utils.timer import time_samples
+
+    devices = [torch.device("cuda", r) for r in range(n)]
+    gen = torch.Generator().manual_seed(17)
+    fns = {"all_gather": (k8.ring_all_gather_cuda, k8.ring_all_gather_plain),
+           "reduce_scatter": (k8.ring_reduce_scatter_cuda,
+                              k8.ring_reduce_scatter_plain),
+           "bidir": (k8.ring_all_gather_bidir_cuda,
+                     k8.ring_all_gather_bidir_plain),
+           "loopback": (k8.ring_loopback_cuda, k8.ring_loopback_plain)}
+    rows = {}
+    for coll, (cuda_fn, plain_fn) in fns.items():
+        for mib in (1, 64):
+            xs = [torch.randn((mib << 18,), generator=gen).to(d)
+                  for d in devices]
+            got, want = cuda_fn(xs), plain_fn(xs)
+            for d in devices:
+                torch.cuda.synchronize(d)
+            for r, (g, w) in enumerate(zip(got, want)):
+                if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                    fail(f"K8 {coll} across {n} cards, {mib} MiB: rank {r} "
+                         f"differs from the plain version")
+            t = time_samples(lambda: cuda_fn(xs, check=False), 5 if mib > 1
+                             else 50, devices[0], reps=5)
+            tp = time_samples(lambda: plain_fn(xs), 3, devices[0], reps=5)
+            k8.check_errors(xs)
+            # per card: its input read and output written over its HBM,
+            # and what it sends one way over NVLink (450 GB/s each way)
+            nb = mib << 20
+            hbm, link = {"all_gather": (nb + n * nb, (n - 1) * nb),
+                         "bidir": (nb + n * nb, (n // 2) * nb),
+                         "reduce_scatter": (nb + nb // n,
+                                            (n - 1) * nb // n),
+                         "loopback": (2 * nb, 0)}[coll]
+            b_ms, b_by = max((hbm / 3.35e9, "bytes"),
+                             (link / 450e6, "NVLink bytes"))
+            rec = dict(ms=statistics.median(t), min=min(t), max=max(t),
+                       plain_ms=statistics.median(tp), bound_ms=b_ms,
+                       bound_by=b_by, max_abs_err=0.0)
+            rows[f"{coll} n={n} {mib} MiB float32 cards"] = rec
+            say(f"phase 17 K8 {coll} across {n} cards (one rank per card), "
+                f"{mib} MiB f32 per rank: every byte equal | kernel "
+                f"{rec['ms']:.4f} ms ({rec['min']:.4f}-{rec['max']:.4f}, "
+                f"issued eagerly) plain {rec['plain_ms']:.4f} ms | bound "
+                f"{b_ms:.4f} ms ({b_by}, per card) | {smi}")
+            del xs, got, want
+    xs = [torch.randn((1 << 18,), generator=gen).to(d) for d in devices]
+    try:
+        k8.ring_all_gather_cuda(xs, fault=1, timeout_s=0.05)
+    except RuntimeError as e:
+        say(f"phase 17 K8 all_gather across {n} cards, planted fault: {e}")
+    else:
+        fail(f"K8 across {n} cards: the planted fault was not flagged")
+    if not all(torch.equal(g, w) for g, w in zip(
+            k8.ring_all_gather_cuda(xs), k8.ring_all_gather_plain(xs))):
+        fail(f"K8 across {n} cards: wrong after the planted fault")
+    return rows
+
+
+def comms_world(cards: int, smi: str) -> dict:
+    """``cli.comms`` under torchrun, one rank per card on NCCL, every
+    collective from 8 B to 64 MiB with dcheck, then all_reduce and
+    all_gather from CUDA graphs; every row's dcheck must be OK."""
+    from param_tpu_torch.backend import SUPPORTED_COLLECTIVES
+
+    runs = {}
+    for label, extra in (
+            ("dispatch", ["--collective", ",".join(
+                c for c in SUPPORTED_COLLECTIVES if c != "barrier"),
+                "--b", "8", "--e", "64M", "--f", "8"]),
+            ("graph", ["--collective", "all_reduce,all_gather,reduce_scatter",
+                       "--b", "1K", "--e", "64M", "--f", "8", "--mode",
+                       "graph"]),
+            ("pairwise", ["--collective", "pt2pt", "--pt2pt", "pairwise",
+                          "--b", "1K", "--e", "64M", "--f", "64"])):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(cards), "-m",
+               "param_tpu_torch.cli.comms", "--", "--c", "1", *extra]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True,
+                             env=dict(os.environ, PYTHONPATH=ROOT))
+        try:
+            out = p.communicate(timeout=300)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            p.communicate()
+            fail(f"phase 18 torchrun world of {cards} ({label}) timed out")
+        rows = [ln for ln in out.splitlines()
+                if re.match(r"\s+\d+[KMG]?\s+\d+\s", ln)]
+        if p.returncode != 0 or not rows or any(
+                not ln.endswith("  OK") for ln in rows):
+            fail(f"phase 18 torchrun world of {cards} ({label}): rc "
+                 f"{p.returncode}, dcheck not OK everywhere:\n{out[-6000:]}")
+        wall = time.perf_counter() - t0
+        say(f"phase 18 torchrun --nproc-per-node {cards} cli.comms "
+            f"({label}) | {wall:.1f} s | {smi}\n{out.rstrip()}")
+        runs[label] = dict(wall_s=wall, rows=len(rows), output=out)
+    return runs
+
+
+def cards_main(out_path=None) -> int:
+    """``--cards``: only what exists across cards, on a machine with two or
+    more: the rings with one rank per card and a torchrun world of all
+    cards on NCCL (the one-card phases are the default run's)."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("--cards needs two or more CUDA devices")
+    sys.path.insert(0, ROOT)
+    from param_tpu_torch.kernels import build
+
+    smi = nvidia_smi_line()
+    cards = torch.cuda.device_count()
+    say(f"cards: {cards} x {torch.cuda.get_device_name(0)} | {smi} | ring "
+        f"built in {build.build_all(['ring']):.1f} s")
+    result = {"rings": ring_across_cards(min(cards, 8), smi),
+              "comms": comms_world(cards, smi)}
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(result, f, indent=1)
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
 
 
 def main(out_path=None) -> int:
@@ -485,11 +641,40 @@ def main(out_path=None) -> int:
     k5 = {}
     G = 128
 
+    def int4pack_library(x, packed, scale, want):
+        """torch._weight_int4pack_mm on K5's weights: signed nibble q as
+        the unsigned q + 8 with zero point 0, (K/g, N, 2) bf16 scales and
+        zeros.  Returns (callable, note), or (None, why not) where the call
+        refuses the shape or does not compute the same function."""
+        k, n = 2 * packed.shape[0], packed.shape[1]
+        p = packed.to(torch.int32)
+        q = torch.empty((k, n), dtype=torch.int32, device=dev)
+        q[0::2] = (p & 15) - 8
+        q[1::2] = p >> 4
+        u = (q + 8).t().contiguous()  # (N, K) in [0, 15]
+        w8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+        sz = torch.stack([scale, torch.zeros_like(scale)], dim=2) \
+            .to(torch.bfloat16).contiguous()
+        try:
+            wp = torch._convert_weight_to_int4pack(w8, 8)
+            got = torch._weight_int4pack_mm(x, wp, G, sz)
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # the yardstick refuses; K5 is unaffected
+            return None, f"none: torch._weight_int4pack_mm refused ({e})"[:200]
+        err = (got.float() - want).abs().max().item()
+        if not err <= 1e-2 * want.abs().max().item():
+            return None, (f"none: torch._weight_int4pack_mm differs by "
+                          f"{err:.3e}")
+        return (lambda: torch._weight_int4pack_mm(x, wp, G, sz),
+                "torch._weight_int4pack_mm")
+
     def k5_case(m, k, n, phase):
         x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
         packed = torch.randint(-128, 128, (k // 2, n), generator=gen,
                                device=dev, dtype=torch.int32).to(torch.int8)
-        scale = torch.rand((k // G, n), generator=gen, device=dev) * 0.02
+        # bf16-exact scales, so the library call's bf16 scales are K5's
+        scale = (torch.rand((k // G, n), generator=gen, device=dev)
+                 * 0.02).bfloat16().float()
         want = int4_gemm_plain(x, packed, scale, torch.float32)
         tol = 1e-5 * want.abs().max().item()
         err = check(f"K5 {(m, k, n)}",
@@ -497,16 +682,20 @@ def main(out_path=None) -> int:
         nbytes = k * n // 2 + (k // G) * n * 4 + m * k * 2 + m * n * 2
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, fp32=False)
         w_bf16 = int4_dequant(packed, scale).bfloat16()
+        lib, lib_note = int4pack_library(x, packed, scale, want)
         rec = timings(lambda: int4_gemm_cuda(x, packed, scale),
-                      lambda: int4_gemm_plain(x, packed, scale), None,
+                      lambda: int4_gemm_plain(x, packed, scale), lib,
                       50 if m <= 32 else 10)
+        rec["library_note"] = lib_note
         rec["dequant_matmul"] = timed(lambda: torch.matmul(x, w_bf16), 50)
         rec.update(shape=f"({m}, {k}) @ int4 ({k}, {n}) g={G}, bf16 out",
                    max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
                    gbps=nbytes / rec["ms"] / 1e6)
         k5[f"{(m, k, n)}"] = rec
         say(f"phase {phase} K5 {rec['shape']}: max_abs_err {err:.3e} (tol "
-            f"{tol:.3e}) | {timing_text(rec, '')} ({rec['gbps']:.0f} GB/s) "
+            f"{tol:.3e}) | {timing_text(rec, lib_note)}"
+            f"{'' if lib else f' ({lib_note})'} "
+            f"({rec['gbps']:.0f} GB/s) "
             f"bound {b_ms:.4f} ms ({b_by}) | not the same function: "
             f"torch.matmul on the dequantized bf16 weight "
             f"{fmt(rec['dequant_matmul'])} | {smi}")
@@ -1171,6 +1360,173 @@ def main(out_path=None) -> int:
         torch.cuda.empty_cache()
     result["phases"]["train_cli"] = train_runs
 
+    # ---------------------------------------------------------------- 17
+    from param_tpu_torch.kernels import ring as k8
+    from param_tpu_torch.ops import ring_collectives as rings
+
+    ring_kernels = {  # kernel: (wrapper, plain version, launch count)
+        "all_gather": (k8.ring_all_gather_cuda, k8.ring_all_gather_plain,
+                       "ring_all_gather"),
+        "reduce_scatter": (k8.ring_reduce_scatter_cuda,
+                           k8.ring_reduce_scatter_plain,
+                           "ring_reduce_scatter"),
+        "bidir": (k8.ring_all_gather_bidir_cuda,
+                  k8.ring_all_gather_bidir_plain, "ring_bidir_all_gather"),
+        "loopback": (k8.ring_loopback_cuda, k8.ring_loopback_plain,
+                     "ring_loopback"),
+    }
+    ops_api = {"all_gather": rings.ring_all_gather,
+               "all_reduce": rings.ring_all_reduce,
+               "bidir": rings.ring_all_gather_bidir,
+               "loopback": rings.loopback_remote_copy}
+
+    def ring_shards(n, nbytes, dt):
+        elems = nbytes // torch.empty((), dtype=dt).element_size()
+        return [torch.randn((elems,), generator=gen, device=dev).to(dt)
+                for _ in range(n)]
+
+    def same_bytes(name, got, want):
+        """Every byte of every rank's result equal; returns 0.0, the
+        largest error."""
+        torch.cuda.synchronize()
+        if len(got) != len(want):
+            fail(f"{name}: {len(got)} results for {len(want)} ranks")
+        for r, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or not torch.equal(
+                    g.view(torch.uint8), w.to(g.device).view(torch.uint8)):
+                err = (g.float() - w.to(g.device).float()).abs().max().item() \
+                    if g.shape == w.shape else float("nan")
+                fail(f"{name}: rank {r} differs from the plain version "
+                     f"(shape {tuple(g.shape)} vs {tuple(w.shape)}, max abs "
+                     f"err {err:.3e})")
+        return 0.0
+
+    # the op API, the path a user of the rings calls: every kernel launches
+    kernels.reset_launch_counts()
+    for n in (1, 2, 4, 8):
+        xs = ring_shards(n, 1 << 20, torch.float32)
+        for name, fn in ops_api.items():
+            if name == "all_reduce":
+                want = rings.ring_all_reduce([x.cpu() for x in xs])
+            else:
+                want = ring_kernels[name][1](xs)
+            same_bytes(f"phase 17 {name} n={n} (op API)", fn(xs), want)
+    ring_launches = {k: kernels.launch_counts[k]
+                     for _, _, k in ring_kernels.values()}
+    if min(ring_launches.values()) <= 0:
+        fail(f"phase 17: a ring kernel was not launched by the op API "
+             f"({ring_launches})")
+    say(f"phase 17 op API (ring_all_gather, ring_all_reduce, "
+        f"ring_all_gather_bidir, loopback_remote_copy at n 1, 2, 4, 8, 1 MiB "
+        f"f32 per rank): every result equal to the plain rings | launches "
+        f"{ring_launches}")
+
+    k8_rows = {}
+    KIB, MIB = 1 << 10, 1 << 20
+
+    def k8_case(coll, n, nbytes, dt):
+        cuda_fn, plain_fn, _ = ring_kernels[coll]
+        xs = ring_shards(n, nbytes, dt)
+        err = same_bytes(f"K8 {coll} n={n} {nbytes} B", cuda_fn(xs),
+                         plain_fn(xs))
+        iters = 50 if nbytes <= MIB else 3
+        rec = timings(lambda: cuda_fn(xs, check=False),
+                      lambda: plain_fn(xs), None, iters)
+        k8.check_errors(xs)  # no wait ran out while timing
+        if coll in ("all_gather", "bidir"):
+            nbytes_io = n * nbytes + n * n * nbytes
+        elif coll == "reduce_scatter":
+            nbytes_io = n * nbytes + nbytes
+        else:
+            nbytes_io = 2 * n * nbytes
+        adds = (n - 1) * nbytes // xs[0].element_size() \
+            if coll == "reduce_scatter" else 0  # (n - 1) adds per element
+        b_ms, b_by = bound_ms(nbytes_io, adds)
+        size = f"{nbytes // MIB} MiB" if nbytes >= MIB else \
+            f"{nbytes // KIB} KiB"
+        rec.update(shape=f"n={n} ranks (one card), {size} {str(dt)[6:]} per "
+                         f"rank", max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by, bytes=nbytes_io,
+                   gbps=nbytes_io / rec["ms"] / 1e6, library_ms=None)
+        k8_rows[f"{coll} n={n} {size} {str(dt)[6:]}"] = rec
+        say(f"phase 17 K8 {coll}: {rec['shape']}: every byte equal | "
+            f"{timing_text(rec, '')} ({rec['gbps']:.0f} GB/s of inputs read "
+            f"+ outputs written) bound {b_ms:.4f} ms ({b_by}) | {smi}")
+        del xs
+        torch.cuda.empty_cache()
+        return rec
+
+    for coll in ring_kernels:
+        for n in (1, 2, 4, 8):
+            for nbytes, dt in ((4 * KIB, torch.float32),
+                               (MIB, torch.float32),
+                               (64 * MIB, torch.float32),
+                               (MIB, torch.bfloat16)):
+                k8_case(coll, n, nbytes, dt)
+
+    # a planted fault: rank 0 sends its first hop to right + 1
+    fault_rec = {}
+    for coll in ("all_gather", "reduce_scatter", "bidir"):
+        cuda_fn, plain_fn, _ = ring_kernels[coll]
+        xs = ring_shards(4, MIB, torch.float32)
+        t0 = time.perf_counter()
+        try:
+            cuda_fn(xs, fault=1, timeout_s=0.05)
+        except RuntimeError as e:
+            fault_rec[coll] = dict(raised=str(e),
+                                   seconds=time.perf_counter() - t0)
+        else:
+            fail(f"phase 17 K8 {coll}: the planted fault was not flagged")
+        same_bytes(f"K8 {coll} after the fault", cuda_fn(xs), plain_fn(xs))
+        say(f"phase 17 K8 {coll} planted fault (rank 0's first hop to "
+            f"right + 1, n=4, 1 MiB): raised after "
+            f"{fault_rec[coll]['seconds']:.3f} s: {fault_rec[coll]['raised']}"
+            f" | the next call is right again")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        k8_rows.update(ring_across_cards(min(cards, 8), smi))
+    else:
+        say("phase 17: one card: the rings ran all ranks on it; the wire "
+            "between cards (peer writes over NVLink) is unchecked")
+    result["phases"]["k8"] = dict(rows=k8_rows, fault=fault_rec,
+                                  launches=ring_launches, cards=cards)
+
+    # ---------------------------------------------------------------- 18
+    from param_tpu_torch.cli import comms as comms_cli
+
+    def comms_run(argv, n_tables):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = comms_cli.main(argv + ["--log", "WARNING"])
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        rows = [ln for ln in out.splitlines()
+                if re.match(r"\s+\d+[KMG]?\s+\d+\s", ln)]
+        nums = [float(v) for ln in rows for v in ln.split()[1:]
+                if re.fullmatch(r"-?[\d.]+", v)]
+        if rc != 0 or out.count("COMMS-RES:") != n_tables or not rows or \
+                any(not ln.endswith("  OK") for ln in rows) or \
+                not all(math.isfinite(v) for v in nums):
+            fail(f"phase 18 cli.comms {' '.join(argv)}: rc {rc}, dcheck not "
+                 f"OK on every row or a table missing:\n{out}")
+        say(f"phase 18 cli.comms {' '.join(argv)} | {wall:.1f} s | {smi}\n"
+            f"{out.rstrip()}")
+        return dict(argv=argv, wall_s=wall, output=out, rows=len(rows))
+
+    comms_runs = {
+        "dispatch": comms_run(
+            ["--collective", "all_reduce,all_gather,reduce_scatter,"
+             "all_to_all,broadcast,pt2pt", "--b", "8", "--e", "64M",
+             "--c", "1"], 6),
+        "graph": comms_run(
+            ["--collective", "all_reduce,all_gather", "--b", "1K", "--e",
+             "64M", "--f", "8", "--c", "1", "--mode", "graph"], 2),
+    }
+    if cards >= 2:
+        comms_runs["torchrun"] = comms_world(cards, smi)
+    result["phases"]["comms_cli"] = comms_runs
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -1219,6 +1575,22 @@ def main(out_path=None) -> int:
         entry("flash attention backward (K7)", src + "flash_bwd.cu",
               "param_tpu/ops/attention.py:809, :841",
               al["flash_bwd"] + tl["flash_bwd"], k7["llama2_causal"]),
+        entry("ring all-gather (K8a)", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:55",
+              ring_launches["ring_all_gather"],
+              k8_rows["all_gather n=8 64 MiB float32"]),
+        entry("ring reduce-scatter (K8b)", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:112",
+              ring_launches["ring_reduce_scatter"],
+              k8_rows["reduce_scatter n=8 64 MiB float32"]),
+        entry("both-direction ring all-gather (K8c)", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:181",
+              ring_launches["ring_bidir_all_gather"],
+              k8_rows["bidir n=8 64 MiB float32"]),
+        entry("loopback remote copy (K8d)", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:261",
+              ring_launches["ring_loopback"],
+              k8_rows["loopback n=1 64 MiB float32"]),
     ]}
     result.update(report)
     if out_path:
@@ -1228,7 +1600,8 @@ def main(out_path=None) -> int:
     say(smi)
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -1238,4 +1611,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the full results as JSON to PATH")
-    sys.exit(main(ap.parse_args().out))
+    ap.add_argument("--cards", action="store_true",
+                    help="only the checks across cards (needs 2+ cards)")
+    args = ap.parse_args()
+    sys.exit((cards_main if args.cards else main)(args.out))

@@ -10,6 +10,9 @@
   (causal, sliding window, GQA, optional logsumexp).
 - K7 :mod:`.flash_bwd` (``csrc/flash_bwd.cu``): flash-attention backward
   (dq, dk, dv from the saved output and logsumexp; causal, GQA).
+- K8a-d :mod:`.ring` (``csrc/ring.cu``): ring all-gather, ring
+  reduce-scatter, both-direction ring all-gather, loopback copy, over
+  per-rank shards on one card or one card per rank.
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
@@ -27,6 +30,10 @@ launch_counts = {
     "int4_gemm": 0,
     "flash_fwd": 0,
     "flash_bwd": 0,
+    "ring_all_gather": 0,
+    "ring_reduce_scatter": 0,
+    "ring_bidir_all_gather": 0,
+    "ring_loopback": 0,
 }
 
 

@@ -43,6 +43,14 @@ _SIGNATURES = {
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I,
                              _P],
     },
+    "ring": {
+        "ring_capacity": [_I, _I, _I],
+        "ring_enable_peer": [_I, _I],
+        "ring_launch": [_I, _I, _I, _I, _I, _I, _LP, _LP, _LP, _LP, _L, _L,
+                        _I, _L, _I, _I, _L, _P, _P],
+        "ring_flag_words": [],
+        "ring_max_blocks": [],
+    },
     "flash_bwd": {
         "flash_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _LP, _F, _I, _P],

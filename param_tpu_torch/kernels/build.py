@@ -30,6 +30,7 @@ SOURCES = {
     "int4_gemm": "int4_gemm.cu",
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
+    "ring": "ring.cu",
 }
 
 NVCC_FLAGS = [

@@ -1,7 +1,8 @@
-"""Result records and sinks of the compute tier (the port's own copy of
-what it uses of ``param_tpu/utils/logger.py``).
+"""Result records and sinks of the compute and comms tiers (the port's own
+copy of what it uses of ``param_tpu/utils/logger.py``).
 
-A bench builds a :class:`ComputePerfMetrics` per result and hands it to
+A bench builds a :class:`ComputePerfMetrics`, :class:`CommsCollPerfMetrics`
+or :class:`CommsPt2PtPerfMetrics` per result and hands it to
 :func:`emit_metrics`, which passes it to every registered sink (none by
 default): :class:`StdoutJsonLogger` prints one JSON line,
 :class:`FileJsonLogger` appends one to a file.
@@ -16,6 +17,44 @@ from dataclasses import asdict, dataclass, field
 from typing import Dict, List
 
 log = logging.getLogger(__name__)
+
+
+@dataclass
+class CommsPerfMetrics:
+    """Base record for a communication benchmark result."""
+
+    commsOp: str
+    dtype: str
+    backend: str = "dist"
+    world_size: int = 1
+    tag: str = ""
+
+
+@dataclass
+class CommsCollPerfMetrics(CommsPerfMetrics):
+    """One row of a collective sweep."""
+
+    input_size_bytes: int = 0
+    output_size_bytes: int = 0
+    num_elements: int = 0
+    p50_us: float = 0.0
+    p75_us: float = 0.0
+    p95_us: float = 0.0
+    min_us: float = 0.0
+    max_us: float = 0.0
+    alg_bw_gbs: float = 0.0
+    bus_bw_gbs: float = 0.0
+
+
+@dataclass
+class CommsPt2PtPerfMetrics(CommsPerfMetrics):
+    """pt2pt result record."""
+
+    input_size_bytes: int = 0
+    ping_p50_us: float = 0.0
+    ping_pong_p50_us: float = 0.0
+    uni_bw_gbs: float = 0.0
+    bi_bw_gbs: float = 0.0
 
 
 @dataclass

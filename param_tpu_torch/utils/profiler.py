@@ -60,3 +60,26 @@ def profile_to(log_dir: Optional[str], device="cuda"):
         if totals is not None:
             print(f"profile: {totals[0] / 1e3:.3f} ms of device time over "
                   f"{totals[1]} device operations; trace in {log_dir}")
+
+
+class SizeTriggeredProfiler:
+    """Starts tracing once a sweep reaches ``start_size`` bytes
+    (``cli.comms --size-start-profiler``); :meth:`stop` writes the trace."""
+
+    def __init__(self, log_dir: str, start_size: int, device="cuda"):
+        self.log_dir = log_dir
+        self.start_size = start_size
+        self.device = device
+        self.prof = None
+
+    def maybe_start(self, size: int) -> None:
+        if self.prof is None and size >= self.start_size:
+            self.prof = make_profiler(self.device)
+            self.prof.start()
+
+    def stop(self) -> None:
+        if self.prof is not None:
+            self.prof.stop()
+            write_trace(self.prof, self.log_dir,
+                        torch.device(self.device).type == "cuda")
+            self.prof = None

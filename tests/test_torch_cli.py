@@ -3,6 +3,8 @@ no JAX and nothing of the reference package, and no silent CPU fallback."""
 
 import os
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -60,14 +62,42 @@ def test_unported_modes_raise():
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|param_tpu)(\.|\s|$)", re.M)
 
 
+_COMMS_MODULES = ["param_tpu_torch/backend/base.py",
+                  "param_tpu_torch/backend/dist_backend.py",
+                  "param_tpu_torch/comms/harness.py",
+                  "param_tpu_torch/comms/coll_bench.py",
+                  "param_tpu_torch/cli/comms.py",
+                  "param_tpu_torch/ops/ring_collectives.py",
+                  "param_tpu_torch/kernels/ring.py",
+                  "tests/torch_comms_worker.py"]
+
+
 def test_port_imports_neither_jax_nor_reference():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_comms_worker.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "param_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    assert {os.path.join(ROOT, m) for m in _COMMS_MODULES} <= set(files)
     bad = []
     for f in files:
         with open(f) as fh:
             bad += [f"{f}: {m.group(0).strip()}"
                     for m in _FORBIDDEN.finditer(fh.read())]
     assert not bad, bad
+
+
+def test_comms_and_ring_modules_load_without_jax():
+    """Importing the comms tier and the rings pulls in neither JAX nor the
+    reference package (the spawned ranks of the comms tests rely on it)."""
+    code = ("import sys\n"
+            "import param_tpu_torch.backend, param_tpu_torch.comms.coll_bench\n"
+            "import param_tpu_torch.cli.comms\n"
+            "import param_tpu_torch.ops.ring_collectives\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr

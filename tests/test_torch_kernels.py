@@ -1,4 +1,4 @@
-"""K1-K7 against numpy (plain versions, on the CPU) and against their plain
+"""K1-K8 against numpy (plain versions, on the CPU) and against their plain
 versions (CUDA kernels, on the card).
 
 This file imports neither JAX nor the reference package, so it also runs on
@@ -21,7 +21,10 @@ backward) every element of dq, dk and dv within its own bound,
 ``flash_bwd_tolerance`` (f32: 2^-14 of the element's magnitude terms; bf16
 / f16: one rounding of each output per side, and P and dS rounded to the
 input dtype before their products); the plain version against autograd of
-K6's plain version 2e-5 (f32 sums in another order).
+K6's plain version 2e-5 (f32 sums in another order).  K8a-d (ring
+collectives over per-rank shards on one card): bitwise equal to their plain
+versions, which walk the same ring (copies, and one add in the input dtype
+per hop in the same order).
 """
 
 import math
@@ -43,6 +46,11 @@ from param_tpu_torch.kernels.gemm import (
 )
 from param_tpu_torch.kernels.int4_gemm import (
     int4_dequant, int4_gemm_cuda, int4_gemm_plain, mma_schedule,
+)
+from param_tpu_torch.kernels.ring import (
+    check_errors, ring_all_gather_bidir_cuda, ring_all_gather_bidir_plain,
+    ring_all_gather_cuda, ring_all_gather_plain, ring_loopback_cuda,
+    ring_loopback_plain, ring_reduce_scatter_cuda, ring_reduce_scatter_plain,
 )
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
@@ -680,3 +688,112 @@ def test_block_apply_backward_runs_k7(cuda_device):
         want = grads_c[key]
         err = (grads_g[key].cpu() - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), key
+
+
+# ------------------------------------------------------------------ K8a-d
+_RING_KERNELS = {
+    "all_gather": (ring_all_gather_cuda, ring_all_gather_plain),
+    "reduce_scatter": (ring_reduce_scatter_cuda, ring_reduce_scatter_plain),
+    "bidir": (ring_all_gather_bidir_cuda, ring_all_gather_bidir_plain),
+    "loopback": (ring_loopback_cuda, ring_loopback_plain),
+}
+
+
+def _ring_shards(n, shape, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(device)
+            for _ in range(n)]
+
+
+def _assert_ring_bitwise(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_ring_plain_versions_on_the_cpu():
+    """The plain rings against the collectives they compute."""
+    xs = _ring_shards(4, (8, 3), torch.float32, "cpu")
+    stacked = torch.stack(xs)
+    for fn in (ring_all_gather_plain, ring_all_gather_bidir_plain):
+        for out in fn(xs):
+            assert torch.equal(out, stacked)
+    for r, out in enumerate(ring_all_gather_plain(xs, shift=1)):
+        assert torch.equal(out, torch.roll(stacked, 1, 0))
+    sums = ring_reduce_scatter_plain(xs)
+    total = sum(x.reshape(4, 2, 3) for x in xs)
+    for r, s in enumerate(sums):
+        torch.testing.assert_close(s, total[(r + 1) % 4], rtol=1e-6,
+                                   atol=1e-6)
+    for a, b in zip(ring_loopback_plain(xs), xs):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_RING_KERNELS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_ring_kernel_matches_plain(cuda_device, kind, dtype, n):
+    cuda_fn, plain_fn = _RING_KERNELS[kind]
+    # 16-byte vector path and, with an odd bf16 / f16 count, the word path
+    for shape in ((n * 4096,), (n * 8, 33), (n * 3 + 0,) if n > 1 else (5,)):
+        xs = _ring_shards(n, shape, dtype, cuda_device, seed=n)
+        _assert_ring_bitwise(cuda_fn(xs), plain_fn(xs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_ring_all_reduce_matches_plain_and_sum(cuda_device, n):
+    from param_tpu_torch.ops.ring_collectives import ring_all_reduce
+
+    xs = _ring_shards(n, (n * 1024, 4), torch.float32, cuda_device, seed=3)
+    got = ring_all_reduce(xs)
+    want = ring_all_reduce([x.cpu() for x in xs])
+    _assert_ring_bitwise([g.cpu() for g in got], want)
+    torch.testing.assert_close(got[0], sum(xs), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ring_kernels_repeat_and_replay_from_a_graph(cuda_device):
+    """Each call bumps the flags' epoch on the card, so repeated calls and
+    CUDA-graph replays of one launch never take an old flag for new."""
+    xs = _ring_shards(4, (4096,), torch.float32, cuda_device)
+    want = ring_reduce_scatter_plain(xs)
+    for _ in range(3):
+        _assert_ring_bitwise(ring_reduce_scatter_cuda(xs), want)
+    ring_reduce_scatter_cuda(xs, check=False)  # warm up outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ring_reduce_scatter_cuda(xs, check=False)
+    for step in range(3):
+        for x in xs:
+            x.add_(1.0)
+        graph.replay()
+        check_errors(xs)
+        _assert_ring_bitwise(outs, ring_reduce_scatter_plain(xs))
+
+
+@pytest.mark.cuda
+def test_ring_planted_fault_raises_and_the_next_call_is_clean(cuda_device):
+    xs = _ring_shards(4, (1 << 18,), torch.float32, cuda_device)
+    launches = kernels.launch_counts["ring_all_gather"]
+    with pytest.raises(RuntimeError, match="bounded wait ran out"):
+        ring_all_gather_cuda(xs, fault=1, timeout_s=0.05)
+    assert kernels.launch_counts["ring_all_gather"] == launches + 1
+    _assert_ring_bitwise(ring_all_gather_cuda(xs), ring_all_gather_plain(xs))
+
+
+@pytest.mark.cuda
+def test_ring_kernels_raise_on_what_they_do_not_take(cuda_device):
+    xs = _ring_shards(2, (8,), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="same shape"):
+        ring_all_gather_cuda([xs[0], xs[1][:4]])
+    with pytest.raises(ValueError, match="divide"):
+        ring_reduce_scatter_cuda(_ring_shards(3, (8,), torch.float32,
+                                              cuda_device))
+    with pytest.raises(TypeError, match="adds"):
+        ring_reduce_scatter_cuda([x.int() for x in xs])
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_all_gather_cuda([x.cpu() for x in xs])
