@@ -95,13 +95,16 @@ Phases (any failure exits non-zero):
      per-rank payloads of 4 KiB, 1 MiB and 64 MiB in f32 and 1 MiB in
      bf16, every byte equal; a planted fault (rank 0 sends its first hop
      to right + 1) must raise from the bounded wait, and the next call
-     must be right again.  With two or more cards the rings also run with
-     one rank per card; with one card the wire between cards is unchecked.
-     No library call computes these on one card (NCCL's are across cards).
+     must be right again.  No library call computes these on one card.
+     With two or more cards the rings also run with one rank per card,
+     timed beside NCCL's all-gather and reduce-scatter at the same per-rank
+     shape (``torch.cuda.nccl``), and once behind a peer card still busy
+     with earlier work; with one card the wire between cards is unchecked.
  18. ``cli.comms`` on the card: a world of one on NCCL in-process,
      all_reduce, all_gather, reduce_scatter, all_to_all, broadcast and
      pt2pt from 8 B to 64 MiB with dcheck, and all_reduce / all_gather
-     replayed from CUDA graphs (``--mode graph``); every row's dcheck OK.
+     replayed from CUDA graphs (``--mode graph``); with two or more cards
+     also ``torchrun`` worlds of all of them; every row's dcheck OK.
 Timings (phases 2-4, 7-9, 11, 13, 14, 17) use CUDA events after a warm-up and
 report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
@@ -151,10 +154,15 @@ def nvidia_smi_line() -> str:
 def ring_across_cards(n: int, smi: str) -> dict:
     """K8a-d with one rank per card (shard r on cuda:r, peers reached by
     peer writes over NVLink) against their plain versions, every byte
-    equal, at 1 MiB and 64 MiB f32 per rank; a planted fault must raise.
-    Timed eagerly on card 0's stream (a CUDA graph captures one card's
-    stream), median of 5 windows."""
+    equal, at 1 MiB and 64 MiB f32 per rank; a planted fault must raise,
+    and a ring whose peer card is still busy with earlier work must wait
+    for it rather than run out of its bounded wait.  Timed eagerly on card
+    0's stream (a CUDA graph captures one card's stream), median of 5
+    windows; beside each, NCCL's call for the same function at the same
+    per-rank shape in this process (``torch.cuda.nccl``, one communicator
+    per card), timed the same way."""
     import torch
+    import torch.cuda.nccl as nccl
 
     from param_tpu_torch.kernels import ring as k8
     from param_tpu_torch.utils.timer import time_samples
@@ -167,6 +175,30 @@ def ring_across_cards(n: int, smi: str) -> dict:
            "bidir": (k8.ring_all_gather_bidir_cuda,
                      k8.ring_all_gather_bidir_plain),
            "loopback": (k8.ring_loopback_cuda, k8.ring_loopback_plain)}
+
+    def library(coll, xs):
+        """NCCL's collective computing the same function (the reduce-scatter
+        leaves rank r chunk r, the ring chunk r + 1); None for the
+        loopback, which no library call computes."""
+        if coll == "loopback":
+            return None
+        if not nccl.is_available(xs):
+            fail(f"torch.cuda.nccl cannot take the {n} shards")
+        if coll == "reduce_scatter":
+            outs = [torch.empty(x.numel() // n, device=x.device) for x in xs]
+            call = lambda: nccl.reduce_scatter(xs, outs)  # noqa: E731
+            want = torch.stack([x.cpu() for x in xs]).sum(0).chunk(n)
+        else:
+            outs = [torch.empty(n * x.numel(), device=x.device) for x in xs]
+            call = lambda: nccl.all_gather(xs, outs)  # noqa: E731
+            want = [torch.cat([x.cpu() for x in xs])] * n
+        call()
+        for r, (o, w) in enumerate(zip(outs, want)):
+            if not torch.allclose(o.cpu(), w, rtol=1e-5, atol=1e-5):
+                fail(f"NCCL {coll} across {n} cards: rank {r} is not the "
+                     f"function the ring computes")
+        return call
+
     rows = {}
     for coll, (cuda_fn, plain_fn) in fns.items():
         for mib in (1, 64):
@@ -179,10 +211,15 @@ def ring_across_cards(n: int, smi: str) -> dict:
                 if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
                     fail(f"K8 {coll} across {n} cards, {mib} MiB: rank {r} "
                          f"differs from the plain version")
-            t = time_samples(lambda: cuda_fn(xs, check=False), 5 if mib > 1
-                             else 50, devices[0], reps=5)
+            iters = 5 if mib > 1 else 50
+            t = time_samples(lambda: cuda_fn(xs, check=False), iters,
+                             devices[0], reps=5)
             tp = time_samples(lambda: plain_fn(xs), 3, devices[0], reps=5)
             k8.check_errors(xs)
+            lib = library(coll, xs)
+            tl = time_samples(lib, iters, devices[0], reps=5) if lib else None
+            for d in devices:
+                torch.cuda.synchronize(d)
             # per card: its input read and output written over its HBM,
             # and what it sends one way over NVLink (450 GB/s each way)
             nb = mib << 20
@@ -195,13 +232,19 @@ def ring_across_cards(n: int, smi: str) -> dict:
                              (link / 450e6, "NVLink bytes"))
             rec = dict(ms=statistics.median(t), min=min(t), max=max(t),
                        plain_ms=statistics.median(tp), bound_ms=b_ms,
-                       bound_by=b_by, max_abs_err=0.0)
+                       bound_by=b_by, max_abs_err=0.0,
+                       library_ms=statistics.median(tl) if tl else None,
+                       library_min=min(tl) if tl else None,
+                       library_max=max(tl) if tl else None)
             rows[f"{coll} n={n} {mib} MiB float32 cards"] = rec
+            lib_text = "none" if tl is None else (
+                f"{rec['library_ms']:.4f} ms ({rec['library_min']:.4f}-"
+                f"{rec['library_max']:.4f})")
             say(f"phase 17 K8 {coll} across {n} cards (one rank per card), "
                 f"{mib} MiB f32 per rank: every byte equal | kernel "
                 f"{rec['ms']:.4f} ms ({rec['min']:.4f}-{rec['max']:.4f}, "
-                f"issued eagerly) plain {rec['plain_ms']:.4f} ms | bound "
-                f"{b_ms:.4f} ms ({b_by}, per card) | {smi}")
+                f"issued eagerly) plain {rec['plain_ms']:.4f} ms NCCL "
+                f"{lib_text} | bound {b_ms:.4f} ms ({b_by}, per card) | {smi}")
             del xs, got, want
     xs = [torch.randn((1 << 18,), generator=gen).to(d) for d in devices]
     try:
@@ -213,6 +256,23 @@ def ring_across_cards(n: int, smi: str) -> dict:
     if not all(torch.equal(g, w) for g, w in zip(
             k8.ring_all_gather_cuda(xs), k8.ring_all_gather_plain(xs))):
         fail(f"K8 across {n} cards: wrong after the planted fault")
+    # a peer card still busy: about 0.5 s of sleep queued on the last card
+    # must hold every rank back, not run out a 0.2 s bounded wait
+    for d in devices:
+        torch.cuda.synchronize(d)
+    with torch.cuda.device(devices[-1]):
+        torch.cuda._sleep(10 ** 9)  # cycles: 0.5 s at 2 GHz or longer
+    t0 = time.perf_counter()
+    got = k8.ring_all_gather_cuda(xs, timeout_s=0.2)
+    busy_s = time.perf_counter() - t0
+    if busy_s < 0.3 or not all(torch.equal(g, w) for g, w in zip(
+            got, k8.ring_all_gather_plain(xs))):
+        fail(f"K8 across {n} cards behind a busy peer: {busy_s:.3f} s (the "
+             f"queued work must outlast the 0.2 s wait), or a wrong result")
+    say(f"phase 17 K8 all_gather across {n} cards behind about 0.5 s of "
+        f"work queued on cuda:{n - 1}: the call took {busy_s:.3f} s, no "
+        f"bounded wait (0.2 s) ran out, every byte equal")
+    rows["busy peer"] = dict(seconds=busy_s)
     return rows
 
 
@@ -257,33 +317,6 @@ def comms_world(cards: int, smi: str) -> dict:
             f"({label}) | {wall:.1f} s | {smi}\n{out.rstrip()}")
         runs[label] = dict(wall_s=wall, rows=len(rows), output=out)
     return runs
-
-
-def cards_main(out_path=None) -> int:
-    """``--cards``: only what exists across cards, on a machine with two or
-    more: the rings with one rank per card and a torchrun world of all
-    cards on NCCL (the one-card phases are the default run's)."""
-    import torch
-
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        fail("--cards needs two or more CUDA devices")
-    sys.path.insert(0, ROOT)
-    from param_tpu_torch.kernels import build
-
-    smi = nvidia_smi_line()
-    cards = torch.cuda.device_count()
-    say(f"cards: {cards} x {torch.cuda.get_device_name(0)} | {smi} | ring "
-        f"built in {build.build_all(['ring']):.1f} s")
-    result = {"rings": ring_across_cards(min(cards, 8), smi),
-              "comms": comms_world(cards, smi)}
-    if out_path:
-        with open(out_path, "w") as f:
-            json.dump(result, f, indent=1)
-    say(smi)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": cards}}))
-    return 0
 
 
 def main(out_path=None) -> int:
@@ -1524,6 +1557,7 @@ def main(out_path=None) -> int:
              "64M", "--f", "8", "--c", "1", "--mode", "graph"], 2),
     }
     if cards >= 2:
+        torch.cuda.empty_cache()  # card 0 hosts the world's rank 0 too
         comms_runs["torchrun"] = comms_world(cards, smi)
     result["phases"]["comms_cli"] = comms_runs
 
@@ -1611,7 +1645,5 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the full results as JSON to PATH")
-    ap.add_argument("--cards", action="store_true",
-                    help="only the checks across cards (needs 2+ cards)")
     args = ap.parse_args()
-    sys.exit((cards_main if args.cards else main)(args.out))
+    sys.exit(main(args.out))

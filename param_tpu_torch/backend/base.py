@@ -94,6 +94,10 @@ class CollectiveArgs:
     # quantized-communication bitwidth (32 = off; the only value the port
     # takes until the quantization tier is ported)
     bitwidth: int = 32
+    # the reducing collectives and broadcast work in ``in_tensor`` itself,
+    # as PARAM and nccl-tests time them; False: on a copy of it, leaving
+    # the input as it was
+    in_place: bool = False
     # opaque slot benchmarks use to stash per-op state
     misc: Dict[str, Any] = field(default_factory=dict)
 

@@ -20,6 +20,10 @@ device r of its mesh):
   with itself is a copy);
 - ``avg`` is the sum divided by the group size, ``prod`` the product.
 
+The reducing collectives and ``broadcast`` work on a copy of the input, or
+with ``CollectiveArgs.in_place`` in the input itself: the benchmark times
+them so, without a copy of the message in each call.
+
 NCCL collectives are library calls: in the reference they are XLA
 collectives, not Pallas kernels.  A process group that cannot be set up
 raises; nothing falls back to another backend or device.
@@ -212,6 +216,11 @@ class DistBackend(Backend):
             raise ValueError(f"rank {self.rank} is not in group {g.ranks}")
         return g, g.pg, g.rank_of(self.rank), args.in_tensor
 
+    @staticmethod
+    def _buffer(args: CollectiveArgs, x: torch.Tensor) -> torch.Tensor:
+        """The buffer a reducing collective or broadcast works in."""
+        return x if args.in_place else x.clone()
+
     def _reduce_in_place(self, t: torch.Tensor, red_op: str, g: CommGroup):
         if red_op == "avg":
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g.pg)
@@ -224,7 +233,7 @@ class DistBackend(Backend):
 
     def all_reduce(self, args: CollectiveArgs):
         g, _, _, x = self._setup(args)
-        return self._reduce_in_place(x.clone(), args.red_op, g)
+        return self._reduce_in_place(self._buffer(args, x), args.red_op, g)
 
     def reduce(self, args: CollectiveArgs):
         """Rooted reduce: the root (``dst_rank``) gets the reduction, the
@@ -234,7 +243,7 @@ class DistBackend(Backend):
         op = "sum" if args.red_op == "avg" else args.red_op
         if op not in _OPS:
             raise ValueError(f"unsupported reduction {args.red_op!r}")
-        out = x.clone()
+        out = self._buffer(args, x)
         dist.reduce(out, dst=g.ranks[root], op=_OPS[op], group=pg)
         if me != root:
             return out.zero_()
@@ -270,8 +279,8 @@ class DistBackend(Backend):
                               device=x.device)
             dist.reduce_scatter_tensor(out, x.contiguous(), group=pg)
             return out
-        y = self._reduce_in_place(x.clone(), args.red_op, g)
-        return y[me * shard:(me + 1) * shard].clone()
+        y = self._reduce_in_place(self._buffer(args, x), args.red_op, g)
+        return y[me * shard:(me + 1) * shard]
 
     def reduce_scatter_v(self, args: CollectiveArgs):
         """Rank r receives ``max(splits)`` reduced elements from offset
@@ -280,9 +289,9 @@ class DistBackend(Backend):
         n, local = g.size, x.shape[0]
         splits = list(args.out_split or args.in_split or [local // n] * n)
         mx = max(splits)
-        y = self._reduce_in_place(x.clone(), args.red_op, g)
+        y = self._reduce_in_place(self._buffer(args, x), args.red_op, g)
         start = int(min(max(_offsets(splits)[me], 0), local - mx))
-        return y[start:start + mx].clone()
+        return y[start:start + mx]
 
     def all_to_all(self, args: CollectiveArgs):
         _, pg, _, x = self._setup(args)
@@ -321,7 +330,7 @@ class DistBackend(Backend):
 
     def broadcast(self, args: CollectiveArgs):
         g, pg, _, x = self._setup(args)
-        out = x.clone()
+        out = self._buffer(args, x)
         dist.broadcast(out, src=g.ranks[args.src_rank], group=pg)
         return out
 

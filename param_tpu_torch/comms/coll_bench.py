@@ -8,7 +8,9 @@ check the output (dcheck), then time it.  ``dispatch`` and ``graph`` time
 percentiles are over at least 10 windows, each giving the mean time per
 iteration.  ``blocking`` times every call to its completion on the host
 clock.  On the CPU (gloo) ``graph`` is the same as ``dispatch`` and the
-windows are timed on the host clock.  The pt2pt tests time ping, ping-pong
+windows are timed on the host clock.  The dcheck call works on a copy of
+the input; the timed calls of the reducing collectives and broadcast work
+in place in the buffer ``prep_comm`` allocated, as PARAM times them.  The pt2pt tests time ping, ping-pong
 and a window of uni- / bi-directional sends.  The COMMS-RES table prints on
 each group's first rank.
 """
@@ -89,6 +91,7 @@ class CollBench(CommsBench):
             out = fn(args)
             self.backend.complete_ops()
             res.dcheck_ok = self.dcheck(collective, args, out)
+        args.in_place = True
 
         k = max(1, p.num_coll_per_iter)
 

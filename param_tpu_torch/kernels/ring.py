@@ -143,9 +143,9 @@ def _enable_peer_access(device: int, peer: int) -> None:
 
 class _Workspace:
     """Per-rank flag words and the reduce-scatter's two comm slots of one
-    set of ranks, the error word, and (across cards) the events that order
-    one call after the last.  The gathers need no slots: they write
-    straight into the neighbour's output."""
+    set of ranks, the error word, and (across cards) one event per card
+    that every rank's start waits on.  The gathers need no slots: they
+    write straight into the neighbour's output."""
 
     def __init__(self, devices: Tuple[torch.device, ...]):
         words = bindings.entry("ring", "ring_flag_words")()
@@ -155,7 +155,8 @@ class _Workspace:
         self.err = torch.zeros(1, dtype=torch.int32, device=devices[0])
         self.slots: List[torch.Tensor] = []
         self.slot_bytes = 0
-        self.done: List[torch.cuda.Event] = []
+        self.queued = [torch.cuda.Event() for _ in devices]
+        self.streams: List[torch.cuda.Stream] = []
 
     def ensure_slots(self, nbytes: int) -> None:
         if nbytes <= self.slot_bytes:
@@ -266,15 +267,23 @@ def _launch(kind: str, shards: Sequence[torch.Tensor],
         launch_counts[_COUNTS[kind]] += 1
     else:
         streams = [torch.cuda.current_stream(d) for d in ws.devices]
-        for s in streams:  # this call starts after the last one everywhere
-            for ev in ws.done:
-                s.wait_event(ev)
+        if streams != ws.streams:  # the last call may run on other streams
+            ws.sync()
+            ws.streams = streams
+        # every rank starts once the work queued before it on every card is
+        # done, the last ring call with it, so no card's bounded wait runs
+        # while a peer still works through its own queue
+        for ev, s in zip(ws.queued, streams):
+            ev.record(s)
+        for r, s in enumerate(streams):
+            for p, ev in enumerate(ws.queued):
+                if p != r:
+                    s.wait_event(ev)
         for r, (d, s) in enumerate(zip(ws.devices, streams)):
             rc = fn(code, dtype, n, r, 1, d.index, *table, *args,
                     s.cuda_stream)
             bindings.check(rc, f"ring {kind} on {d}")
             launch_counts[_COUNTS[kind]] += 1
-        ws.done = [s.record_event() for s in streams]
     if check:
         ws.raise_if_failed()
 

@@ -280,6 +280,38 @@ def test_harness_world_1_in_process(world1, mode):
             assert all(t > 0 for t in r.lat_us) and r.alg_bw_gbs > 0
 
 
+@pytest.mark.parametrize("coll,kw", [
+    ("all_reduce", {}), ("all_reduce", {"red_op": "avg"}), ("reduce", {}),
+    ("reduce_scatter", {"red_op": "max"}), ("reduce_scatter_v", {}),
+    ("broadcast", {})])
+def test_in_place_works_in_the_input(world1, coll, kw):
+    """Out of place the input stays as it was; in place the result lies in
+    the input's own memory (no copy of the message), with the same values."""
+    x = torch.arange(1.0, 9.0)
+    out = world1.collective_fn[coll](CollectiveArgs(in_tensor=x, **kw))
+    torch.testing.assert_close(x, torch.arange(1.0, 9.0), rtol=0, atol=0)
+    assert out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+    got = world1.collective_fn[coll](CollectiveArgs(in_tensor=x, in_place=True,
+                                                    **kw))
+    assert got.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    torch.testing.assert_close(got, out, rtol=0, atol=0)
+
+
+def test_timed_calls_work_in_place(world1):
+    """The dcheck call (and its verdict's all_reduce) works on copies; every
+    timed call works in the buffer ``prep_comm`` allocated."""
+    seen = []
+    fn = world1.collective_fn["all_reduce"]
+    world1.collective_fn["all_reduce"] = \
+        lambda a: seen.append(a.in_place) or fn(a)
+    res = CollBench(world1, CommsParams(dcheck=True, num_iters=2,
+                                        num_warmup_iters=1), reps=1) \
+        .run_one("all_reduce", 256, world1.get_default_group())
+    assert res.dcheck_ok is True
+    assert seen[:2] == [False, False] and set(seen[2:]) == {True}
+    assert len(seen) == 2 + 1 + 10 * 2  # warm-up, then 10 windows of 2
+
+
 def test_cli_world_1_in_process(capsys):
     assert cli.main(["--device", "cpu", "--collective", "all_reduce,pt2pt",
                      "--b", "1K", "--e", "4K", "--n", "2", "--w", "1",

@@ -797,3 +797,19 @@ def test_ring_kernels_raise_on_what_they_do_not_take(cuda_device):
         ring_reduce_scatter_cuda([x.int() for x in xs])
     with pytest.raises(ValueError, match="CUDA"):
         ring_all_gather_cuda([x.cpu() for x in xs])
+
+
+@pytest.mark.cuda
+def test_ring_across_cards_waits_for_a_busy_peer(cuda_device):
+    """One rank per card: work still queued on a peer card holds every rank
+    back, so no rank's bounded wait runs out while the peer is busy."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    xs = [torch.randn(1 << 16, generator=torch.Generator().manual_seed(r))
+          .to(f"cuda:{r}") for r in range(cards)]
+    _assert_ring_bitwise(ring_all_gather_cuda(xs), ring_all_gather_plain(xs))
+    with torch.cuda.device(cards - 1):
+        torch.cuda._sleep(10 ** 9)  # cycles: 0.5 s at 2 GHz or longer
+    _assert_ring_bitwise(ring_all_gather_cuda(xs, timeout_s=0.2),
+                         ring_all_gather_plain(xs))
