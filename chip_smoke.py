@@ -105,7 +105,20 @@ Phases (any failure exits non-zero):
      pt2pt from 8 B to 64 MiB with dcheck, and all_reduce / all_gather
      replayed from CUDA graphs (``--mode graph``); with two or more cards
      also ``torchrun`` worlds of all of them; every row's dcheck OK.
-Timings (phases 2-4, 7-9, 11, 13, 14, 17) use CUDA events after a warm-up and
+ 19. The coalesced-fetch kernels and the headline bench, at the
+     experiment's full sizes (table 1,048,576 x 128 f32): K9 (k-row bulk
+     fetch, tile sums) at k 1, 2, 4, 8, 16, 32 (262,144 rows, 4096 a tile)
+     against its plain version within rtol 1e-4, and a planted fault (one
+     start shifted by one row) must break that comparison; K10 (block-
+     coalesced bag, r_blk 8, 16 bags a tile) at B 8192 x nnz 32 uniform and
+     zipf ids against the plain bag within rtol 1e-5, timed beside K1, the
+     pre-pass + K10 path and F.embedding_bag (its library call).  Then
+     ``param_tpu_torch.bench.main()`` (the 1M x 128 headline through K1)
+     and ``experiments.coalesce.main()`` (--verify, then stages A and B)
+     in-process, the launch counts reset before and read after: K1, K9 and
+     K10 must each have launched, and the bench's JSON line must hold a
+     finite GB/s.
+Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19) use CUDA events after a warm-up and
 report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
@@ -1561,6 +1574,137 @@ def main(out_path=None) -> int:
         comms_runs["torchrun"] = comms_world(cards, smi)
     result["phases"]["comms_cli"] = comms_runs
 
+    # ---------------------------------------------------------------- 19
+    import numpy as np
+
+    from param_tpu_torch import bench as port_bench
+    from param_tpu_torch.experiments import coalesce as coal
+    from param_tpu_torch.kernels import coalesce as kc
+    from param_tpu_torch.models.dlrm_data import gen_indices
+    from param_tpu_torch.utils.timer import cycler
+
+    torch.cuda.empty_cache()
+    CE, CD = coal.E, coal.D
+    ctab = torch.rand((CE, CD), generator=gen, device=dev)
+    k9, k9_fault = {}, {}
+    for k in coal.KS:
+        n = coal.K_ROWS // k
+        starts = torch.randint(0, CE - k, (n,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        shifted = [((starts + s) % (CE - k)).int() for s in range(8)]
+        want = kc.desc_fetch_plain(ctab, starts, k)
+        tol = 1e-4 * want.abs().max().item()
+        err = check(f"K9 k={k}", kc.desc_fetch_cuda(ctab, starts, k), want,
+                    tol)
+        if k == 8:  # a planted fault: one start shifted by one row
+            bad = starts.clone()
+            bad[0] = (bad[0] + 1) % (CE - k)
+            bad_err = (kc.desc_fetch_cuda(ctab, bad, k) - want).abs().max() \
+                .item()
+            if not bad_err > tol:
+                fail(f"K9: a start shifted by one row is not flagged (err "
+                     f"{bad_err:.3e}, tol {tol:.3e})")
+            k9_fault = dict(max_abs_err=bad_err, tol=tol)
+            say(f"phase 19 K9 planted fault (k 8, start 0 moved one row): "
+                f"max abs err {bad_err:.3e} > tol {tol:.3e}, flagged")
+        n_tiles = coal.K_ROWS // coal.ROWS_PER_TILE
+        nbytes = coal.K_ROWS * CD * 4 + n * 4 + n_tiles * CD * 4
+        b_ms, b_by = bound_ms(nbytes, coal.K_ROWS * CD)
+        nk, npl = cycler(shifted), cycler(shifted)
+        rec = timings(lambda: kc.desc_fetch_cuda(ctab, nk(), k),
+                      lambda: kc.desc_fetch_plain(ctab, npl(), k), None, 20)
+        rec.update(shape=f"table ({CE}, {CD}) f32, {n} starts x {k} rows "
+                         f"({coal.ROWS_PER_TILE} rows a tile)",
+                   max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, gbps=nbytes / rec["ms"] / 1e6,
+                   ns_per_copy=rec["ms"] * 1e6 / n)
+        k9[k] = rec
+        say(f"phase 19 K9 k={k}: {rec['shape']} max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}) | {timing_text(rec, '')} ({rec['gbps']:.0f} GB/s, "
+            f"{rec['ns_per_copy']:.3f} ns per copy) bound {b_ms:.4f} ms "
+            f"({b_by}) | {smi}")
+        del starts, shifted, want
+
+    k10 = {}
+    crng = np.random.default_rng(0)
+    for dist in ("uniform", "zipf"):
+        if dist == "uniform":
+            idx = torch.randint(0, CE, (coal.B, coal.NNZ), generator=gen,
+                                device=dev, dtype=torch.int32)
+        else:
+            idx = torch.from_numpy(gen_indices(
+                crng, coal.B, 1, coal.NNZ, CE, "zipf")[:, 0, :]).to(dev)
+        ids = [((idx.long() + s) % CE).int() for s in range(8)]
+        longs = [i.long() for i in ids]
+        plans = [kc.coalesce_plan(i, CE, coal.R_BLK, coal.TILE_BAGS)
+                 for i in ids]
+        want = emb_gather_plain(ctab, ids[0])
+        tol = 1e-5 * want.abs().max().item()
+        err = check(f"K10 {dist}", kc.coalesced_bag_cuda(ctab, plans[0]),
+                    want, tol)
+        check(f"K10 {dist} plain version",
+              kc.coalesced_bag_plain(ctab, plans[0]), want, tol)
+        uniq = torch.unique(ids[0]).numel()  # shifts are bijections
+        blocks = int(plans[0].n_blocks.sum().item())
+        nbytes = uniq * CD * 4 + idx.numel() * 4 + coal.B * CD * 4
+        b_ms, b_by = bound_ms(nbytes, idx.numel() * CD)
+        n1, n2, n3, n4, n5 = (cycler(plans), cycler(plans), cycler(longs),
+                              cycler(ids), cycler(ids))
+        rec = timings(lambda: kc.coalesced_bag_cuda(ctab, n1()),
+                      lambda: kc.coalesced_bag_plain(ctab, n2()),
+                      lambda: F.embedding_bag(n3(), ctab, mode="sum"), 20)
+        rec["t_k1"] = timed(lambda: emb_gather_cuda(ctab, n4()), 20)
+        rec["t_with_prepass"] = timed(lambda: coal.coalesced_bag(ctab, n5()),
+                                      20)
+        rec.update(shape=f"table ({CE}, {CD}) f32, {coal.B} bags x "
+                         f"{coal.NNZ} {dist} ids, r_blk {coal.R_BLK}, "
+                         f"{coal.TILE_BAGS} bags a tile",
+                   max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                   unique_rows=uniq, blocks=blocks, bytes=nbytes,
+                   gbps=nbytes / rec["ms"] / 1e6)
+        k10[dist] = rec
+        say(f"phase 19 K10 {dist}: {rec['shape']}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}) | {timing_text(rec, 'F.embedding_bag')} | K1 "
+            f"{fmt(rec['t_k1'])} | pre-pass + K10 "
+            f"{fmt(rec['t_with_prepass'])} | {uniq} distinct rows in "
+            f"{blocks} blocks of {coal.R_BLK} | bound {b_ms:.4f} ms "
+            f"({b_by}) | {smi}")
+        del idx, ids, longs, plans, want
+    del ctab
+    torch.cuda.empty_cache()
+
+    # the main path: the headline bench and the experiment, as a user runs
+    # them, with the launch counts reset just before and read just after
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rcs = [port_bench.main([]), coal.main(["--verify"]), coal.main([])]
+    wall = time.perf_counter() - t0
+    main19 = {k: v for k, v in kernels.launch_counts.items() if v}
+    out19 = buf.getvalue()
+    lines = out19.splitlines()
+    bench_lines = [ln for ln in lines if ln.startswith("{")]
+    bench_rec = json.loads(bench_lines[0]) if bench_lines else {}
+    missing = [k for k in ("emb_gather", "desc_fetch", "coalesced_bag")
+               if main19.get(k, 0) <= 0]
+    k_lines = [ln for ln in lines if ln.strip().startswith("K=")]
+    verdicts = [ln for ln in lines if " -> " in ln]
+    if any(rcs) or missing or len(bench_lines) != 1 or \
+            bench_rec.get("metric") != "torch_emb_lookup_bw_1Mx128_b8192_nnz30" \
+            or not (math.isfinite(bench_rec.get("value", math.nan))
+                    and bench_rec["value"] > 0) \
+            or len(k_lines) != len(coal.KS) or len(verdicts) != 2 \
+            or "verify: both kernels match" not in out19:
+        fail(f"phase 19 bench / experiment: rcs {rcs}, not launched "
+             f"{missing} ({main19}), output:\n{out19}")
+    say(f"phase 19 param_tpu_torch.bench.main() and experiments.coalesce."
+        f"main() (--verify, then stages A and B) | {wall:.1f} s | launches "
+        f"{main19} | {smi}\n{out19.rstrip()}")
+    result["phases"]["coalesce"] = dict(k9=k9, k9_fault=k9_fault, k10=k10,
+                                        main_launches=main19, bench=bench_rec,
+                                        output=out19, wall_s=wall)
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -1625,7 +1769,15 @@ def main(out_path=None) -> int:
               "param_tpu/ops/ring_collectives.py:261",
               ring_launches["ring_loopback"],
               k8_rows["loopback n=1 64 MiB float32"]),
-    ]}
+        entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
+              "param_tpu/ops/embedding.py:185", main19["emb_gather"],
+              k1["headline_f32"]),
+    ] + [entry(f"desc_fetch k={k} (K9)", src + "coalesce.cu",
+               "scripts/coalesce_experiment.py:55", main19["desc_fetch"],
+               k9[k]) for k in coal.KS]
+      + [entry(f"coalesced_bag {dist} ids (K10)", src + "coalesce.cu",
+               "scripts/coalesce_experiment.py:162", main19["coalesced_bag"],
+               k10[dist]) for dist in ("uniform", "zipf")]}
     result.update(report)
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)

@@ -17,7 +17,10 @@ device r of its mesh):
 - ``incast`` / ``multicast`` are point-to-point sends into or out of one
   root (zeros where nothing arrives), ``pt2pt`` a set of (src, dst) pairs
   (``ppermute``: a rank that receives nothing gets zeros; a pair of a rank
-  with itself is a copy);
+  with itself is a copy).  The pt2pt calls (``send_recv``, ``ping``,
+  ``window_send``) receive into buffers allocated once per shape, dtype and
+  pairs, as PARAM posts into preallocated buffers: a result stays valid
+  until the next call with the same shape, dtype and pairs;
 - ``avg`` is the sum divided by the group size, ``prod`` the product.
 
 The reducing collectives and ``broadcast`` work on a copy of the input, or
@@ -77,6 +80,7 @@ class DistBackend(Backend):
         self._default_group: Optional[CommGroup] = None
         self._groups: List[CommGroup] = []
         self._owns_pg = False
+        self._recv_bufs = {}  # pt2pt receive buffers of the last shape
         self._init_collective_fns()
 
     # ------------------------------------------------------------------ init
@@ -436,11 +440,33 @@ class DistBackend(Backend):
         return received
 
     # ------------------------------------------------------------------ p2p
+    def _recv_buffer(self, x: torch.Tensor, pairs, receives: bool):
+        """A receive buffer for a message like ``x`` over ``pairs`` that is
+        not ``x`` itself: two per (shape, dtype, pairs), made on first use.
+        Only one that nothing will arrive in is zeroed, once.  Buffers of
+        another shape or dtype are dropped first, so a size sweep holds one
+        size's buffers at a time."""
+        shape = (tuple(x.shape), x.dtype, x.device)
+        if any(k[0] != shape for k in self._recv_bufs):
+            self._recv_bufs.clear()
+        for slot in (0, 1):
+            key = (shape, tuple(pairs), slot)
+            buf = self._recv_bufs.get(key)
+            if buf is None:
+                make = torch.empty_like if receives else torch.zeros_like
+                buf = self._recv_bufs[key] = make(x, memory_format=
+                                                  torch.contiguous_format)
+            if buf.data_ptr() != x.data_ptr():
+                return buf
+        raise AssertionError("two receive buffers cannot both alias x")
+
     def _permute(self, g: CommGroup, me: int, x: torch.Tensor, pairs):
         """``ppermute``: for each (src, dst) pair dst receives src's tensor;
-        a rank that receives nothing gets zeros."""
-        out = torch.zeros_like(x)
+        a rank that receives nothing gets zeros.  The result lies in a
+        reused receive buffer (:meth:`_recv_buffer`)."""
         x = x.contiguous()
+        receives = any(d == me for _, d in pairs)
+        out = self._recv_buffer(x, pairs, receives)
         sends, recvs = [], []
         for s, d in pairs:
             if s == d == me:
@@ -470,7 +496,8 @@ class DistBackend(Backend):
     def window_send(self, args: CollectiveArgs, window: int,
                     bidirectional: bool):
         """``window`` back-to-back transfers over the pairs (and back, when
-        bidirectional), each carrying the last one's result."""
+        bidirectional), each carrying the last one's result; the steps
+        alternate between the pairs' two receive buffers."""
         g, _, me, x = self._setup(args)
         pairs = list(zip(args.src_ranks, args.dst_ranks))
         if bidirectional:

@@ -13,6 +13,8 @@
 - K8a-d :mod:`.ring` (``csrc/ring.cu``): ring all-gather, ring
   reduce-scatter, both-direction ring all-gather, loopback copy, over
   per-rank shards on one card or one card per rank.
+- K9 and K10 :mod:`.coalesce` (``csrc/coalesce.cu``): the coalesced-fetch
+  experiment's k-row bulk-copy fetch and its block-coalesced embedding bag.
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
@@ -34,6 +36,8 @@ launch_counts = {
     "ring_reduce_scatter": 0,
     "ring_bidir_all_gather": 0,
     "ring_loopback": 0,
+    "desc_fetch": 0,
+    "coalesced_bag": 0,
 }
 
 

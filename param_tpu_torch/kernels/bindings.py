@@ -55,6 +55,13 @@ _SIGNATURES = {
         "flash_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _LP, _F, _I, _P],
     },
+    "coalesce": {
+        "desc_fetch_smem": [_I, _I, _I],
+        "coalesced_bag_smem": [_I, _I, _I, _I, _I],
+        "desc_fetch_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+        "coalesced_bag_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                              _I, _P],
+    },
 }
 
 # dtype codes of the GEMM entry points

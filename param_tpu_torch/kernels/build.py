@@ -31,6 +31,7 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "ring": "ring.cu",
+    "coalesce": "coalesce.cu",
 }
 
 NVCC_FLAGS = [

@@ -179,17 +179,42 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_fwd(q, k, v, causal, scale)
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b with an f32 result, the operands read in their own
+    dtype (cuBLAS accumulates in f32)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One query token per head against a KV cache: q (B, H_kv, G, D)
     (G query heads per kv head), k / v (B, H_kv, S, D), ``valid`` an
     optional (S,) bool mask of the cache positions to attend.  f32 logits
-    and output, P in q's dtype, each kv head read once for its group."""
+    and output, P in q's dtype, each kv head read once for its group.
+
+    On the card the cache is contracted in its stored dtype with f32
+    accumulation, as the reference's ``preferred_element_type`` einsums do
+    (no f32 copy of the cache); on the CPU, which has no such product, the
+    operands are upcast (bf16 products are exact in f32)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) * scale
+    b, hk, g, d = q.shape
+    s = k.shape[2]
+    on_card = q.device.type == "cuda" and q.dtype == k.dtype == v.dtype
+    if on_card:
+        kt = k.reshape(b * hk, s, d).transpose(1, 2)  # a view of the cache
+        logits = _bmm_f32(q.reshape(b * hk, g, d), kt).view(b, hk, g, s)
+    else:
+        logits = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float())
+    logits = logits * scale
     if valid is not None:
         logits = logits.masked_fill(~valid, _NEG_INF)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
+    if on_card:
+        dv = v.shape[-1]
+        return _bmm_f32(p.reshape(b * hk, g, s),
+                        v.reshape(b * hk, s, dv)).view(b, hk, g, dv)
     return torch.einsum("bkgs,bksd->bkgd", p.float(), v.float())
 
 

@@ -10,7 +10,9 @@ is reported beside every measured time.
 
 from __future__ import annotations
 
+import subprocess
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -66,3 +68,17 @@ def bound_ms(nbytes: float, flops: float = 0.0, fp32: bool = True,
     if t_ops > t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def nvidia_smi_name_power(index: int = 0) -> Optional[str]:
+    """Card ``index``'s ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, or
+    None where nvidia-smi cannot be run."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader", f"--id={index}"],
+                           capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = r.stdout.strip().splitlines()
+    return lines[0] if r.returncode == 0 and lines else None

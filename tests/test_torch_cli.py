@@ -59,7 +59,8 @@ def test_unported_modes_raise():
                          "--train-batches", "1"])
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|param_tpu)(\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|param_tpu|scripts)(\.|\s|$)",
+                        re.M)
 
 
 _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
@@ -85,6 +86,20 @@ def test_port_imports_neither_jax_nor_reference():
             bad += [f"{f}: {m.group(0).strip()}"
                     for m in _FORBIDDEN.finditer(fh.read())]
     assert not bad, bad
+
+
+def test_bench_and_experiment_load_without_jax():
+    """The headline bench and the coalesced-fetch experiment pull in
+    neither JAX, the reference package nor its scripts."""
+    code = ("import sys\n"
+            "import param_tpu_torch.bench, param_tpu_torch.experiments.coalesce\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu', 'scripts')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
 
 
 def test_comms_and_ring_modules_load_without_jax():

@@ -226,6 +226,32 @@ def test_rank_pattern_dcheck_passes(worlds, n):
         assert all(v is True for v in checks.values()), checks
 
 
+@pytest.mark.parametrize("n,call", [(n, c) for n in WORLDS
+                                    for c in worker.REUSE_CALLS],
+                         ids=[f"{c[0]}-world{n}" for n in WORLDS
+                              for c in worker.REUSE_CALLS])
+def test_pt2pt_buffer_reuse_matches_tpu_backend(worlds, n, call):
+    """Each pt2pt call made twice, the second in the first's receive
+    buffers (the window alternating two): both equal the reference's."""
+    name, method, extra = call
+    ref = TpuBackend(devices=jax.devices()[:n])
+    ref.initialize()
+    pairs = worker.reuse_pairs(n)
+    x = ref.alloc_per_rank(
+        lambda r: worker.inputs("pt2pt_reuse", n, (7,))[r])
+    out = getattr(ref, method)(RefArgs(
+        in_tensor=x, src_ranks=[s for s, _ in pairs],
+        dst_ranks=[d for _, d in pairs]), *extra)
+    want = ref.local_shards(out)
+    for r in range(n):
+        first, second, same_buffer = worlds[n][r][f"reuse:{name}"]
+        assert same_buffer, f"rank {r}: the second call allocated anew"
+        for got in (first, second):
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(want[r]).reshape(got.shape),
+                err_msg=f"rank {r}")
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

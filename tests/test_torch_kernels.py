@@ -24,7 +24,12 @@ input dtype before their products); the plain version against autograd of
 K6's plain version 2e-5 (f32 sums in another order).  K8a-d (ring
 collectives over per-rank shards on one card): bitwise equal to their plain
 versions, which walk the same ring (copies, and one add in the input dtype
-per hop in the same order).
+per hop in the same order).  K9 (k-row fetch, tile sums) rtol 1e-4 and
+K10 (block-coalesced bag) rtol 1e-5, the coalesced-fetch script's own
+(sums of up to 4096 rows, and bags summed in another order).  Decode
+attention on the card (bf16 cache contracted with f32 accumulation)
+against the f32 product of the upcast operands: atol 1e-4, rtol 1e-3 (one
+bf16 rounding of P may flip where a logit sums in another order).
 """
 
 import math
@@ -34,6 +39,10 @@ import pytest
 import torch
 
 from param_tpu_torch import kernels
+from param_tpu_torch.kernels.coalesce import (
+    coalesce_plan, coalesced_bag_cuda, coalesced_bag_plain, desc_fetch_cuda,
+    desc_fetch_plain,
+)
 from param_tpu_torch.kernels.emb_gather import emb_gather_cuda, emb_gather_plain
 from param_tpu_torch.kernels.flash_bwd import (
     flash_bwd_cuda, flash_bwd_plain, flash_bwd_tolerance, kernel_layout,
@@ -813,3 +822,145 @@ def test_ring_across_cards_waits_for_a_busy_peer(cuda_device):
         torch.cuda._sleep(10 ** 9)  # cycles: 0.5 s at 2 GHz or longer
     _assert_ring_bitwise(ring_all_gather_cuda(xs, timeout_s=0.2),
                          ring_all_gather_plain(xs))
+
+
+# ----------------------------------------------------------------- K9, K10
+def test_desc_fetch_plain_matches_loop():
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((300, 8)).astype(np.float32)
+    starts = rng.integers(0, 297, size=(24,)).astype(np.int32)
+    got = desc_fetch_plain(torch.from_numpy(table), torch.from_numpy(starts),
+                           3, rows_per_tile=12).numpy()
+    want = np.stack([sum(table[s:s + 3].sum(0) for s in starts[t * 4:
+                                                               (t + 1) * 4])
+                     for t in range(6)])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("r_blk,tile_bags", [(1, 4), (4, 2), (8, 16),
+                                             (5, 8)])
+def test_coalesced_bag_plain_is_the_bag(r_blk, tile_bags):
+    table, idx, _ = _bags(203, 12, 32, 6, seed=r_blk)
+    idx[3, 2], idx[9, 0] = -7, 203  # counts from the end; out of range
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    got = coalesced_bag_plain(t, coalesce_plan(i, 203, r_blk, tile_bags))
+    torch.testing.assert_close(got, emb_gather_plain(t, i), rtol=1e-5,
+                               atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows_per_tile", [(1, 4096), (2, 4096), (4, 4096),
+                                             (8, 4096), (16, 4096),
+                                             (32, 4096), (3, 3072),
+                                             (64, 1024)])
+def test_desc_fetch_kernel_matches_plain(cuda_device, k, rows_per_tile):
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    rows = 1 << 17
+    table = torch.rand((rows, 128), generator=gen, device=cuda_device)
+    n = 16 * rows_per_tile // k
+    starts = torch.randint(0, rows - k + 1, (n,), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    got = desc_fetch_cuda(table, starts, k, rows_per_tile)
+    want = desc_fetch_plain(table, starts, k, rows_per_tile)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    bad = starts.clone()
+    bad[5] = rows - k + 1  # one row past the table's end
+    got = desc_fetch_cuda(table, bad, k, rows_per_tile)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0]).all() and torch.isfinite(got[1:]).all()
+
+
+@pytest.mark.cuda
+def test_desc_fetch_kernel_replays_from_a_graph(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.rand((1 << 16, 128), generator=gen, device=cuda_device)
+    starts = torch.randint(0, (1 << 16) - 8, (4096,), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    desc_fetch_cuda(table, starts, 8)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = desc_fetch_cuda(table, starts, 8)
+    starts.add_(1)
+    g.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, desc_fetch_plain(table, starts, 8),
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "dup64", "invalid", "ragged-end",
+                                  "r_blk1", "r_blk16", "d64", "nnz30"])
+def test_coalesced_bag_kernel_matches_plain(cuda_device, case):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rows = (1 << 16) + (3 if case == "ragged-end" else 0)
+    dim = 64 if case == "d64" else 128
+    r_blk = {"r_blk1": 1, "r_blk16": 16}.get(case, 8)
+    nnz = 30 if case == "nnz30" else 32
+    table = torch.rand((rows, dim), generator=gen, device=cuda_device)
+    idx = torch.randint(0, rows, (1024, nnz), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    if case == "dup64":
+        idx = torch.randint(0, 64, (1024, nnz), generator=gen,
+                            device=cuda_device, dtype=torch.int32) * 997
+    if case == "invalid":
+        idx[3, 1], idx[40, 0], idx[41, 5] = -5, rows, -rows - 1
+    if case == "ragged-end":
+        idx[:, 0] = rows - 1 - torch.arange(1024, device=cuda_device) % 3
+    plan = coalesce_plan(idx, rows, r_blk, 16)
+    got = coalesced_bag_cuda(table, plan)
+    want = emb_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    torch.testing.assert_close(coalesced_bag_plain(table, plan), want,
+                               rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_coalesce_kernels_raise_on_what_they_do_not_take(cuda_device):
+    table = torch.rand((1024, 128), device=cuda_device)
+    starts = torch.zeros(512, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        desc_fetch_cuda(table.double(), starts, 8, 1024)
+    with pytest.raises(ValueError, match="divide"):
+        desc_fetch_cuda(table, starts, 3, 1024)
+    with pytest.raises(ValueError, match="fit"):
+        desc_fetch_cuda(table, starts[:8], 128, 1024)
+    plan = coalesce_plan(torch.zeros((16, 4), dtype=torch.int32,
+                                     device=cuda_device), 1024)
+    with pytest.raises(ValueError, match="rows"):
+        coalesced_bag_cuda(table[:512], plan)
+    with pytest.raises(TypeError):
+        coalesced_bag_cuda(table.bfloat16(), plan)
+
+
+# -------------------------------------------------------- decode attention
+@pytest.mark.cuda
+def test_decode_attention_makes_no_f32_copy_of_the_cache(cuda_device):
+    """Batch 32, llama2's 32 heads of 128, cache 2048, bf16: the call raises
+    peak allocated memory by less than one f32 copy of the K cache, and
+    agrees with the f32 product of the upcast operands."""
+    from param_tpu_torch.ops.attention import decode_attention
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    shape = (32, 32, 2048, 128)
+    q = torch.randn((32, 32, 1, 128), generator=gen,
+                    device=cuda_device).bfloat16()
+    k = torch.randn(shape, generator=gen, device=cuda_device).bfloat16()
+    v = torch.randn(shape, generator=gen, device=cuda_device).bfloat16()
+    valid = torch.arange(2048, device=cuda_device) <= 2000
+    decode_attention(q, k, v, valid)  # cuBLAS sets up its workspace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    assert rise < k.numel() * 4, f"peak rose {rise} B"
+    assert out.dtype == torch.float32 and out.shape == (32, 32, 1, 128)
+    s = torch.einsum("bkgd,bksd->bkgs", q[:4].float(), k[:4].float()) \
+        / math.sqrt(128)
+    p = torch.softmax(s.masked_fill(~valid, -1e30), -1).bfloat16()
+    want = torch.einsum("bkgs,bksd->bkgd", p.float(), v[:4].float())
+    torch.testing.assert_close(out[:4], want, rtol=1e-3, atol=1e-4)

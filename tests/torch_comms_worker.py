@@ -62,6 +62,22 @@ def inputs(name, n, shape):
             for _ in range(n)]
 
 
+def reuse_pairs(n):
+    """The one (src, dst) pair of the pt2pt buffer-reuse calls."""
+    return [(0, n - 1)]
+
+
+# the pt2pt calls made twice each with the same shape and pairs, so the
+# second runs in the first's receive buffers: (name, backend method, args)
+REUSE_CALLS = [
+    ("send_recv", "send_recv", ()),
+    ("ping", "ping", ()),
+    ("ping_pong", "ping", (True,)),
+    ("window_uni", "window_send", (3, False)),
+    ("window_bi", "window_send", (3, True)),
+]
+
+
 DCHECK_COLLECTIVES = ["all_reduce", "all_gather", "reduce_scatter",
                       "all_to_all", "all_to_allv", "broadcast", "reduce",
                       "gather", "scatter", "incast", "multicast",
@@ -92,6 +108,16 @@ def main(store, rank, world, out_dir):
     res["broadcast_object_list"] = backend.broadcast_object_list(
         CollectiveArgs(src_rank=1, misc={"object_list": [
             {"root": rank}, f"from {rank}"]}))
+    pairs = reuse_pairs(world)
+    args = CollectiveArgs(
+        in_tensor=torch.from_numpy(inputs("pt2pt_reuse", world, (7,))[rank]),
+        src_ranks=[p for p, _ in pairs], dst_ranks=[q for _, q in pairs])
+    for name, method, extra in REUSE_CALLS:
+        fn = getattr(backend, method)
+        out = fn(args, *extra)
+        first, ptr = out.clone(), out.data_ptr()
+        out = fn(args, *extra)
+        res[f"reuse:{name}"] = (first, out.clone(), out.data_ptr() == ptr)
     bench = CollBench(backend, CommsParams(num_iters=2, num_warmup_iters=1,
                                            dcheck=True), reps=1)
     g = backend.get_default_group()
