@@ -111,7 +111,8 @@ Phases (any failure exits non-zero):
      against its plain version within rtol 1e-4, and a planted fault (one
      start shifted by one row) must break that comparison; K10 (block-
      coalesced bag, r_blk 8, 16 bags a tile) at B 8192 x nnz 32 uniform and
-     zipf ids against the plain bag within rtol 1e-5, timed beside K1, the
+     zipf ids against the plain bag (K1's) within rtol 1e-5, and K1 at the
+     same ids (stage B's shape) against it too; timed beside K1, the
      pre-pass + K10 path and F.embedding_bag (its library call).  Then
      ``param_tpu_torch.bench.main()`` (the 1M x 128 headline through K1)
      and ``experiments.coalesce.main()`` (--verify, then stages A and B)
@@ -133,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -438,17 +440,12 @@ def main(out_path=None) -> int:
         uniq = torch.unique(i0).numel()  # shifts are bijections: same count
         nbytes = uniq * dim * es + nb * nnz * 4 + nb * dim * es
         b_ms, b_by = bound_ms(nbytes, nb * nnz * dim)
-        long_list = [i.long() for i in idx_list]
-        cyc = {"k": 0}
-
-        def nxt(lst):
-            cyc["k"] = (cyc["k"] + 1) % len(lst)
-            return lst[cyc["k"]]
-
-        rec = timings(lambda: emb_gather_cuda(table, nxt(idx_list)),
-                      lambda: emb_gather_plain(table, nxt(idx_list)),
-                      lambda: F.embedding_bag(nxt(long_list), table,
-                                              mode="sum"), iters)
+        n_k, n_p = itertools.cycle(idx_list), itertools.cycle(idx_list)
+        n_l = itertools.cycle([i.long() for i in idx_list])
+        rec = timings(lambda: emb_gather_cuda(table, next(n_k)),
+                      lambda: emb_gather_plain(table, next(n_p)),
+                      lambda: F.embedding_bag(next(n_l), table, mode="sum"),
+                      iters)
         rec.update(shape=f"table {tuple(table.shape)} {str(table.dtype)[6:]}, "
                          f"{nb} bags x {nnz}", max_abs_err=err, tol=tol,
                    bound_ms=b_ms, bound_by=b_by, unique_rows=uniq,
@@ -1581,7 +1578,6 @@ def main(out_path=None) -> int:
     from param_tpu_torch.experiments import coalesce as coal
     from param_tpu_torch.kernels import coalesce as kc
     from param_tpu_torch.models.dlrm_data import gen_indices
-    from param_tpu_torch.utils.timer import cycler
 
     torch.cuda.empty_cache()
     CE, CD = coal.E, coal.D
@@ -1610,9 +1606,10 @@ def main(out_path=None) -> int:
         n_tiles = coal.K_ROWS // coal.ROWS_PER_TILE
         nbytes = coal.K_ROWS * CD * 4 + n * 4 + n_tiles * CD * 4
         b_ms, b_by = bound_ms(nbytes, coal.K_ROWS * CD)
-        nk, npl = cycler(shifted), cycler(shifted)
-        rec = timings(lambda: kc.desc_fetch_cuda(ctab, nk(), k),
-                      lambda: kc.desc_fetch_plain(ctab, npl(), k), None, 20)
+        nk, npl = itertools.cycle(shifted), itertools.cycle(shifted)
+        rec = timings(lambda: kc.desc_fetch_cuda(ctab, next(nk), k),
+                      lambda: kc.desc_fetch_plain(ctab, next(npl), k), None,
+                      20)
         rec.update(shape=f"table ({CE}, {CD}) f32, {n} starts x {k} rows "
                          f"({coal.ROWS_PER_TILE} rows a tile)",
                    max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
@@ -1642,29 +1639,32 @@ def main(out_path=None) -> int:
         tol = 1e-5 * want.abs().max().item()
         err = check(f"K10 {dist}", kc.coalesced_bag_cuda(ctab, plans[0]),
                     want, tol)
-        check(f"K10 {dist} plain version",
-              kc.coalesced_bag_plain(ctab, plans[0]), want, tol)
+        k1_err = check(f"K1 {dist} (stage B's ids)",
+                       emb_gather_cuda(ctab, ids[0]), want, tol)
         uniq = torch.unique(ids[0]).numel()  # shifts are bijections
         blocks = int(plans[0].n_blocks.sum().item())
         nbytes = uniq * CD * 4 + idx.numel() * 4 + coal.B * CD * 4
         b_ms, b_by = bound_ms(nbytes, idx.numel() * CD)
-        n1, n2, n3, n4, n5 = (cycler(plans), cycler(plans), cycler(longs),
-                              cycler(ids), cycler(ids))
-        rec = timings(lambda: kc.coalesced_bag_cuda(ctab, n1()),
-                      lambda: kc.coalesced_bag_plain(ctab, n2()),
-                      lambda: F.embedding_bag(n3(), ctab, mode="sum"), 20)
-        rec["t_k1"] = timed(lambda: emb_gather_cuda(ctab, n4()), 20)
-        rec["t_with_prepass"] = timed(lambda: coal.coalesced_bag(ctab, n5()),
-                                      20)
+        n1, n3 = itertools.cycle(plans), itertools.cycle(longs)
+        n2, n4, n5 = (itertools.cycle(ids) for _ in range(3))
+        rec = timings(lambda: kc.coalesced_bag_cuda(ctab, next(n1)),
+                      lambda: emb_gather_plain(ctab, next(n2)),
+                      lambda: F.embedding_bag(next(n3), ctab, mode="sum"), 20)
+        rec["t_k1"] = timed(lambda: emb_gather_cuda(ctab, next(n4)), 20)
+        rec["t_with_prepass"] = timed(
+            lambda: kc.coalesced_bag(ctab, next(n5), coal.R_BLK,
+                                     coal.TILE_BAGS), 20)
         rec.update(shape=f"table ({CE}, {CD}) f32, {coal.B} bags x "
                          f"{coal.NNZ} {dist} ids, r_blk {coal.R_BLK}, "
                          f"{coal.TILE_BAGS} bags a tile",
-                   max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                   max_abs_err=err, tol=tol, k1_max_abs_err=k1_err,
+                   bound_ms=b_ms, bound_by=b_by,
                    unique_rows=uniq, blocks=blocks, bytes=nbytes,
                    gbps=nbytes / rec["ms"] / 1e6)
         k10[dist] = rec
         say(f"phase 19 K10 {dist}: {rec['shape']}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}) | {timing_text(rec, 'F.embedding_bag')} | K1 "
+            f"(tol {tol:.3e}), K1 at these ids {k1_err:.3e} | "
+            f"{timing_text(rec, 'F.embedding_bag')} | K1 "
             f"{fmt(rec['t_k1'])} | pre-pass + K10 "
             f"{fmt(rec['t_with_prepass'])} | {uniq} distinct rows in "
             f"{blocks} blocks of {coal.R_BLK} | bound {b_ms:.4f} ms "

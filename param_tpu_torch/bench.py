@@ -21,6 +21,7 @@ plain version on the host clock, and its number is no device metric.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import time
@@ -33,13 +34,13 @@ from param_tpu_torch.kernels.emb_gather import emb_gather_plain
 from param_tpu_torch.ops.embedding import embedding_bag, embedding_bytes
 from param_tpu_torch.utils.chip import nvidia_smi_name_power
 from param_tpu_torch.utils.device import require_sm90, resolve_device
-from param_tpu_torch.utils.timer import cycler, time_samples
+from param_tpu_torch.utils.timer import time_samples
 
 ROWS, DIM, BATCH, NNZ = 1_000_000, 128, 8192, 30
 N_SHIFTS = 8
 
 
-def metric_name(rows: int, dim: int, batch: int, nnz: int) -> str:
+def metric_name(rows: int, batch: int) -> str:
     """``torch_emb_lookup_bw_1Mx128_b8192_nnz30`` at the default shape."""
     if rows % 1_000_000 == 0:
         r = f"{rows // 1_000_000}M"
@@ -47,7 +48,7 @@ def metric_name(rows: int, dim: int, batch: int, nnz: int) -> str:
         r = f"{rows // 1000}K"
     else:
         r = str(rows)
-    return f"torch_emb_lookup_bw_{r}x{dim}_b{batch}_nnz{nnz}"
+    return f"torch_emb_lookup_bw_{r}x{DIM}_b{batch}_nnz{NNZ}"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,12 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--rows", type=int, default=ROWS)
-    ap.add_argument("--dim", type=int, default=DIM)
     ap.add_argument("--batch", type=int, default=BATCH)
-    ap.add_argument("--nnz", type=int, default=NNZ)
     ap.add_argument("--iters", type=int, default=50,
                     help="lookups per timed window")
-    ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
@@ -70,13 +68,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         require_sm90(dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    table = torch.rand((args.rows, args.dim), generator=gen, device=dev)
-    rng = np.random.default_rng(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.rand((args.rows, DIM), generator=gen, device=dev)
+    rng = np.random.default_rng(0)
     base = torch.from_numpy(rng.integers(
-        0, args.rows, size=(args.batch, args.nnz)).astype(np.int32)).to(dev)
+        0, args.rows, size=(args.batch, NNZ)).astype(np.int32)).to(dev)
     ids = [((base.long() + i) % args.rows).int() for i in range(N_SHIFTS)]
-    nxt = cycler(ids)
+    nxt = itertools.cycle(ids)
     with torch.no_grad():
         got = embedding_bag(table, ids[0])
         want = emb_gather_plain(table, ids[0])
@@ -84,13 +82,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not err <= 1e-5 * want.abs().max().item():
             raise RuntimeError(f"the lookup differs from the plain version "
                                f"by {err:.3e}")
-        t = time_samples(lambda: embedding_bag(table, nxt()), args.iters,
+        t = time_samples(lambda: embedding_bag(table, next(nxt)), args.iters,
                          dev, reps=5, graph=dev.type == "cuda")
     per_s = statistics.median(t) / 1e3
-    nbytes = embedding_bytes(args.batch, args.nnz, args.dim, 4)
+    nbytes = embedding_bytes(args.batch, NNZ, DIM, 4)
     smi = nvidia_smi_name_power(dev.index or 0) if dev.type == "cuda" else None
     print(json.dumps({
-        "metric": metric_name(args.rows, args.dim, args.batch, args.nnz),
+        "metric": metric_name(args.rows, args.batch),
         "value": nbytes / per_s / 1e9,
         "unit": "GB/s",
         "detail": {
@@ -99,7 +97,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "us_per_step": per_s * 1e6,
             "us_per_step_min": min(t) * 1e3,
             "us_per_step_max": max(t) * 1e3,
-            "lookups_per_s": args.batch * args.nnz / per_s,
+            "lookups_per_s": args.batch * NNZ / per_s,
             "bytes_per_step": nbytes,
             "max_abs_err": err,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"

@@ -6,14 +6,15 @@
   f32 sum over every fetched row and column of the tile, (n_tiles, D).  A
   start outside [0, R - k] makes its tile NaN.  Counterpart of
   ``scripts/coalesce_experiment.py::_desc_kernel`` (``desc_fetch``).
-- K10 :func:`arena_bag`: the sum-pooled bag (K1's function) through the
-  experiment's mechanism: :func:`coalesce_plan` sorts each tile's ids and
-  dedups them into aligned ``r_blk``-row blocks (the reference's XLA
+- K10 :func:`coalesced_bag`: the sum-pooled bag (K1's function) through
+  the experiment's mechanism: :func:`coalesce_plan` sorts each tile's ids
+  and dedups them into aligned ``r_blk``-row blocks (the reference's XLA
   pre-pass), and the kernel fetches each distinct block once with one copy,
   then re-gathers and sums the rows per bag.  Counterpart of
   ``scripts/coalesce_experiment.py::_arena_kernel`` (``coalesced_bag``).
   As in K1 an id in [-R, 0) counts from the end and any other id outside
-  [0, R) makes its bag NaN.
+  [0, R) makes its bag NaN.  Its plain version is K1's,
+  ``emb_gather_plain``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from param_tpu_torch.kernels import bindings, launch_counts
+from param_tpu_torch.kernels.emb_gather import emb_gather_plain
 
 _THREADS = 256
 _ARENA_BYTES = 48 * 1024  # K10: one of the two arena buffers
@@ -48,18 +50,25 @@ class CoalescePlan(NamedTuple):
     r_blk: int
 
 
-def coalesce_plan(idx: torch.Tensor, num_rows: int, r_blk: int = 8,
-                  tile_bags: int = 16) -> CoalescePlan:
-    """Per-tile sort, block dedup and arena offsets of (B, nnz) ids, on
-    ``idx``'s device (``coalesce_experiment.py:237-252``).  No host sync, so
-    it can be captured in a CUDA graph."""
+def _tiles(idx: torch.Tensor, r_blk: int, tile_bags: int):
+    """(n_tiles, ids a tile) of (B, nnz) ids, after the reference's shape
+    rules."""
     if idx.dim() != 2:
         raise ValueError(f"idx (B, nnz) expected, got {tuple(idx.shape)}")
     batch, nnz = idx.shape
     if r_blk < 1 or tile_bags < 1 or batch % tile_bags:
         raise ValueError(f"batch {batch} must be a multiple of tile_bags "
                          f"{tile_bags} (and r_blk {r_blk} >= 1)")
-    n_tiles, rpt = batch // tile_bags, tile_bags * nnz
+    return batch // tile_bags, tile_bags * nnz
+
+
+def coalesce_plan(idx: torch.Tensor, num_rows: int, r_blk: int = 8,
+                  tile_bags: int = 16) -> CoalescePlan:
+    """Per-tile sort, block dedup and arena offsets of (B, nnz) ids, on
+    ``idx``'s device (``coalesce_experiment.py:237-252``).  No host sync, so
+    it can be captured in a CUDA graph."""
+    n_tiles, rpt = _tiles(idx, r_blk, tile_bags)
+    nnz = idx.shape[1]
     ids = idx.reshape(n_tiles, rpt).long()
     ids = torch.where(ids < 0, ids + num_rows, ids)
     valid = (ids >= 0) & (ids < num_rows)
@@ -159,26 +168,6 @@ def desc_fetch(table: torch.Tensor, starts: torch.Tensor, k: int,
 
 
 # ------------------------------------------------------------------ K10
-def coalesced_bag_plain(table: torch.Tensor, plan: CoalescePlan) -> torch.Tensor:
-    """Plain PyTorch version of K10's arithmetic from the plan: each sorted
-    id's row is its block's start plus its offset, added into its bag in
-    sorted order; (B, D) in the table's dtype."""
-    n_tiles, rpt = plan.flat.shape
-    flat = plan.flat.long()
-    ok = flat >= 0
-    f = flat.clamp(min=0)
-    rows = torch.gather(plan.blocks.long(), 1, f // plan.r_blk) + \
-        f % plan.r_blk
-    vals = table[rows.reshape(-1)].float()
-    vals = torch.where(ok.reshape(-1, 1), vals,
-                       torch.full_like(vals, float("nan")))
-    bag = (torch.arange(n_tiles, device=flat.device)[:, None] * plan.tile_bags
-           + plan.order.long() // plan.nnz).reshape(-1)
-    out = torch.zeros((n_tiles * plan.tile_bags, table.shape[1]),
-                      dtype=torch.float32, device=table.device)
-    return out.index_add_(0, bag, vals).to(table.dtype)
-
-
 def arena_blocks(r_blk: int, dim: int) -> int:
     """Blocks K10 fetches per round into each of its two arena buffers."""
     return max(1, min(32, _ARENA_BYTES // (r_blk * dim * 4)))
@@ -217,10 +206,15 @@ def coalesced_bag_cuda(table: torch.Tensor, plan: CoalescePlan) -> torch.Tensor:
     return out
 
 
-def arena_bag(table: torch.Tensor, plan: CoalescePlan) -> torch.Tensor:
-    """K10 for a CUDA table, the plain version for a CPU table."""
+def coalesced_bag(table: torch.Tensor, idx: torch.Tensor, r_blk: int = 8,
+                  tile_bags: int = 16) -> torch.Tensor:
+    """The sum-pooled bag of (B, nnz) ids: on the card the pre-pass
+    (:func:`coalesce_plan`) then K10; on the CPU K1's plain version, the
+    same function (the ids' tiling is still checked)."""
     if table.device.type == "cuda":
-        return coalesced_bag_cuda(table, plan)
+        return coalesced_bag_cuda(
+            table, coalesce_plan(idx, table.shape[0], r_blk, tile_bags))
     if table.device.type == "cpu":
-        return coalesced_bag_plain(table, plan)
+        _tiles(idx, r_blk, tile_bags)
+        return emb_gather_plain(table, idx)
     raise ValueError(f"unsupported device {table.device}")

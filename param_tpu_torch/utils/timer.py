@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional
 
 import torch
 
@@ -65,18 +65,6 @@ def time_ms(fn: Callable[[], object], iters: int, device="cuda",
     ``fn`` (see :func:`time_samples`)."""
     return statistics.median(time_samples(fn, iters, device, warmup, reps,
                                           graph))
-
-
-def cycler(items: Sequence) -> Callable[[], object]:
-    """A callable that returns the next of ``items`` on each call, so that
-    timed calls cycle through inputs (shifted ids) instead of repeating."""
-    state = {"i": -1}
-
-    def nxt():
-        state["i"] = (state["i"] + 1) % len(items)
-        return items[state["i"]]
-
-    return nxt
 
 
 def sync(device) -> None:

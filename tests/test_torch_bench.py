@@ -36,7 +36,7 @@ def test_bench_prints_one_json_line_by_the_reference_formula(capsys):
 
 
 def test_metric_name_at_the_headline_shape():
-    assert bench.metric_name(bench.ROWS, bench.DIM, bench.BATCH, bench.NNZ) \
+    assert bench.metric_name(bench.ROWS, bench.BATCH) \
         == "torch_emb_lookup_bw_1Mx128_b8192_nnz30"
 
 

@@ -48,7 +48,7 @@ def test_desc_fetch_matches_reference(ref, k, n_starts):
     starts = rng.integers(0, E_SMALL - k, size=(n_starts,)).astype(np.int32)
     want = np.asarray(ref.desc_fetch(jnp.asarray(table), jnp.asarray(starts),
                                      k=k, rows_per_tile=1024))
-    got = port.desc_fetch(torch.from_numpy(table), torch.from_numpy(starts),
+    got = kc.desc_fetch(torch.from_numpy(table), torch.from_numpy(starts),
                           k, rows_per_tile=1024)
     assert got.shape == want.shape == (n_starts * k // 1024, port.D)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4)
@@ -68,32 +68,47 @@ def test_coalesced_bag_matches_reference(ref, case, r_blk):
         idx = pool[rng.integers(0, 64, size=(64, 8))].astype(np.int32)
     want = np.asarray(ref.coalesced_bag(jnp.asarray(table), jnp.asarray(idx),
                                         r_blk=r_blk, tile_bags=16))
-    got = port.coalesced_bag(torch.from_numpy(table), torch.from_numpy(idx),
+    got = kc.coalesced_bag(torch.from_numpy(table), torch.from_numpy(idx),
                              r_blk=r_blk, tile_bags=16)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), table[idx].sum(1), rtol=1e-5)
 
 
-@pytest.mark.parametrize("r_blk", [1, 3, 8])
-def test_plan_addresses_every_id(r_blk):
+def _check_plan(idx, rows, r_blk, tile_bags):
     """Each tile's block list is its distinct aligned blocks in ascending
     order; each sorted id's slot and offset point back at the id; the
     order is a permutation of the tile."""
-    rng = np.random.default_rng(r_blk)
-    idx = rng.integers(0, 100, size=(32, 5)).astype(np.int32)
-    plan = kc.coalesce_plan(torch.from_numpy(idx), 100, r_blk, tile_bags=8)
-    tiles = idx.reshape(4, 40)
-    for t in range(4):
+    plan = kc.coalesce_plan(torch.from_numpy(idx), rows, r_blk, tile_bags)
+    rpt = tile_bags * idx.shape[1]
+    tiles = idx.reshape(-1, rpt)
+    for t in range(tiles.shape[0]):
         want_blocks = np.unique(tiles[t] // r_blk) * r_blk
         nb = int(plan.n_blocks[t])
         assert nb == len(want_blocks)
         np.testing.assert_array_equal(plan.blocks[t, :nb].numpy(), want_blocks)
         flat = plan.flat[t].numpy()
-        rows = plan.blocks[t].numpy()[flat // r_blk] + flat % r_blk
+        rows_got = plan.blocks[t].numpy()[flat // r_blk] + flat % r_blk
         order = plan.order[t].numpy()
-        np.testing.assert_array_equal(np.sort(order), np.arange(40))
-        np.testing.assert_array_equal(rows, tiles[t][order])
+        np.testing.assert_array_equal(np.sort(order), np.arange(rpt))
+        np.testing.assert_array_equal(rows_got, tiles[t][order])
         assert (np.diff(flat) >= 0).all()
+
+
+@pytest.mark.parametrize("r_blk", [1, 3, 8])
+def test_plan_addresses_every_id(r_blk):
+    rng = np.random.default_rng(r_blk)
+    idx = rng.integers(0, 100, size=(32, 5)).astype(np.int32)
+    _check_plan(idx, 100, r_blk, tile_bags=8)
+
+
+@pytest.mark.parametrize("r_blk", [1, 8, 16])
+def test_plan_under_heavy_duplication(r_blk):
+    """The pre-pass at the reference test's dup64 ids (64 bags x 8 drawn
+    from 64 rows of 4096, 16 bags a tile): most blocks repeat in a tile."""
+    rng, _ = _table()
+    pool = rng.choice(E_SMALL, size=64, replace=False)
+    idx = pool[rng.integers(0, 64, size=(64, 8))].astype(np.int32)
+    _check_plan(idx, E_SMALL, r_blk, tile_bags=16)
 
 
 def test_coalesced_bag_takes_ids_as_k1_does():
@@ -103,7 +118,7 @@ def test_coalesced_bag_takes_ids_as_k1_does():
     idx = rng.integers(0, E_SMALL, size=(32, 4)).astype(np.int32)
     idx[0, 1], idx[5, 0], idx[17, 3] = -3, E_SMALL, -E_SMALL - 1
     t, i = torch.from_numpy(table), torch.from_numpy(idx)
-    got = port.coalesced_bag(t, i, r_blk=8, tile_bags=16)
+    got = kc.coalesced_bag(t, i, r_blk=8, tile_bags=16)
     want = emb_gather_plain(t, i)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
                                equal_nan=True)
@@ -114,17 +129,17 @@ def test_desc_fetch_start_out_of_range_makes_its_tile_nan():
     _, table = _table()
     starts = np.arange(0, 256, 2, dtype=np.int32)  # 2 tiles of 64 at k 4
     starts[70] = E_SMALL - 3
-    got = port.desc_fetch(torch.from_numpy(table), torch.from_numpy(starts),
+    got = kc.desc_fetch(torch.from_numpy(table), torch.from_numpy(starts),
                           4, rows_per_tile=256)
     assert torch.isfinite(got[0]).all() and torch.isnan(got[1]).all()
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: port.desc_fetch(t, torch.zeros(96, dtype=torch.int32), 3,
+    lambda t: kc.desc_fetch(t, torch.zeros(96, dtype=torch.int32), 3,
                               rows_per_tile=256),
-    lambda t: port.desc_fetch(t, torch.zeros(100, dtype=torch.int32), 4,
+    lambda t: kc.desc_fetch(t, torch.zeros(100, dtype=torch.int32), 4,
                               rows_per_tile=256),
-    lambda t: port.coalesced_bag(t, torch.zeros((20, 4), dtype=torch.int32)),
+    lambda t: kc.coalesced_bag(t, torch.zeros((20, 4), dtype=torch.int32)),
 ], ids=["k-not-dividing-tile", "ragged-tiles", "ragged-bag-tiles"])
 def test_shapes_the_reference_cannot_take_raise(call):
     with pytest.raises(ValueError):

@@ -19,6 +19,8 @@ update may flip) plus 2e-2 of that parameter's largest update (the
 gradients' tolerance carried through).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -214,6 +216,57 @@ def test_quantized_decode_step_matches_reference(bits, kv_heads):
         jout, jcache = jt.decode_step(jq, jcache, jx[:, t:t + 1], t, jcfg)
         tout, tcache = tt.decode_step(tq, tcache, tx[:, t:t + 1], t, tcfg)
         _close(tout, jout, 2e-5)
+
+
+DECODE_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                              "decode_attention_bf16.npz")
+
+
+def _decode_case():
+    """bf16 q (1, 2, 4, 64) (GQA: 4 query heads per kv head), k / v
+    (1, 2, 128, 64) and cache positions 0..100 valid, from seed 0."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .bfloat16() for s in ((1, 2, 4, 64), (1, 2, 128, 64),
+                                     (1, 2, 128, 64)))
+    return q, k, v, np.arange(128) <= 100
+
+
+def _reference_decode_attention(q, k, v, valid):
+    """``param_tpu/models/transformer.py:336-346``, the reference's decode
+    attention in the cache's dtype with f32 accumulation (its query axis
+    of one dropped), before the output's cast to x's dtype."""
+    q, k, v = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+               for t in (q, k, v))
+    logits = jnp.einsum("bkgd,bksd->bkgs", q, k,
+                        preferred_element_type=jnp.float32) / 8.0
+    logits = jnp.where(valid, logits, -1e30)
+    p = jax.nn.softmax(logits, axis=-1).astype(q.dtype)
+    return np.asarray(jnp.einsum("bkgs,bksd->bkgd", p, v,
+                                 preferred_element_type=jnp.float32))
+
+
+def test_decode_attention_fixture_is_the_reference():
+    """``tests/fixtures/decode_attention_bf16.npz`` holds ``_decode_case``'s
+    inputs (bf16 bits) and the reference's output on them, so that the
+    card's decode attention (``test_torch_kernels.py``, where JAX is not
+    installed) is held against the reference.  Here: the stored inputs are
+    this case's, the stored output is the reference's (sums in XLA's order:
+    rtol 1e-5), and the port's CPU decode attention agrees with it within
+    the card test's tolerance.  Remake it with ``np.savez_compressed`` of
+    q, k, v (``.view(torch.int16)``), valid and out."""
+    from param_tpu_torch.ops.attention import decode_attention
+
+    q, k, v, valid = _decode_case()
+    f = np.load(DECODE_FIXTURE)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        np.testing.assert_array_equal(f[name], t.view(torch.int16).numpy())
+    np.testing.assert_array_equal(f["valid"], valid)
+    np.testing.assert_allclose(f["out"],
+                               _reference_decode_attention(q, k, v, valid),
+                               rtol=1e-5, atol=1e-7)
+    got = decode_attention(q, k, v, torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), f["out"], rtol=1e-3, atol=1e-4)
 
 
 def test_config_rejects_bad_heads():
