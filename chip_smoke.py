@@ -26,10 +26,15 @@ Phases (any failure exits non-zero):
      sparse_sgd and dense adagrad, with the launch counts reset just before
      and read just after: K1 and K2 must have launched.
   7. K3 (tiled GEMM) against its plain version (f32 torch.matmul of the
-     same inputs, TF32 off) in bf16 and f32 at GEMM_A / GEMM_C shapes and a
-     ragged (100, 100, 100); library call torch.matmul in the same dtype.
-  8. K4 (weight-resident GEMMs): S = 8 x (128, 4096, 4096) bf16; library
-     call torch.matmul on the stacked A.
+     same inputs, TF32 off) in bf16, f16 and f32 at GEMM_A / GEMM_C shapes
+     (with the split-K shapes (128, 1024, 1024) and (1024, 1024, 128)) and
+     a ragged (100, 100, 100); library call torch.matmul in the same dtype.
+     Each row names the path taken (wgmma, mma_sync or simt, from the
+     launch counters) and its K splits; an aligned 16-bit shape must take
+     wgmma.  A planted fault (one element of B negated between the plain
+     call and the kernel's) must break the tolerance.
+  8. K4 (weight-resident GEMMs): S = 8 x (128, 4096, 4096) bf16, on the
+     wgmma path; library call torch.matmul on the stacked A.
   9. K5 (int4 GEMM): llama2-7B MLP projections (M, 4096) @ (4096, 11008)
      and (M, 11008) @ (11008, 4096), g = 128, at M = 1, 8, 32, and MLP_A's
      (512, 4096) @ (4096, 4096), with bf16-exact scales.  Library call:
@@ -39,8 +44,8 @@ Phases (any failure exits non-zero):
      as a different function.
  10. The compute-tier CLIs in-process at full width, the launch counts
      reset before each command and read after it: ``cli.compute gemm``
-     (GEMM_A bf16 through K3; GEMM_C --compare; --weight-resident 8 through
-     K4), ``emb --dataset baseline`` (K1), ``linear``, and
+     (GEMM_A bf16 through K3's wgmma path; GEMM_C --compare; --weight-
+     resident 8 through K4), ``emb --dataset baseline`` (K1), ``linear``, and
      ``cli.inference --dtype int4`` (K5, 18 layers; beside it the int8 and
      bf16 rungs, and int4 / int8 at batch 1); one int4 forward
      launches K5 exactly 18 times, and a small int4 MLP on the card agrees
@@ -104,7 +109,8 @@ Phases (any failure exits non-zero):
      all_reduce, all_gather, reduce_scatter, all_to_all, broadcast and
      pt2pt from 8 B to 64 MiB with dcheck, and all_reduce / all_gather
      replayed from CUDA graphs (``--mode graph``); with two or more cards
-     also ``torchrun`` worlds of all of them; every row's dcheck OK.
+     also ``torchrun`` worlds of all of them (pairwise pt2pt eagerly and
+     from CUDA graphs among them); every row's dcheck OK.
  19. The coalesced-fetch kernels and the headline bench, at the
      experiment's full sizes (table 1,048,576 x 128 f32): K9 (k-row bulk
      fetch, tile sums) at k 1, 2, 4, 8, 16, 32 (262,144 rows, 4096 a tile)
@@ -294,7 +300,8 @@ def ring_across_cards(n: int, smi: str) -> dict:
 def comms_world(cards: int, smi: str) -> dict:
     """``cli.comms`` under torchrun, one rank per card on NCCL, every
     collective from 8 B to 64 MiB with dcheck, then all_reduce and
-    all_gather from CUDA graphs; every row's dcheck must be OK."""
+    all_gather from CUDA graphs, and pairwise pt2pt eagerly and from CUDA
+    graphs; every row's dcheck must be OK."""
     from param_tpu_torch.backend import SUPPORTED_COLLECTIVES
 
     runs = {}
@@ -306,7 +313,12 @@ def comms_world(cards: int, smi: str) -> dict:
                        "--b", "1K", "--e", "64M", "--f", "8", "--mode",
                        "graph"]),
             ("pairwise", ["--collective", "pt2pt", "--pt2pt", "pairwise",
-                          "--b", "1K", "--e", "64M", "--f", "64"])):
+                          "--b", "1K", "--e", "64M", "--f", "64"]),
+            # each window one replayed CUDA graph, as the reference runs it
+            # as one lax.scan program
+            ("pairwise graph", ["--collective", "pt2pt", "--pt2pt",
+                                "pairwise", "--b", "1K", "--e", "64M",
+                                "--f", "64", "--mode", "graph"])):
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", str(cards), "-m",
                "param_tpu_torch.cli.comms", "--", "--c", "1", *extra]
@@ -606,7 +618,7 @@ def main(out_path=None) -> int:
 
     # ---------------------------------------------------------------- 7
     from param_tpu_torch.kernels.gemm import (
-        gemm_cuda, gemm_plain, gemm_wres_cuda, gemm_wres_plain,
+        gemm_cuda, gemm_plain, gemm_schedule, gemm_wres_cuda, gemm_wres_plain,
     )
     from param_tpu_torch.kernels.int4_gemm import (
         int4_dequant, int4_gemm_cuda, int4_gemm_plain,
@@ -630,9 +642,23 @@ def main(out_path=None) -> int:
             fail(f"{name}: max abs err {err:.3e} > tolerance {tol:.3e}")
         return err
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def with_path(fn):
+        """fn() and the 16-bit path whose launch counter it moved (simt when
+        neither moved)."""
+        keys = ("gemm_wgmma", "gemm_mma_sync")
+        before = [kernels.launch_counts[k] for k in keys]
+        out = fn()
+        moved = [k[5:] for k, b0 in zip(keys, before)
+                 if kernels.launch_counts[k] != b0]
+        return out, moved[0] if moved else "simt"
+
     k3 = {}
     for dt, shapes in ((torch.bfloat16, [(1024, 4096, 4096), (4096, 4096, 128),
-                                         (128, 1024, 1024), (100, 100, 100)]),
+                                         (128, 1024, 1024), (1024, 1024, 128),
+                                         (100, 100, 100)]),
+                       (torch.float16, [(1024, 4096, 4096)]),
                        (torch.float32, [(1024, 4096, 4096), (4096, 4096, 128),
                                         (128, 1024, 1024), (1024, 1024, 4096),
                                         (100, 100, 100)])):
@@ -641,7 +667,14 @@ def main(out_path=None) -> int:
             b = torch.randn((k, n), generator=gen, device=dev).to(dt)
             want = gemm_plain(a, b)
             name = f"{str(dt)[6:]} {(m, n, k)}"
-            err = check(f"K3 {name}", gemm_cuda(a, b), want, gemm_tol(want))
+            got, path = with_path(lambda: gemm_cuda(a, b))
+            err = check(f"K3 {name}", got, want, gemm_tol(want))
+            vec = 16 // a.element_size()
+            aligned = k % vec == 0 and n % vec == 0
+            splits = gemm_schedule(m, n, k, dt, aligned, sms)[2]
+            if dt != torch.float32 and aligned and path != "wgmma":
+                fail(f"K3 {name}: an aligned 16-bit shape ran {path}, not "
+                     f"wgmma")
             es = a.element_size()
             b_ms, b_by = bound_ms((m * k + k * n + m * n) * es, 2 * m * n * k,
                                   fp32=dt == torch.float32)
@@ -649,13 +682,34 @@ def main(out_path=None) -> int:
                           lambda: torch.matmul(a, b), 20)
             rec.update(shape=f"({m}, {k}) @ ({k}, {n}) {str(dt)[6:]}",
                        max_abs_err=err, tol=gemm_tol(want), bound_ms=b_ms,
-                       bound_by=b_by, tflops=2 * m * n * k / rec["ms"] / 1e9)
+                       bound_by=b_by, tflops=2 * m * n * k / rec["ms"] / 1e9,
+                       path=path, splits=splits)
+            if name == "bfloat16 (1024, 4096, 4096)":
+                # planted fault: negate B's largest element after the plain
+                # call; the kernel's output must then break the tolerance
+                flat = b.view(-1)
+                i = int(flat.abs().argmax())
+                flat[i] = -flat[i]
+                bad, _ = with_path(lambda: gemm_cuda(a, b))
+                torch.cuda.synchronize()
+                flat[i] = -flat[i]
+                fault = (bad.float() - want.float()).abs().max().item()
+                if not fault > rec["tol"]:
+                    fail(f"K3 {name}: the planted fault (B element {i} "
+                         f"negated) was not flagged: err {fault:.3e} <= tol "
+                         f"{rec['tol']:.3e}")
+                rec["fault_err"] = fault
+                say(f"phase 7 K3 {name} planted fault (B element {i} "
+                    f"negated): max_abs_err {fault:.3e} > tol "
+                    f"{rec['tol']:.3e}, flagged")
+                del bad
             k3[name] = rec
-            say(f"phase 7 K3 {rec['shape']}: max_abs_err {err:.3e} (tol "
+            say(f"phase 7 K3 {rec['shape']}: path {path}, {splits} K "
+                f"split(s) | max_abs_err {err:.3e} (tol "
                 f"{rec['tol']:.3e}) | {timing_text(rec, 'torch.matmul')} "
                 f"({rec['tflops']:.1f} TF/s) bound {b_ms:.4f} ms ({b_by}) | "
                 f"{smi}")
-            del a, b, want
+            del a, b, want, got
     result["phases"]["k3"] = k3
 
     # ---------------------------------------------------------------- 8
@@ -663,7 +717,10 @@ def main(out_path=None) -> int:
     a = torch.randn((S, m, k), generator=gen, device=dev).bfloat16()
     b = torch.randn((k, n), generator=gen, device=dev).bfloat16()
     want = gemm_wres_plain(a, b)
-    err = check("K4", gemm_wres_cuda(a, b), want, gemm_tol(want))
+    got, path = with_path(lambda: gemm_wres_cuda(a, b))
+    err = check("K4", got, want, gemm_tol(want))
+    if path != "wgmma":
+        fail(f"K4: the stacked bf16 GEMM ran {path}, not wgmma")
     a2 = a.reshape(S * m, k)
     b_ms, b_by = bound_ms((S * m * k + k * n + S * m * n) * 2,
                           S * 2 * m * n * k, fp32=False)
@@ -672,13 +729,15 @@ def main(out_path=None) -> int:
     k4.update(shape=f"S={S} x ({m}, {k}) @ ({k}, {n}) bf16", max_abs_err=err,
               tol=gemm_tol(want), bound_ms=b_ms, bound_by=b_by,
               per_gemm_ms=k4["ms"] / S,
-              tflops=S * 2 * m * n * k / k4["ms"] / 1e9)
-    say(f"phase 8 K4 {k4['shape']}: max_abs_err {err:.3e} (tol "
+              tflops=S * 2 * m * n * k / k4["ms"] / 1e9, path=path,
+              splits=gemm_schedule(S * m, n, k, torch.bfloat16, True, sms)[2])
+    say(f"phase 8 K4 {k4['shape']}: path {path}, {k4['splits']} K split(s) "
+        f"| max_abs_err {err:.3e} (tol "
         f"{k4['tol']:.3e}) | {timing_text(k4, 'torch.matmul (stacked A)')} "
         f"| per GEMM {k4['per_gemm_ms']:.4f} ms ({k4['tflops']:.1f} TF/s) "
         f"bound {b_ms:.4f} ms ({b_by}) | {smi}")
     result["phases"]["k4"] = k4
-    del a, b, a2, want
+    del a, b, a2, want, got
 
     # ---------------------------------------------------------------- 9
     k5 = {}
@@ -794,14 +853,14 @@ def main(out_path=None) -> int:
         "gemm_A_bf16_K3": drive(
             "gemm A bf16 K3", compute_cli.main,
             ["gemm", "--dataset", "A", "--dtype", "bfloat16", "--pallas"],
-            15, ["gemm_bf16"]),
+            15, ["gemm_bf16", "gemm_wgmma"]),
         "gemm_C_compare": drive(
             "gemm C compare", compute_cli.main,
             ["gemm", "--dataset", "C", "--compare"], 8, ["gemm_f32"]),
         "gemm_wres_K4": drive(
             "gemm weight-resident K4", compute_cli.main,
             ["gemm", "--weight-resident", "8", "--shape", "128,4096,4096",
-             "--dtype", "bfloat16"], 1, ["gemm_wres"]),
+             "--dtype", "bfloat16"], 1, ["gemm_wres", "gemm_wgmma"]),
         "emb_baseline_K1": drive(
             "emb baseline K1", compute_cli.main,
             ["emb", "--dataset", "baseline"], 1, ["emb_gather"]),

@@ -156,7 +156,10 @@ class CollBench(CommsBench):
             dcheck_ok = self.dcheck("pt2pt", args, out)
 
         def med(fn, iters, warmup):
-            return statistics.median(self._windows_us(fn, iters, warmup))
+            # under --mode graph a window is one replayed CUDA graph, as the
+            # reference runs it as one lax.scan program
+            return statistics.median(self._windows_us(
+                fn, iters, warmup, graph=p.mode == TimingMode.GRAPH))
 
         ping = med(lambda: b.ping(args, pong=False), p.num_iters,
                    p.num_warmup_iters)

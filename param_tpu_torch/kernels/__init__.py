@@ -3,7 +3,9 @@
 - K1 :mod:`.emb_gather` (``csrc/emb_gather.cu``): sum-pooled embedding bag.
 - K2 :mod:`.sparse_update` (``csrc/sparse_update.cu``): in-place SGD /
   Adagrad row update.
-- K3 and K4 :mod:`.gemm` (``csrc/gemm.cu``): tiled GEMM; stacked GEMMs
+- K3 and K4 :mod:`.gemm` (``csrc/gemm.cu``, ``csrc/hopper.cuh``): tiled
+  GEMM (wgmma / TMA for bf16 and f16, mma.sync where TMA cannot read the
+  rows, an FMA core for f32; split K for small grids); stacked GEMMs
   sharing one weight.
 - K5 :mod:`.int4_gemm` (``csrc/int4_gemm.cu``): x @ group-int4 weights.
 - K6 :mod:`.flash_fwd` (``csrc/flash_fwd.cu``): flash-attention forward
@@ -29,6 +31,8 @@ launch_counts = {
     "gemm_bf16": 0,
     "gemm_f16": 0,
     "gemm_wres": 0,
+    "gemm_wgmma": 0,
+    "gemm_mma_sync": 0,
     "int4_gemm": 0,
     "flash_fwd": 0,
     "flash_bwd": 0,

@@ -31,7 +31,8 @@ _SIGNATURES = {
                                       _F, _P],
     },
     "gemm": {
-        "gemm_launch": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gemm_launch": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
     },
     "int4_gemm": {
         "int4_gemm_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -75,6 +76,12 @@ def entry(lib_name: str, fn_name: str):
     fn.argtypes = _SIGNATURES[lib_name][fn_name]
     fn.restype = ctypes.c_int
     return fn
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -44,55 +46,13 @@ constexpr int kStages = 4;      // K9: chunks of starts in flight per block
 constexpr int kBarBytes = 128;  // mbarriers (and a flag) at the head of smem
 constexpr int kMaxSmem = 232448;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival that also raises the phase's expected transaction bytes
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a
-// copy that never lands (a fault in the byte count) traps after 10 s
-// instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = global_ns();
-    } else if (global_ns() - t0 > 10000000000ull) {
-      __trap();
-    }
-  }
-}
+// mbarrier helpers of hopper.cuh; mbar_wait traps after 10 s instead of
+// hanging the card when a copy never lands (a fault in the byte count)
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_fence_init;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
 
 // global -> shared bulk copy of `bytes` (a multiple of 16, both addresses
 // 16-byte aligned) that counts its bytes off the barrier on arrival

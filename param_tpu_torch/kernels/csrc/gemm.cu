@@ -1,6 +1,7 @@
-// K3: tiled GEMM, C (M, N) = A (M, K) @ B (K, N), f32 accumulation, C in
-// the output dtype (f32, bf16 or f16).  K4: the same product over a stack
-// of S small-M GEMMs that share one B, A given as (S*M, K).
+// K3: tiled GEMM, C (M, N) = A (M, K) @ B (K, N), f32 products and
+// accumulation, C cast once to the output dtype (f32, bf16 or f16).  K4:
+// the same product over a stack of S small-M GEMMs that share one B, A
+// given as (S*M, K).
 //
 // Replaces the TPU kernels param_tpu/ops/matmul.py::_mm_kernel (via
 // matmul_pallas: a (bm, bn, bk) grid with an f32 VMEM accumulator written
@@ -12,36 +13,70 @@
 // port keeps TF32 off), bytes at small K ((MK + KN + MN) * size over
 // 3.35 TB/s, e.g. (4096, 4096, 128)).
 //
-// Design, bf16/f16: a 128 x 128 block tile walked in K steps of 32,
-// double-buffered in shared memory with cp.async (16-byte copies,
-// zero-filled past the edges), 8 warps each owning a 64 x 32 sub-tile
-// computed with mma.sync m16n8k16 (f32 accumulators) from ldmatrix
-// fragments; rows of the shared tiles are padded by 8 elements so that
-// ldmatrix reads are free of bank conflicts; C is written through shared
-// memory in 16-byte chunks.  When a row of A or B is not a whole number of
-// 16-byte chunks (K or N not a multiple of 8, or an unaligned base) the
-// tiles are loaded element by element instead.
-// f32: the FMA core of simt_gemm.cuh.  Edges are masked in both, so any
-// (M, N, K) works; the TPU kernel's block-divisibility rule stays in the
-// Python wrapper only.
+// Three hand-written paths, chosen by the wrapper from the shape before the
+// launch (kernels/gemm.py::gemm_schedule):
 //
-// K4 is this kernel with the block order changed: rows_fastest walks every
+// wgmma (bf16/f16, K and N multiples of 8, 16-byte aligned A and B: what
+// TMA takes).  A block of 384 threads computes a 128 x 256 tile of C in K
+// steps of 64.  Warpgroup 0 is the producer: one thread issues TMA loads
+// (cp.async.bulk.tensor.2d, 128-byte swizzle) of the step's A box (128 x
+// 64, 16 KiB) and B boxes (64 x 64 each, 32 KiB) into a ring of 4 stages
+// (192 KiB), each with a full and an empty mbarrier.  Warpgroups 1 and 2
+// are consumers: each runs wgmma m64n256k16 with f32 accumulators on its 64
+// rows, A K-major and B as stored (N-contiguous, the transpose-B
+// immediate), both read through shared-memory descriptors (hopper.cuh).  A
+// consumer releases a stage (one arrival per warp on its empty barrier)
+// once the wgmma group that read it has completed, keeping one group in
+// flight.  TMA zero-fills what lies past M, N or K, so ragged shapes need
+// no element path; B boxes wholly past N are not loaded.  The epilogue
+// stages the tile through the ring and writes C in 16-byte stores masked
+// at the M / N edge.  Registers: producer 40, consumers 232
+// (setmaxnreg).  The tensor maps are encoded on the host each call
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint) and passed as
+// __grid_constant__ parameters.
+//
+// mma.sync (bf16/f16 shapes TMA cannot take): a 128 x 128 block tile
+// walked in K steps of 32, double-buffered in shared memory with cp.async
+// (16-byte copies, zero-filled past the edges; element by element when a
+// row is not a whole number of 16-byte chunks), 8 warps each owning a 64 x
+// 32 sub-tile computed with mma.sync m16n8k16 (f32 accumulators) from
+// ldmatrix fragments; shared rows padded by 8 elements so ldmatrix reads
+// are free of bank conflicts; C written through shared memory in 16-byte
+// chunks.
+//
+// f32: the FMA core of simt_gemm.cuh (128 x 128 tiles, K steps of 16, a
+// 3-stage cp.async ring; element loads where K or N is not a multiple of
+// 4), one block an SM.
+//
+// Split K (wgmma and f32): when the output tiles do not fill the SMs,
+// grid.z splits K; each split writes an f32 partial tile into a workspace
+// the wrapper allocates, and simt::splitk_reduce_kernel (shared with K5)
+// adds the splits in a fixed order and casts, so results are the same from
+// run to run.
+//
+// K4 is this GEMM with the block order changed: rows_fastest walks every
 // (S*M)-row tile of one column tile before the next column tile, so the
 // blocks that read one column slice of B run together and B comes from
 // device memory once, then from the 50 MB L2 (a (4096, 4096) bf16 B is
 // 33.5 MB), which is Hopper's counterpart of the TPU's VMEM-resident tile.
-//
-// Not used: wgmma, TMA, warp specialisation (later work).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
 #include "mma.cuh"
 #include "simt_gemm.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------- mma.sync
+namespace ms {
+
 
 constexpr int BM = 128, BN = 128, BK = 32, PAD = 8;
 constexpr int A_STRIDE = BK + PAD;  // elements per shared row of A
@@ -212,75 +247,357 @@ gemm_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   store_tile(acc, smem, c, M, N, bm, bn, wm, wn, tid);
 }
 
+}  // namespace ms
+
+// ------------------------------------------------------------------- wgmma
+namespace wg {
+
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int THREADS = 384;                // producer + 2 consumer groups
+constexpr int BOX_N = 64;                   // N of one B box (128 bytes)
+constexpr int A_BYTES = BM * BK * 2;        // one A box, 16 KiB
+constexpr int B_BOX_BYTES = BK * BOX_N * 2;  // 8 KiB
+constexpr int STAGE_BYTES = A_BYTES + (BN / BOX_N) * B_BOX_BYTES;  // 48 KiB
+// the ring, 1024 bytes of slack to align it, and the 2 x STAGES barriers
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+
+template <typename OutT>
+__device__ __forceinline__ void store2(OutT* p, float x, float y);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__half>(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+
+// C (or split z's f32 partial, at c + z M N) for one 128 x 256 tile.  K
+// tiles [z k_tiles_split, (z+1) k_tiles_split) of the k_tiles in all.  N is
+// a multiple of 8, so a 16-byte chunk of a C row is wholly in or out.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_b,
+                  OutT* __restrict__ c, int M, int N, int k_tiles,
+                  int k_tiles_split, int rows_fastest) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tile_m = rows_fastest ? blockIdx.x : blockIdx.y;
+  const int tile_n = rows_fastest ? blockIdx.y : blockIdx.x;
+  const int kt0 = blockIdx.z * k_tiles_split;
+  const int nk = max(0, min(k_tiles, kt0 + k_tiles_split) - kt0);
+  c += (size_t)blockIdx.z * M * N;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tma_a);
+      hopper::tma_prefetch(&tma_b);
+      const int n_boxes =
+          min(BN / BOX_N, (N - tile_n * BN + BOX_N - 1) / BOX_N);
+      const uint32_t bytes = A_BYTES + n_boxes * B_BOX_BYTES;
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES;
+        // wait until the consumers released this stage's previous use
+        if (i >= STAGES) hopper::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        unsigned char* st = ring + s * STAGE_BYTES;
+        const int k0 = (kt0 + i) * BK;
+        hopper::mbar_arrive_expect_tx(&full[s], bytes);
+        hopper::tma_load_2d(st, &tma_a, &full[s], k0, tile_m * BM);
+        for (int j = 0; j < n_boxes; ++j)
+          hopper::tma_load_2d(st + A_BYTES + j * B_BOX_BYTES, &tma_b,
+                              &full[s], tile_n * BN + j * BOX_N, k0);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<232>();
+  const int cw = threadIdx.x / 128 - 1;  // rows 64 cw .. 64 cw + 63
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    const unsigned char* a_t = ring + s * STAGE_BYTES + cw * (64 * 128);
+    const unsigned char* b_t = ring + s * STAGE_BYTES + A_BYTES;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::Wgmma<T>::m64n256k16(
+          acc, hopper::desc_k_major_sw128(a_t + kk * 32),
+          hopper::desc_mn_major_sw128(b_t + kk * 16 * 128, B_BOX_BYTES));
+    hopper::wgmma_commit();
+    // the previous step's group has finished reading its stage
+    hopper::wgmma_wait<1>();
+    if (i > 0 && lane == 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // epilogue: both consumer groups are done with the ring; stage the tile
+  // there (rows padded by 16 bytes), then write whole 16-byte chunks
+  hopper::named_barrier<1, 256>();
+  constexpr int VEC = 16 / sizeof(OutT);
+  constexpr int STRIDE = BN + VEC;
+  constexpr int CHUNKS = BN / VEC;
+  static_assert(BM * STRIDE * sizeof(OutT) <= STAGES * STAGE_BYTES,
+                "the staged tile must fit the ring");
+  OutT* tile = reinterpret_cast<OutT*>(ring);
+  const int r0 = cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    store2(&tile[r0 * STRIDE + col], acc[4 * j], acc[4 * j + 1]);
+    store2(&tile[(r0 + 8) * STRIDE + col], acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  hopper::named_barrier<1, 256>();
+  const int bm = tile_m * BM, bn = tile_n * BN;
+  for (int id = threadIdx.x - 128; id < BM * CHUNKS; id += 256) {
+    const int r = id / CHUNKS, cc = (id % CHUNKS) * VEC;
+    const int row = bm + r, col = bn + cc;
+    if (row < M && col < N)
+      *reinterpret_cast<uint4*>(c + (size_t)row * N + col) =
+          *reinterpret_cast<const uint4*>(tile + r * STRIDE + cc);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) matrix of 16-bit values as boxes of (box_rows,
+// 64) elements with the 128-byte swizzle, zeros outside.
+bool encode(CUtensorMap* map, EncodeTiled fn, CUtensorMapDataType type,
+            const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// error codes beside cudaError_t's: the driver has no
+// cuTensorMapEncodeTiled, or it refused the shape
+constexpr int kNoEncoder = -1, kEncodeFailed = -2;
+
+template <typename T, typename OutT>
+int launch(const void* a, const void* b, void* c, int M, int N, int K,
+           int splits, int k_split, int rows_fastest, cudaStream_t s) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap ma, mb;
+  if (!encode(&ma, fn, type, a, M, K, BM) || !encode(&mb, fn, type, b, K, N, BK))
+    return kEncodeFailed;
+  // above 48 KB of dynamic shared memory: once per instantiation and card
+  static uint64_t smem_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64 || !(smem_set >> dev & 1)) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gemm_wgmma_kernel<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (dev < 64) smem_set |= 1ull << dev;
+  }
+  const unsigned tm = (M + BM - 1) / BM, tn = (N + BN - 1) / BN;
+  const dim3 grid = rows_fastest ? dim3(tm, tn, splits) : dim3(tn, tm, splits);
+  gemm_wgmma_kernel<T, OutT><<<grid, THREADS, SMEM, s>>>(
+      ma, mb, static_cast<OutT*>(c), M, N, (K + BK - 1) / BK, k_split / BK,
+      rows_fastest);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------------------- f32
+template <bool ALIGNED>
 struct F32Loader {
   const float* a;
   const float* b;
   int M, N, K;
-  struct Regs {
-    float a[4], b[4];
-  };
-  // B's tile: thread t loads row k0 + t/32, columns bn + (t%32)*4 + {0..3}.
-  __device__ __forceinline__ void load(Regs& r, int bm, int bn, int k0,
-                                       int tid) const {
-    simt::load_a(r.a, a, M, K, bm, k0, tid);
-    const int kr = k0 + tid / 32, nc = bn + (tid % 32) * 4;
+  struct Regs {};
+  // Aligned (K and N multiples of 4, 16-byte aligned bases): cp.async of
+  // 16-byte chunks, zero-filled past the edges; A's 128 rows x 4 chunks and
+  // B's 16 rows x 32 chunks, two of each a thread.  Otherwise element by
+  // element, straight into the stage.
+  __device__ __forceinline__ void load(Regs&, int bm, int bn, int k0, int tid,
+                                       float* as, float* bs) const {
+    if (ALIGNED) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      r.b[e] = (kr < K && nc + e < N) ? b[(size_t)kr * N + nc + e] : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int id = tid + h * simt::THREADS;
+        const int row = id / 4, kc = (id % 4) * 4;
+        const bool ok = bm + row < M && k0 + kc < K;
+        cp_async16(as + simt::a_index(row, kc),
+                   ok ? a + (size_t)(bm + row) * K + k0 + kc : a, ok);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int id = tid + h * simt::THREADS;
+        const int row = id / 32, nc = (id % 32) * 4;
+        const bool ok = k0 + row < K && bn + nc < N;
+        cp_async16(bs + row * simt::BN + nc,
+                   ok ? b + (size_t)(k0 + row) * N + bn + nc : b, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = 0; e < simt::A_STAGE / simt::THREADS; ++e) {
+        const int id = tid + e * simt::THREADS;
+        const int row = id / simt::BK, kc = id % simt::BK;
+        const bool ok = bm + row < M && k0 + kc < K;
+        as[simt::a_index(row, kc)] =
+            ok ? a[(size_t)(bm + row) * K + k0 + kc] : 0.f;
+      }
+#pragma unroll 4
+      for (int e = 0; e < simt::B_STAGE / simt::THREADS; ++e) {
+        const int id = tid + e * simt::THREADS;
+        const int row = id / simt::BN, nc = id % simt::BN;
+        const bool ok = k0 + row < K && bn + nc < N;
+        bs[row * simt::BN + nc] = ok ? b[(size_t)(k0 + row) * N + bn + nc] : 0.f;
+      }
+    }
   }
-  __device__ __forceinline__ void store(const Regs& r, float (*as)[simt::BM],
-                                        float (*bs)[simt::BN], int tid) const {
-    simt::store_a(r.a, as, tid);
-    *reinterpret_cast<float4*>(&bs[tid / 32][(tid % 32) * 4]) =
-        make_float4(r.b[0], r.b[1], r.b[2], r.b[3]);
-  }
+  __device__ __forceinline__ void store(const Regs&, float*, float*,
+                                        int) const {}
 };
 
-inline dim3 grid_for(int M, int N, int bm, int bn, int rows_fastest) {
+inline dim3 grid_for(int M, int N, int bm, int bn, int splits,
+                     int rows_fastest) {
   const unsigned tm = (M + bm - 1) / bm, tn = (N + bn - 1) / bn;
-  return rows_fastest ? dim3(tm, tn) : dim3(tn, tm);
-}
-
-template <typename T, typename OutT>
-int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
-              int aligned, int rows_fastest, cudaStream_t s) {
-  const dim3 grid = grid_for(M, N, BM, BN, rows_fastest);
-  const auto* at = static_cast<const T*>(a);
-  const auto* bt = static_cast<const T*>(b);
-  auto* ct = static_cast<OutT*>(c);
-  if (aligned)
-    gemm_tc_kernel<T, OutT, true>
-        <<<grid, THREADS, 0, s>>>(at, bt, ct, M, N, K, rows_fastest);
-  else
-    gemm_tc_kernel<T, OutT, false>
-        <<<grid, THREADS, 0, s>>>(at, bt, ct, M, N, K, rows_fastest);
-  return static_cast<int>(cudaGetLastError());
+  return rows_fastest ? dim3(tm, tn, splits) : dim3(tn, tm, splits);
 }
 
 template <typename OutT>
 int launch_f32(const void* a, const void* b, void* c, int M, int N, int K,
-               int rows_fastest, cudaStream_t s) {
-  const dim3 grid = grid_for(M, N, simt::BM, simt::BN, rows_fastest);
-  F32Loader ld{static_cast<const float*>(a), static_cast<const float*>(b), M,
-               N, K};
-  simt::gemm_kernel<F32Loader, OutT><<<grid, simt::THREADS, 0, s>>>(
-      ld, static_cast<OutT*>(c), M, N, K, rows_fastest);
+               int aligned, int splits, int k_split, int rows_fastest,
+               cudaStream_t s) {
+  const dim3 grid = grid_for(M, N, simt::BM, simt::BN, splits, rows_fastest);
+  const auto* ap = static_cast<const float*>(a);
+  const auto* bp = static_cast<const float*>(b);
+  auto* cp = static_cast<OutT*>(c);
+  if (aligned)
+    simt::gemm_kernel<F32Loader<true>, OutT><<<grid, simt::THREADS, 0, s>>>(
+        F32Loader<true>{ap, bp, M, N, K}, cp, M, N, K, k_split, rows_fastest);
+  else
+    simt::gemm_kernel<F32Loader<false>, OutT><<<grid, simt::THREADS, 0, s>>>(
+        F32Loader<false>{ap, bp, M, N, K}, cp, M, N, K, k_split, rows_fastest);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename OutT>
+int launch_mma_sync(const void* a, const void* b, void* c, int M, int N, int K,
+                    int aligned, int rows_fastest, cudaStream_t s) {
+  const dim3 grid = grid_for(M, N, ms::BM, ms::BN, 1, rows_fastest);
+  const auto* at = static_cast<const T*>(a);
+  const auto* bt = static_cast<const T*>(b);
+  auto* ct = static_cast<OutT*>(c);
+  if (aligned)
+    ms::gemm_tc_kernel<T, OutT, true>
+        <<<grid, ms::THREADS, 0, s>>>(at, bt, ct, M, N, K, rows_fastest);
+  else
+    ms::gemm_tc_kernel<T, OutT, false>
+        <<<grid, ms::THREADS, 0, s>>>(at, bt, ct, M, N, K, rows_fastest);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Path codes shared with kernels/gemm.py: 0 f32 (FMA core), 1 mma.sync, 2
+// wgmma.  With splits > 1 the GEMM kernel writes f32 partials to ws (splits,
+// M, N) and the reduce kernel writes c.
+template <typename T, typename OutT>
+int launch_path(int path, const void* a, const void* b, void* c, void* ws,
+                int M, int N, int K, int aligned, int splits, int k_split,
+                int rows_fastest, cudaStream_t s) {
+  int rc;
+  if constexpr (std::is_same<T, float>::value) {
+    if (splits == 1)
+      return launch_f32<OutT>(a, b, c, M, N, K, aligned, 1, k_split,
+                              rows_fastest, s);
+    rc = launch_f32<float>(a, b, ws, M, N, K, aligned, splits, k_split,
+                           rows_fastest, s);
+  } else {
+    if (path == 1)
+      return splits == 1 ? launch_mma_sync<T, OutT>(a, b, c, M, N, K, aligned,
+                                                    rows_fastest, s)
+                         : static_cast<int>(cudaErrorInvalidValue);
+    if (splits == 1)
+      return wg::launch<T, OutT>(a, b, c, M, N, K, 1, k_split, rows_fastest,
+                                 s);
+    rc = wg::launch<T, float>(a, b, ws, M, N, K, splits, k_split,
+                              rows_fastest, s);
+  }
+  if (rc != 0) return rc;
+  return simt::launch_reduce<OutT>(ws, c, M, N, splits, s);
 }
 
 // Dtype codes shared with kernels/gemm.py: 0 f32, 1 bf16, 2 f16.
 template <typename T>
-int launch_tc_out(int out_dtype, const void* a, const void* b, void* c, int M,
-                  int N, int K, int aligned, int rows_fastest,
-                  cudaStream_t s) {
+int launch_out(int out_dtype, int path, const void* a, const void* b, void* c,
+               void* ws, int M, int N, int K, int aligned, int splits,
+               int k_split, int rows_fastest, cudaStream_t s) {
   switch (out_dtype) {
     case 0:
-      return launch_tc<T, float>(a, b, c, M, N, K, aligned, rows_fastest, s);
+      return launch_path<T, float>(path, a, b, c, ws, M, N, K, aligned,
+                                   splits, k_split, rows_fastest, s);
     case 1:
-      return launch_tc<T, __nv_bfloat16>(a, b, c, M, N, K, aligned,
-                                         rows_fastest, s);
+      return launch_path<T, __nv_bfloat16>(path, a, b, c, ws, M, N, K,
+                                           aligned, splits, k_split,
+                                           rows_fastest, s);
     case 2:
-      return launch_tc<T, __half>(a, b, c, M, N, K, aligned, rows_fastest, s);
+      return launch_path<T, __half>(path, a, b, c, ws, M, N, K, aligned,
+                                    splits, k_split, rows_fastest, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -289,26 +606,32 @@ int launch_tc_out(int out_dtype, const void* a, const void* b, void* c, int M,
 
 extern "C" {
 
-// in_dtype 0 (f32, FMA core) or 1 / 2 (bf16 / f16, tensor cores); out_dtype
-// 0 / 1 / 2.  aligned: K and N multiples of 8 and 16-byte aligned A and B
-// (tensor-core path only).  rows_fastest: the K4 block order.
-int gemm_launch(int in_dtype, int out_dtype, const void* a, const void* b,
-                void* c, int M, int N, int K, int aligned, int rows_fastest,
+// in_dtype 0 (f32) or 1 / 2 (bf16 / f16); out_dtype 0 / 1 / 2.  path 0
+// (f32 only), 1 (mma.sync) or 2 (wgmma: K and N multiples of 8, A and B
+// 16-byte aligned).  aligned: K and N multiples of 16 bytes' worth of
+// elements and 16-byte aligned A and B.  splits K splits of k_split
+// elements (a multiple of the path's K step), ws an f32 (splits, M, N)
+// workspace when splits > 1.  rows_fastest: the K4 block order.  Returns a
+// cudaError_t, or -1 / -2 when a TMA descriptor cannot be encoded.
+int gemm_launch(int in_dtype, int out_dtype, int path, const void* a,
+                const void* b, void* c, void* ws, int M, int N, int K,
+                int aligned, int splits, int k_split, int rows_fastest,
                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0) {
-    switch (out_dtype) {
-      case 0: return launch_f32<float>(a, b, c, M, N, K, rows_fastest, s);
-      case 1:
-        return launch_f32<__nv_bfloat16>(a, b, c, M, N, K, rows_fastest, s);
-      case 2: return launch_f32<__half>(a, b, c, M, N, K, rows_fastest, s);
-    }
-  } else if (in_dtype == 1) {
-    return launch_tc_out<__nv_bfloat16>(out_dtype, a, b, c, M, N, K, aligned,
-                                        rows_fastest, s);
-  } else if (in_dtype == 2) {
-    return launch_tc_out<__half>(out_dtype, a, b, c, M, N, K, aligned,
-                                 rows_fastest, s);
+  const bool ok = in_dtype == 0 ? path == 0 : (path == 1 || path == 2);
+  if (!ok || splits < 1 || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (in_dtype) {
+    case 0:
+      return launch_out<float>(out_dtype, path, a, b, c, ws, M, N, K, aligned,
+                               splits, k_split, rows_fastest, s);
+    case 1:
+      return launch_out<__nv_bfloat16>(out_dtype, path, a, b, c, ws, M, N, K,
+                                       aligned, splits, k_split, rows_fastest,
+                                       s);
+    case 2:
+      return launch_out<__half>(out_dtype, path, a, b, c, ws, M, N, K,
+                                aligned, splits, k_split, rows_fastest, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,10 +33,11 @@
 //   Grid: row tiles of 16 fastest (blocks that share a weight slice run
 // together, so it is read from device memory once), then 512-column tiles
 // (4 warps), then K splits.  Each K split writes an f32 partial and a
-// second kernel (int4_reduce_kernel) adds them in a fixed order: no
-// atomics, so results are the same from run to run.
+// second kernel (simt::splitk_reduce_kernel) adds them in a fixed order:
+// no atomics, so results are the same from run to run.
 //   Groups of g not a multiple of 16 take the FMA core of simt_gemm.cuh
-// with a B loader that dequantizes each 8 x 128 tile into shared memory.
+// (one K split) with a register loader that dequantizes each 16 x 128
+// tile of B into shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -198,49 +199,43 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <typename OutT>
-__global__ void int4_reduce_kernel(const float* __restrict__ partial,
-                                   OutT* __restrict__ out, long long MN,
-                                   int nsplit) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= MN) return;
-  float v = 0.f;
-  for (int z = 0; z < nsplit; ++z) v += partial[(size_t)z * MN + idx];
-  simt::store_out(&out[idx], v);
-}
-
 struct Int4Loader {
   const __nv_bfloat16* x;
   const int8_t* packed;
   const float* scale;
   int M, N, K, gh;  // K = 2 * packed rows
   struct Regs {
-    float a[4];
-    int q[2];
-    float s[2];
+    float a[8];
+    int q[4];
+    float s[4];
   };
-  // B's tile is 4 packed rows x 128 columns: thread t loads packed row
-  // k0/2 + t/64, columns bn + (t%64)*2 + {0, 1}, and their scales.
+  // B's tile is 8 packed rows x 128 columns: thread t loads packed row
+  // k0/2 + t/32, columns bn + (t%32)*4 + {0..3}, and their scales.
   __device__ __forceinline__ void load(Regs& r, int bm, int bn, int k0,
-                                       int tid) const {
+                                       int tid, float*, float*) const {
     simt::load_a(r.a, x, M, K, bm, k0, tid);
-    const int i = k0 / 2 + tid / 64, n = bn + (tid % 64) * 2;
+    const int i = k0 / 2 + tid / 32, n = bn + (tid % 32) * 4;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+    for (int e = 0; e < 4; ++e) {
       const bool ok = 2 * i < K && n + e < N;
       r.q[e] = ok ? packed[(size_t)i * N + n + e] : 0;
       r.s[e] = ok ? scale[(size_t)(i / gh) * N + n + e] : 0.f;
     }
   }
-  __device__ __forceinline__ void store(const Regs& r, float (*as)[simt::BM],
-                                        float (*bs)[simt::BN], int tid) const {
+  __device__ __forceinline__ void store(const Regs& r, float* as, float* bs,
+                                        int tid) const {
     simt::store_a(r.a, as, tid);
-    const int kr = 2 * (tid / 64), nc = (tid % 64) * 2;
+    const int kr = 2 * (tid / 32), nc = (tid % 32) * 4;
+    float lo[4], hi[4];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      bs[kr][nc + e] = static_cast<float>((r.q[e] & 15) - 8) * r.s[e];
-      bs[kr + 1][nc + e] = static_cast<float>(r.q[e] >> 4) * r.s[e];
+    for (int e = 0; e < 4; ++e) {
+      lo[e] = static_cast<float>((r.q[e] & 15) - 8) * r.s[e];
+      hi[e] = static_cast<float>(r.q[e] >> 4) * r.s[e];
     }
+    *reinterpret_cast<float4*>(&bs[kr * simt::BN + nc]) =
+        make_float4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<float4*>(&bs[(kr + 1) * simt::BN + nc]) =
+        make_float4(hi[0], hi[1], hi[2], hi[3]);
   }
 };
 
@@ -263,17 +258,6 @@ int launch_mma(const void* x, const void* packed, const void* scale,
 }
 
 template <typename OutT>
-int launch_reduce(const void* partial, void* out, int M, int N, int nsplit,
-                  cudaStream_t s) {
-  const long long mn = (long long)M * N;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((mn + threads - 1) / threads);
-  int4_reduce_kernel<OutT><<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<OutT*>(out), mn, nsplit);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename OutT>
 int launch_tiled(const void* x, const void* packed, const void* scale,
                  void* out, int M, int N, int KH, int gh, cudaStream_t s) {
   const dim3 grid((N + simt::BN - 1) / simt::BN, (M + simt::BM - 1) / simt::BM);
@@ -281,7 +265,7 @@ int launch_tiled(const void* x, const void* packed, const void* scale,
                 static_cast<const int8_t*>(packed),
                 static_cast<const float*>(scale), M, N, 2 * KH, gh};
   simt::gemm_kernel<Int4Loader, OutT><<<grid, simt::THREADS, 0, s>>>(
-      ld, static_cast<OutT*>(out), M, N, 2 * KH, 0);
+      ld, static_cast<OutT*>(out), M, N, 2 * KH, 2 * KH, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -303,9 +287,10 @@ int int4_gemm_mma(const void* x, const void* packed, const void* scale,
                             rows_per_split, nsplit, vec, s);
   if (rc != 0) return rc;
   switch (out_dtype) {
-    case 0: return launch_reduce<float>(partial, out, M, N, nsplit, s);
-    case 1: return launch_reduce<__nv_bfloat16>(partial, out, M, N, nsplit, s);
-    case 2: return launch_reduce<__half>(partial, out, M, N, nsplit, s);
+    case 0: return simt::launch_reduce<float>(partial, out, M, N, nsplit, s);
+    case 1:
+      return simt::launch_reduce<__nv_bfloat16>(partial, out, M, N, nsplit, s);
+    case 2: return simt::launch_reduce<__half>(partial, out, M, N, nsplit, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,10 +2,23 @@
 with their plain PyTorch versions.
 
 K3: ``C = A @ B`` for (M, K) @ (K, N) in f32, bf16 or f16 (both operands of
-one dtype), f32 accumulation, ``C`` in ``out_dtype`` (default ``A``'s).
-bf16/f16 run on the tensor cores (``mma.sync``), f32 on the CUDA cores in
-full f32.  Counterpart of ``param_tpu/ops/matmul.py::_mm_kernel``
-(``matmul_pallas``).
+one dtype), f32 products and accumulation, ``C`` in ``out_dtype`` (default
+``A``'s).  Counterpart of ``param_tpu/ops/matmul.py::_mm_kernel``
+(``matmul_pallas``).  Three hand-written paths, picked from the shape before
+the launch by :func:`gemm_schedule`:
+
+- ``wgmma``: bf16/f16 whose rows TMA can take (K and N multiples of 8, A
+  and B 16-byte aligned): 128 x 256 tiles, TMA loads into a 4-stage ring,
+  two consumer warpgroups on ``wgmma``;
+- ``mma_sync``: other bf16/f16 shapes: 128 x 128 tiles on ``mma.sync``;
+- ``simt``: f32 on the CUDA cores in full f32, 128 x 128 tiles.
+
+``wgmma`` and ``simt`` split K when the output tiles do not fill the SMs:
+each split writes an f32 partial into a workspace allocated here, and a
+second kernel adds the splits in a fixed order and casts.  Launch counters:
+``gemm_f32`` / ``gemm_bf16`` / ``gemm_f16`` per input dtype (K3),
+``gemm_wres`` (K4), and ``gemm_wgmma`` / ``gemm_mma_sync`` for the 16-bit
+path taken (K3 and K4).
 
 K4: S GEMMs (S, M, K) @ (K, N) against one shared B, computed as the
 stacked (S*M, K) @ (K, N) with a block order that keeps B's column slice in
@@ -14,7 +27,9 @@ L2.  Counterpart of ``::_mm_wres_kernel`` (``matmul_weight_resident``).
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,6 +37,48 @@ from param_tpu_torch.kernels import bindings, launch_counts
 
 _COUNTER = {torch.float32: "gemm_f32", torch.bfloat16: "gemm_bf16",
             torch.float16: "gemm_f16"}
+
+# path -> (code in csrc/gemm.cu, (block M, block N, K step)); every path
+# runs one block an SM
+_PATHS = {"simt": (0, (128, 128, 16)), "mma_sync": (1, (128, 128, 32)),
+          "wgmma": (2, (128, 256, 64))}
+# gemm_launch's own codes beside cudaError_t's
+_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+           -2: "cuTensorMapEncodeTiled refused a TMA descriptor"}
+
+
+@lru_cache(maxsize=None)
+def gemm_schedule(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool,
+                  sms: int) -> Tuple[str, Tuple[int, int, int], int]:
+    """(path, (block M, block N, K step), K splits) of K3 / K4 for an
+    (M, K) @ (K, N) product.
+
+    16-bit operands take ``wgmma`` exactly when ``aligned`` (K and N
+    multiples of 8, both bases 16-byte aligned: what TMA takes) and K > 0,
+    else ``mma_sync`` (one split); f32 takes ``simt``.  When the output
+    tiles do not fill one wave (``sms`` blocks), K is split into as many
+    parts as fit in that wave, so a block walks the fewest K steps; of the
+    counts giving that many steps the fewest splits are taken (less
+    workspace), so none is empty."""
+    if dtype == torch.float32:
+        path = "simt"
+    elif aligned and k > 0:
+        path = "wgmma"
+    else:
+        return "mma_sync", _PATHS["mma_sync"][1], 1
+    bm, bn, bk = _PATHS[path][1]
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    steps = math.ceil(k / bk)
+    if tiles >= sms or steps <= 1:
+        return path, (bm, bn, bk), 1
+    per = math.ceil(steps / min(steps, sms // tiles))
+    return path, (bm, bn, bk), math.ceil(steps / per)
+
+
+def k_split(k: int, k_step: int, splits: int) -> int:
+    """Elements of K each split takes: whole K steps, the last split
+    possibly shorter, none empty."""
+    return math.ceil(math.ceil(k / k_step) / splits) * k_step if k else k_step
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,
@@ -50,18 +107,31 @@ def _check(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> None:
 
 def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
             rows_fastest: bool) -> torch.Tensor:
+    """Launch the path :func:`gemm_schedule` picks; returns C and counts
+    the path's launch."""
     _check(a, b, out_dtype)
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    aligned = (k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0
+    vec = 16 // a.element_size()
+    aligned = (k % vec == 0 and n % vec == 0 and a.data_ptr() % 16 == 0
                and b.data_ptr() % 16 == 0)
+    path, (_, _, bk), splits = gemm_schedule(
+        m, n, k, a.dtype, aligned, bindings.sm_count(a.device.index))
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
     rc = bindings.entry("gemm", "gemm_launch")(
         bindings.DTYPE_CODES[a.dtype], bindings.DTYPE_CODES[out_dtype],
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(aligned),
-        int(rows_fastest), bindings.stream_of(a))
+        _PATHS[path][0], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, n, k, int(aligned),
+        splits, k_split(k, bk, splits), int(rows_fastest),
+        bindings.stream_of(a))
+    if rc in _ERRORS:
+        raise RuntimeError(f"gemm: {_ERRORS[rc]} (shape {(m, n, k)})")
     bindings.check(rc, "gemm")
+    if path != "simt":
+        launch_counts[f"gemm_{path}"] += 1
     return out
 
 

@@ -43,11 +43,6 @@ def int4_gemm_plain(x: torch.Tensor, packed: torch.Tensor,
 
 
 @lru_cache(maxsize=None)
-def _sm_count(index) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@lru_cache(maxsize=None)
 def mma_schedule(m: int, n: int, kh: int, sms: int):
     """(packed rows per K split, K splits) of the tensor-core path: about
     four blocks per SM, splits a multiple of 8 rows (one k16 step)."""
@@ -91,7 +86,8 @@ def int4_gemm_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if gh % 8 == 0:  # the tensor-core path: whole k16 steps per group
         if x.data_ptr() % 4:
             raise ValueError("K5 takes x 4-byte aligned")
-        rows, splits = mma_schedule(m, n, kh, _sm_count(x.device.index))
+        rows, splits = mma_schedule(m, n, kh,
+                                    bindings.sm_count(x.device.index))
         partial = torch.empty((splits, m, n), dtype=torch.float32,
                               device=x.device)
         vec = n % 16 == 0 and packed.data_ptr() % 16 == 0

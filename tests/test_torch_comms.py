@@ -11,6 +11,7 @@ reference exactly.  The spawned ranks (tests/torch_comms_worker.py) import
 no JAX; each world runs under its own timeout.
 """
 
+import math
 import os
 import re
 import socket
@@ -250,6 +251,39 @@ def test_pt2pt_buffer_reuse_matches_tpu_backend(worlds, n, call):
             np.testing.assert_array_equal(
                 got.numpy(), np.asarray(want[r]).reshape(got.shape),
                 err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_pt2pt_graph_mode_reports_the_rows_of_dispatch(worlds, n):
+    """``--mode graph`` pt2pt (each window one replayed CUDA graph on a
+    card) gives the same rows and dchecks as ``dispatch`` on gloo."""
+    for r in range(n):
+        dispatch, graph = (worlds[n][r][f"pt2pt:{m}"]
+                           for m in ("dispatch", "graph"))
+        assert [row[:2] for row in graph] == [row[:2] for row in dispatch]
+        assert [row[0] for row in graph] == [64, 128, 256]
+        assert all(row[1] is True for row in graph), graph
+        assert all(math.isfinite(v) and v > 0 for row in graph + dispatch
+                   for v in row[2:]), (graph, dispatch)
+
+
+@pytest.mark.parametrize("mode", ["dispatch", "blocking", "graph"])
+def test_pt2pt_times_windows_as_run_one_does(world1, mode, monkeypatch):
+    """bench_pt2pt asks for graph replays exactly under ``--mode graph``,
+    like run_one: ping, ping-pong and both windows."""
+    params = CommsParams(num_iters=2, num_warmup_iters=1, window=2)
+    params.mode = params.mode.__class__(mode)
+    bench = CollBench(world1, params, reps=1)
+    flags = []
+    real = bench._windows_us
+
+    def spy(fn, iters, warmup, graph=False):
+        flags.append(graph)
+        return real(fn, iters, warmup, graph)
+
+    monkeypatch.setattr(bench, "_windows_us", spy)
+    bench.bench_pt2pt(64, world1.get_default_group())
+    assert flags == [mode == "graph"] * 4
 
 
 def _free_port():

@@ -51,7 +51,8 @@ from param_tpu_torch.kernels.flash_fwd import (
     attention_keep_mask, flash_fwd_cuda, flash_fwd_plain, flash_fwd_tolerance,
 )
 from param_tpu_torch.kernels.gemm import (
-    gemm_cuda, gemm_plain, gemm_wres_cuda, gemm_wres_plain,
+    gemm_cuda, gemm_plain, gemm_schedule, gemm_wres_cuda, gemm_wres_plain,
+    k_split,
 )
 from param_tpu_torch.kernels.int4_gemm import (
     int4_dequant, int4_gemm_cuda, int4_gemm_plain, mma_schedule,
@@ -64,6 +65,7 @@ from param_tpu_torch.kernels.ring import (
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
 )
+from param_tpu_torch.ops.datasets import GEMM_A, GEMM_B, GEMM_C
 
 
 @pytest.fixture
@@ -221,12 +223,83 @@ def test_mma_schedule_covers_k_in_k16_steps(m, n, kh):
     assert (splits - 1) * rows < kh  # no split without work
 
 
+_GEMM_ODD = [(100, 100, 100), (256, 256, 256), (128, 1024, 64), (1, 8, 8),
+             (300, 136, 520), (129, 257, 33)]
+_GEMM_SHAPES = sorted(set(GEMM_A + GEMM_B + GEMM_C + _GEMM_ODD))
+_SMS = 132  # an H100's SMs
+
+
+def _tiles_steps(m, n, k, tile):
+    bm, bn, bk = tile
+    return math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk)
+
+
+@pytest.mark.parametrize("m,n,k", _GEMM_SHAPES)
+def test_gemm_schedule_splits_k_without_empty_splits(m, n, k):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for aligned in (True, False):
+            path, tile, splits = gemm_schedule(m, n, k, dtype, aligned, _SMS)
+            _, steps = _tiles_steps(m, n, k, tile)
+            per = k_split(k, tile[2], splits)
+            assert splits >= 1 and per % tile[2] == 0
+            assert splits * per >= k  # every K step has a split ...
+            assert (splits - 1) * per < k  # ... and every split a K step
+            if path == "mma_sync":
+                assert splits == 1
+
+
+@pytest.mark.parametrize("m,n,k", _GEMM_SHAPES)
+def test_gemm_schedule_takes_wgmma_exactly_for_aligned_16_bit(m, n, k):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for aligned in (True, False):
+            path = gemm_schedule(m, n, k, dtype, aligned, _SMS)[0]
+            want = ("simt" if dtype == torch.float32
+                    else "wgmma" if aligned else "mma_sync")
+            assert path == want, (dtype, aligned, path)
+
+
+@pytest.mark.parametrize("m,n,k", GEMM_A)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_schedule_fills_the_card_at_gemm_a(m, n, k, dtype):
+    """One split when the tiles alone fill a wave (one block an SM);
+    otherwise the splits fit in that wave and leave a block the fewest K
+    steps that any split count fitting in it could."""
+    path, tile, splits = gemm_schedule(m, n, k, dtype, True, _SMS)
+    tiles, steps = _tiles_steps(m, n, k, tile)
+    wave = _SMS
+    if tiles >= wave:
+        assert splits == 1
+        return
+    assert tiles * splits <= wave
+    fewest = min(math.ceil(steps / s) for s in range(1, wave // tiles + 1))
+    assert math.ceil(steps / splits) == fewest, (tiles, splits, fewest)
+
+
+def test_gemm_schedule_at_the_redesign_shapes():
+    assert gemm_schedule(1024, 4096, 4096, torch.bfloat16, True, _SMS) == (
+        "wgmma", (128, 256, 64), 1)  # 128 tiles, one wave
+    assert gemm_schedule(1024, 1024, 4096, torch.float32, True, _SMS) == (
+        "simt", (128, 128, 16), 2)  # GEMM_C: 64 tiles x 2 splits
+    assert gemm_schedule(128, 1024, 1024, torch.bfloat16, True, _SMS)[2] \
+        == 16  # 4 tiles: one K step a split
+    assert gemm_schedule(1024, 1024, 128, torch.bfloat16, True, _SMS)[2] \
+        == 2
+    assert gemm_schedule(1024, 1024, 128, torch.bfloat16, False, _SMS) == (
+        "mma_sync", (128, 128, 32), 1)
+
+
+def _gemm_path(dtype, n, k):
+    """The launch counter of the 16-bit path taken (None for f32)."""
+    if dtype == torch.float32:
+        return None
+    return "gemm_wgmma" if n % 8 == 0 and k % 8 == 0 else "gemm_mma_sync"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("m,n,k", [(100, 100, 100), (256, 256, 256),
-                                   (128, 1024, 64), (1, 8, 8), (300, 136, 520),
-                                   (129, 257, 33)])
+@pytest.mark.parametrize("m,n,k", _GEMM_ODD + [
+    (128, 1024, 1024), (1024, 1024, 128), (136, 264, 520)])
 def test_gemm_kernel_matches_plain(cuda_device, dtype, m, n, k):
     rng = np.random.default_rng(m + n + k)
     a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
@@ -234,7 +307,8 @@ def test_gemm_kernel_matches_plain(cuda_device, dtype, m, n, k):
     a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
     key = {torch.float32: "gemm_f32", torch.bfloat16: "gemm_bf16",
            torch.float16: "gemm_f16"}[dtype]
-    before = kernels.launch_counts[key]
+    path = _gemm_path(dtype, n, k)
+    before = dict(kernels.launch_counts)
     for out_dtype in (None, torch.float32):
         got = gemm_cuda(a, b, out_dtype)
         want = gemm_plain(a, b, out_dtype)
@@ -242,25 +316,52 @@ def test_gemm_kernel_matches_plain(cuda_device, dtype, m, n, k):
         assert got.dtype == want.dtype and got.shape == (m, n)
         err, tol = _max_err_tol(got, want)
         assert err <= tol, (err, tol)
-    assert kernels.launch_counts[key] == before + 2
+    moved = {c for c, v in kernels.launch_counts.items() if v != before[c]}
+    assert kernels.launch_counts[key] == before[key] + 2
+    assert moved == {key} | ({path} if path else set()), moved
+    if path:
+        assert kernels.launch_counts[path] == before[path] + 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,m,k,n", [(4, 64, 128, 256), (3, 50, 72, 100)])
+def test_gemm_split_k_is_the_same_from_run_to_run(cuda_device, dtype):
+    """The splits are added in a fixed order: bitwise-equal results."""
+    m, n, k = 128, 1024, 1024
+    assert gemm_schedule(m, n, k, dtype, True, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)[2] > 1
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    first = gemm_cuda(a, b, torch.float32)
+    second = gemm_cuda(a, b, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    err, tol = _max_err_tol(first, gemm_plain(a, b, torch.float32))
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,m,k,n", [(4, 64, 128, 256), (3, 50, 72, 100),
+                                     (2, 128, 1024, 512)])
 def test_gemm_wres_kernel_matches_plain(cuda_device, dtype, s, m, k, n):
     rng = np.random.default_rng(s * m)
     a = torch.from_numpy(rng.standard_normal((s, m, k), dtype=np.float32))
     b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
     a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
-    before = kernels.launch_counts["gemm_wres"]
+    path = _gemm_path(dtype, n, k)
+    before = dict(kernels.launch_counts)
     got = gemm_wres_cuda(a, b)
     want = gemm_wres_plain(a, b)
     torch.cuda.synchronize()
     assert got.shape == (s, m, n)
     err, tol = _max_err_tol(got, want)
     assert err <= tol, (err, tol)
-    assert kernels.launch_counts["gemm_wres"] == before + 1
+    assert kernels.launch_counts["gemm_wres"] == before["gemm_wres"] + 1
+    if path:
+        assert kernels.launch_counts[path] == before[path] + 1
 
 
 @pytest.mark.cuda

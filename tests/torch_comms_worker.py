@@ -124,6 +124,18 @@ def main(store, rank, world, out_dir):
     for coll in DCHECK_COLLECTIVES:
         res[f"dcheck:{coll}"] = bench.run_one(coll, 256, g).dcheck_ok
     res["dcheck:pt2pt"] = bench.bench_pt2pt(256, g)[1]
+    # the pt2pt rows of a small sweep in both timing modes: (size, dcheck,
+    # ping us, ping-pong us, uni GB/s, bi GB/s) per row
+    for mode in ("dispatch", "graph"):
+        params = CommsParams(begin_size=64, end_size=256, num_iters=2,
+                             num_warmup_iters=1, dcheck=True, window=3)
+        params.mode = params.mode.__class__(mode)
+        mbench = CollBench(backend, params, reps=1)
+        rows = [mbench.bench_pt2pt(size, g)
+                for size in mbench.sweep_sizes("pt2pt", g)]
+        res[f"pt2pt:{mode}"] = [
+            (m.input_size_bytes, ok, m.ping_p50_us, m.ping_pong_p50_us,
+             m.uni_bw_gbs, m.bi_bw_gbs) for m, ok in rows]
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     backend.barrier()
     dist.destroy_process_group()
