@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero):
   1. device and build: CUDA and sm_90 present; the card's name and power
      limit; every hand-written kernel built from ``param_tpu_torch/kernels/
-     csrc`` (one nvcc per source, in parallel).
+     csrc`` (one nvcc per source, in parallel); ptxas's registers and
+     spills per library, and per K6 / K7 kernel.
   2. K1 (embedding bag) against its plain PyTorch version on the card: the
      1M x 128 f32 headline shape (B 8192, nnz 30, indices shifted per
      iteration), the DLRM trainer's shape (flat 8 x 100k x 64 table, 2048 x 8
@@ -56,8 +57,11 @@ Phases (any failure exits non-zero):
      512, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64) and a ragged
      length 1000; library call F.scaled_dot_product_attention (enable_gqa
      for GQA, the boolean mask for the window and the rectangular case).
-     Every element is held to its own bound (``flash_fwd_tolerance``), and
-     that bound must flag a planted fault (a dropped diagonal kv entry).
+     Each row names the path it took (from the launch counters), which
+     must be the one ``flash_schedule`` gives and, for 16-bit inputs at
+     D 64 / 128, wgmma.  Every element is held to its own bound
+     (``flash_fwd_tolerance``), and that bound must flag a planted fault
+     (a dropped diagonal kv entry).
  12. Transformer parity: a small block (emb 512, 8 heads; f32, f32 GQA and
      bf16) through block_apply (flash), prefill, four windowed decode_steps
      and an int4 decode_step on the card against the same on the CPU.
@@ -76,11 +80,16 @@ Phases (any failure exits non-zero):
      transposed-head view), the other ATTN_LLAMA2 shapes (1, 32, 4096,
      128) and (4, 32, 2048, 128) causal, gpt2 (8, 12, 1024, 64), GQA 32 /
      8 heads, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64), a ragged
-     length 1000 and head dim 32; every element of dq, dk and dv within
-     its own bound (``flash_bwd_tolerance``), which must flag a planted
-     fault (a dropped diagonal kv entry) in each; library call
+     length 1000 and head dim 32; each row's path as in phase 11; every
+     element of dq, dk and dv within its own bound
+     (``flash_bwd_tolerance``), which must flag a planted fault (a dropped
+     diagonal kv entry) in each; the llama2 row run twice must give
+     bitwise-equal gradients; library call
      aten._scaled_dot_product_flash_attention_backward on SDPA's own
-     forward residuals where it computes the same function.
+     forward residuals where it computes the same function, and for GQA
+     and f32 SDPA's backward through autograd (enable_gqa for GQA), timed
+     by its kernel time in torch.profiler, with the kernels that name the
+     backend PyTorch picked.
  15. Train-step parity: a small block (emb 512, 8 heads; f32, f32 GQA and
      bf16) trained two steps by make_train_step on the card against the
      same on the CPU, losses and every parameter; K6 and K7 launch once
@@ -132,7 +141,9 @@ without the host's cost of issuing the calls; the kernel is also timed
 issued eagerly from Python), the plain version issued eagerly.  Bounds: bytes over
 3.35 TB/s, or operations over the H100's peak for the type (989 TF/s bf16,
 67 TF/s f32).
-Then a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+Then a ``{"kernels": [...]}`` line (K6 and K7 by the path the main path
+took; every main-path launch of theirs must have been on wgmma), and last
+the ``{"ok": true, ...}`` line.
 ``--out PATH`` also writes the full results as JSON to PATH.
 """
 
@@ -419,8 +430,25 @@ def main(out_path=None) -> int:
         f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
         f"{build_s:.1f} s | ptxas registers per kernel {reg_counts} | "
         f"spill-store bytes per kernel {spills}")
+    flash_res = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        for mangled, res in build.kernel_resources(lib).items():
+            m = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|tc|f32)",
+                          mangled)
+            dims = re.search(r"Li(\d+)E", mangled)
+            dt = ("bf16" if "bfloat16" in mangled else
+                  "f16" if "__half" in mangled else "f32")
+            label = (f"{m.group(0) if m else mangled}<{dt}, "
+                     f"D={dims.group(1) if dims else '?'}>")
+            flash_res[label] = res
+    say("phase 1 K6 / K7 kernels (ptxas; wgmma kernels at launch, before "
+        "setmaxnreg): " + "; ".join(
+            f"{label} {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled "
+            f"(stores / loads)" for label, r in sorted(flash_res.items())))
     result["phases"]["device"] = dict(smi=smi, kind=kind, build_s=build_s,
-                                      registers=reg_counts, spills=spills)
+                                      registers=reg_counts, spills=spills,
+                                      flash_kernels=flash_res)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     T, E, D, B, NNZ = 8, 100_000, 64, 2048, 10  # the CLI's default width
@@ -922,9 +950,27 @@ def main(out_path=None) -> int:
 
     # ---------------------------------------------------------------- 11
     from param_tpu_torch.kernels.flash_fwd import (
-        attention_keep_mask, flash_fwd_cuda, flash_fwd_plain,
-        flash_fwd_tolerance,
+        PATHS as FLASH_PATHS, attention_keep_mask, flash_fwd_cuda,
+        flash_fwd_plain, flash_fwd_tolerance, flash_schedule, tma_takes,
     )
+
+    def flash_path(kernel, fn, views):
+        """fn() and the path of ``kernel`` whose launch counter it moved;
+        fails unless that is the path flash_schedule gives ``views`` and,
+        for dense 16-bit views at D 64 / 128, unless it is wgmma."""
+        before = {p: kernels.launch_counts[f"{kernel}_{p}"]
+                  for p in FLASH_PATHS}
+        out = fn()
+        moved = [p for p in FLASH_PATHS
+                 if kernels.launch_counts[f"{kernel}_{p}"] != before[p]]
+        q = views[0]
+        want = flash_schedule(q.dtype, q.shape[-1],
+                              all(tma_takes(t) for t in views))
+        if moved != [want] or (q.dtype != torch.float32
+                               and q.shape[-1] in (64, 128)
+                               and want != "wgmma"):
+            fail(f"{kernel}: ran {moved}, the schedule says {want}")
+        return out, want
 
     def kept_pairs(sq, sk, causal, window):
         """(row, column) pairs the mask keeps: the work this run needs."""
@@ -966,7 +1012,10 @@ def main(out_path=None) -> int:
         q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
         v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dt)
-        got, lse = flash_fwd_cuda(q, k, v, causal, None, window, True)
+        (got, lse), path = flash_path(
+            "flash_fwd",
+            lambda: flash_fwd_cuda(q, k, v, causal, None, window, True),
+            (q, k, v))
         want, want_lse = flash_fwd_plain(q, k, v, causal, None, window, True)
         tol = flash_fwd_tolerance(q, k, v, want, causal, None, window)
         err, ratio = check_k6(name, got, want, tol)
@@ -993,11 +1042,12 @@ def main(out_path=None) -> int:
         rec.update(shape=shape, max_abs_err=err, err_over_bound=ratio,
                    lse_err=lse_err, bound_ms=b_ms, bound_by=b_by, flops=flops,
                    bytes=nbytes, tflops=flops / rec["ms"] / 1e9,
-                   planted_fault=fault_rec)
+                   planted_fault=fault_rec, path=path)
         k6[name] = rec
         bound_text = ("2e-5" if dt == torch.float32 else
                       "u (2|O| + |P||V|) per element, and 2e-2")
-        say(f"phase 11 K6 {name}: {shape} | max_abs_err {err:.3e}, largest "
+        say(f"phase 11 K6 {name}: {shape} | path {path} | max_abs_err "
+            f"{err:.3e}, largest "
             f"error / bound {ratio:.3f} (bound {bound_text}), lse "
             f"{lse_err:.3e} (tol 1e-4) | "
             f"{timing_text(rec, 'F.scaled_dot_product_attention')} "
@@ -1251,11 +1301,42 @@ def main(out_path=None) -> int:
                  f"in every gradient ({rec})")
         return rec
 
+    def sdpa_backward_kernels(q, k, v, do, causal):
+        """SDPA's backward through autograd (enable_gqa when H_kv < H), the
+        library call where no graph-timed aten backward takes the inputs:
+        kernel ms per call from torch.profiler, and its largest kernels
+        (which name the backend PyTorch picked)."""
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=k.shape[1] != q.shape[1])
+        run = lambda: torch.autograd.grad(out, leaves, do,  # noqa: E731
+                                          retain_graph=True)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                    ev.self_device_time_total / 1e3 / 10
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        return dict(ms=sum(by_name.values()),
+                    kernels=[f"{nm[:60]} {ms:.4f} ms" for nm, ms in top])
+
     def k7_case(name, b, h, hkv, sq, sk, d, causal, dt, iters, fault=False,
-                no_library=None, fused=False):
+                no_library=None, fused=False, repeat=False,
+                sdpa_autograd=False):
         """``fused``: q, k, v are the strided head views of one (b, s,
         (h + 2 hkv) d) projection and dO the transposed-head view of a
-        (b, s, h d) gradient, as the train step hands them to K7."""
+        (b, s, h d) gradient, as the train step hands them to K7.
+        ``repeat``: a second run must give bitwise-equal gradients.
+        ``sdpa_autograd``: the library column is SDPA's backward through
+        autograd (``sdpa_backward_kernels``)."""
         if fused:
             y = torch.randn((b, sq, (h + 2 * hkv) * d), generator=gen,
                             device=dev).to(dt)
@@ -1274,14 +1355,26 @@ def main(out_path=None) -> int:
             do = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
         o, lse = flash_fwd_cuda(q, k, v, causal, None, None, True)  # K6
         ins = (q, k, v, o, lse, do)
-        got = flash_bwd_cuda(*ins, causal)
+        got, path = flash_path("flash_bwd",
+                               lambda: flash_bwd_cuda(*ins, causal),
+                               (q, k, v, o, do))
         want = flash_bwd_plain(*ins, causal)
         tols = flash_bwd_tolerance(*ins, want, causal)
         err, ratio = check_k7(name, got, want, tols)
         fault_rec = k7_fault(*ins, want, tols) if fault else None
+        if repeat:
+            again = flash_bwd_cuda(*ins, causal)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"K7 {name}: two runs on the same inputs differ")
+            del again
         del got, want, tols
         torch.cuda.empty_cache()
-        if no_library is None:
+        autograd_lib = None
+        if sdpa_autograd:
+            autograd_lib = sdpa_backward_kernels(q, k, v, do, causal)
+            lib, no_library = None, "no graph-timed call"
+        elif no_library is None:
             # SDPA's flash backward on SDPA's own forward residuals
             res = aten._scaled_dot_product_flash_attention(q, k, v, 0.0,
                                                            causal, False)
@@ -1293,6 +1386,9 @@ def main(out_path=None) -> int:
             lib = None
         rec = timings(lambda: flash_bwd_cuda(*ins, causal),
                       lambda: flash_bwd_plain(*ins, causal), lib, iters)
+        if autograd_lib is not None:
+            rec["library_ms"] = autograd_lib["ms"]
+            rec["library_kernels"] = autograd_lib["kernels"]
         flops = 10 * b * h * d * kept_pairs(sq, sk, causal, None)
         nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + o.numel()
                    + do.numel()) * q.element_size() + lse.numel() * 4)
@@ -1303,15 +1399,21 @@ def main(out_path=None) -> int:
         rec.update(shape=shape, max_abs_err=err, err_over_bound=ratio,
                    bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
                    tflops=flops / rec["ms"] / 1e9, planted_fault=fault_rec,
-                   no_library=no_library)
+                   no_library=no_library, path=path)
         k7[name] = rec
         bound_text = ("2^-14 (|X| + m) + 1e-6" if dt == torch.float32 else
                       "u (2|X| + m) per element")
         lib_text = ("aten._scaled_dot_product_flash_attention_backward"
                     if lib else f"none ({no_library})")
-        say(f"phase 14 K7 {name}: {shape} | max_abs_err {err:.3e} over dq, "
-            f"dk, dv, largest error / bound {ratio:.3f} (bound {bound_text}) "
-            f"| {timing_text(rec, lib_text)} ({rec['tflops']:.1f} TF/s) bound "
+        text = timing_text(rec, lib_text)
+        if autograd_lib is not None:
+            text += (f"; library: SDPA's backward through autograd "
+                     f"(enable_gqa={hkv != h}) {autograd_lib['ms']:.4f} ms of "
+                     f"kernel time a call (torch.profiler), largest kernels "
+                     f"{autograd_lib['kernels']}")
+        say(f"phase 14 K7 {name}: {shape} | path {path} | max_abs_err "
+            f"{err:.3e} over dq, dk, dv, largest error / bound {ratio:.3f} "
+            f"(bound {bound_text}) | {text} ({rec['tflops']:.1f} TF/s) bound "
             f"{b_ms:.4f} ms ({b_by}) | {smi}")
         if fault_rec:
             say(f"phase 14 K7 {name} planted fault (diagonal kv entry "
@@ -1321,10 +1423,8 @@ def main(out_path=None) -> int:
         del q, k, v, do, o, lse, ins
         torch.cuda.empty_cache()
 
-    no_gqa = ("SDPA's flash backward takes equal q and kv heads; its GQA "
-              "repeats K / V outside the kernel")
     k7_case("llama2_causal", 1, 32, 32, 2048, 2048, 128, True, bf16, 20,
-            fault=True)
+            fault=True, repeat=True)
     # the train step's layout, and the other two ATTN_LLAMA2 shapes of
     # attention --dataset llama2 --grad
     k7_case("llama2_fused", 1, 32, 32, 2048, 2048, 128, True, bf16, 20,
@@ -1333,12 +1433,11 @@ def main(out_path=None) -> int:
     k7_case("llama2_b4", 4, 32, 32, 2048, 2048, 128, True, bf16, 10)
     k7_case("gpt2", 8, 12, 12, 1024, 1024, 64, False, bf16, 20)
     k7_case("gqa_causal", 1, 32, 8, 2048, 2048, 128, True, bf16, 20,
-            no_library=no_gqa)
+            sdpa_autograd=True)
     k7_case("rect_causal", 1, 32, 32, 128, 2048, 128, True, bf16, 20,
             no_library="SDPA's causal mask aligns top-left, the reference's "
                        "bottom-right for S_q < S_k")
-    k7_case("f32", 1, 4, 4, 512, 512, 64, True, f32, 20,
-            no_library="SDPA's flash backward takes only f16 / bf16")
+    k7_case("f32", 1, 4, 4, 512, 512, 64, True, f32, 20, sdpa_autograd=True)
     k7_case("ragged_1000", 1, 4, 4, 1000, 1000, 128, True, bf16, 20)
     k7_case("d32", 4, 16, 16, 1024, 1024, 32, True, bf16, 20)
     result["phases"]["k7"] = k7
@@ -1778,6 +1877,22 @@ def main(out_path=None) -> int:
     def cli_launches(run, key):
         return cli_runs[run]["launches"].get(key, 0)
 
+    def main_path_flash(runs, kernel):
+        """Launches of ``kernel`` in the main path's runs, all of which
+        must have taken the wgmma path."""
+        total = sum(r["launches"].get(kernel, 0) for r in runs)
+        wgmma = sum(r["launches"].get(f"{kernel}_wgmma", 0) for r in runs)
+        if wgmma != total:
+            fail(f"{kernel}: {total - wgmma} of {total} launches on the main "
+                 f"path did not take the wgmma path")
+        return wgmma
+
+    k6_launches = main_path_flash([serve_runs["attention_llama2"],
+                                   serve_runs["transformer_llama2"]],
+                                  "flash_fwd")
+    k7_launches = main_path_flash([train_runs["attention_llama2_grad"],
+                                   train_runs["transformer_llama2_train"]],
+                                  "flash_bwd")
     src = "param_tpu_torch/kernels/csrc/"
     report = {"kernels": [
         entry("emb_gather (K1)", src + "emb_gather.cu",
@@ -1804,14 +1919,12 @@ def main(out_path=None) -> int:
               k5["(512, 4096, 4096)"]),
         entry("int4 gemm, serve decode step (K5)", src + "int4_gemm.cu",
               "param_tpu/ops/matmul.py:196", n_serve, k5["(1, 4096, 12288)"]),
-        entry("flash attention forward (K6)", src + "flash_fwd.cu",
-              "param_tpu/ops/attention.py:251",
-              serve_runs["attention_llama2"]["launches"]["flash_fwd"]
-              + serve_runs["transformer_llama2"]["launches"]["flash_fwd"],
-              k6["llama2_causal"]),
-        entry("flash attention backward (K7)", src + "flash_bwd.cu",
-              "param_tpu/ops/attention.py:809, :841",
-              al["flash_bwd"] + tl["flash_bwd"], k7["llama2_causal"]),
+        entry("flash attention forward (K6), wgmma path",
+              src + "flash_fwd.cu", "param_tpu/ops/attention.py:251",
+              k6_launches, k6["llama2_causal"]),
+        entry("flash attention backward (K7), wgmma path",
+              src + "flash_bwd.cu", "param_tpu/ops/attention.py:809, :841",
+              k7_launches, k7["llama2_causal"]),
         entry("ring all-gather (K8a)", src + "ring.cu",
               "param_tpu/ops/ring_collectives.py:55",
               ring_launches["ring_all_gather"],

@@ -8,10 +8,14 @@
   rows, an FMA core for f32; split K for small grids); stacked GEMMs
   sharing one weight.
 - K5 :mod:`.int4_gemm` (``csrc/int4_gemm.cu``): x @ group-int4 weights.
-- K6 :mod:`.flash_fwd` (``csrc/flash_fwd.cu``): flash-attention forward
-  (causal, sliding window, GQA, optional logsumexp).
-- K7 :mod:`.flash_bwd` (``csrc/flash_bwd.cu``): flash-attention backward
-  (dq, dk, dv from the saved output and logsumexp; causal, GQA).
+- K6 :mod:`.flash_fwd` (``csrc/flash_fwd.cu``, ``csrc/hopper.cuh``):
+  flash-attention forward (causal, sliding window, GQA, optional
+  logsumexp); three paths picked by ``flash_schedule`` (wgmma / TMA for
+  bf16 and f16 at D 64 and 128, mma.sync for other 16-bit shapes, the CUDA
+  cores for f32).
+- K7 :mod:`.flash_bwd` (``csrc/flash_bwd.cu``, ``csrc/hopper.cuh``):
+  flash-attention backward (dq, dk, dv from the saved output and
+  logsumexp; causal, GQA), on the same three paths.
 - K8a-d :mod:`.ring` (``csrc/ring.cu``): ring all-gather, ring
   reduce-scatter, both-direction ring all-gather, loopback copy, over
   per-rank shards on one card or one card per rank.
@@ -20,7 +24,8 @@
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
-through.  Importing this package builds nothing.
+through; kernels with several paths also count ``<kernel>_<path>``.
+Importing this package builds nothing.
 """
 
 launch_counts = {
@@ -35,7 +40,13 @@ launch_counts = {
     "gemm_mma_sync": 0,
     "int4_gemm": 0,
     "flash_fwd": 0,
+    "flash_fwd_wgmma": 0,
+    "flash_fwd_mma_sync": 0,
+    "flash_fwd_simt": 0,
     "flash_bwd": 0,
+    "flash_bwd_wgmma": 0,
+    "flash_bwd_mma_sync": 0,
+    "flash_bwd_simt": 0,
     "ring_all_gather": 0,
     "ring_reduce_scatter": 0,
     "ring_bidir_all_gather": 0,

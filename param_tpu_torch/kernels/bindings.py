@@ -40,9 +40,9 @@ _SIGNATURES = {
         "int4_gemm_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "flash_fwd": {
-        "flash_fwd_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I,
-                             _P],
+        "flash_fwd_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
+                             _I, _P],
     },
     "ring": {
         "ring_capacity": [_I, _I, _I],
@@ -53,8 +53,8 @@ _SIGNATURES = {
         "ring_max_blocks": [],
     },
     "flash_bwd": {
-        "flash_bwd_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _LP, _F, _I, _P],
+        "flash_bwd_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _LP, _F, _I, _P],
     },
     "coalesce": {
         "desc_fetch_smem": [_I, _I, _I],
@@ -89,7 +89,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the entry points' own codes beside cudaError_t's (csrc/hopper.cuh)
+TMA_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+              -2: "cuTensorMapEncodeTiled refused a TMA descriptor"}
+
+
 def check(rc: int, what: str) -> None:
+    if rc in TMA_ERRORS:
+        raise RuntimeError(f"{what}: {TMA_ERRORS[rc]}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 

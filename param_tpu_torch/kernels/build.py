@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -101,6 +102,30 @@ def build_log(name: str) -> str:
     report (registers, spills) for each kernel."""
     with open(lib_path(name) + ".log") as f:
         return f.read()
+
+
+def kernel_resources(name: str) -> Dict[str, dict]:
+    """Per kernel of library ``name`` (its mangled name), ptxas's registers
+    and spill-store / spill-load bytes, read from :func:`build_log`."""
+    out: Dict[str, dict] = {}
+    kernel = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[kernel].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -48,22 +48,12 @@ constexpr int kMaxSmem = 232448;
 
 // mbarrier helpers of hopper.cuh; mbar_wait traps after 10 s instead of
 // hanging the card when a copy never lands (a fault in the byte count)
+using hopper::bulk_load;  // global -> shared, counted off a barrier
 using hopper::mbar_arrive_expect_tx;
 using hopper::mbar_fence_init;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
-
-// global -> shared bulk copy of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned) that counts its bytes off the barrier on arrival
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // order this thread block's earlier shared-memory reads (generic proxy)
 // before the bulk copies that overwrite the buffer (async proxy)
@@ -118,7 +108,7 @@ desc_fetch_kernel(const float* __restrict__ table,
     if (lane == 0) mbar_arrive_expect_tx(&full[s], __popc(valid) * copy_bytes);
     __syncwarp();
     if (ok)
-      bulk_g2s(buf + s * chunk_floats + lane * k * dim, table + st * dim,
+      bulk_load(buf + s * chunk_floats + lane * k * dim, table + st * dim,
                copy_bytes, &full[s]);
   };
 
@@ -263,7 +253,7 @@ coalesced_bag_kernel(const float* __restrict__ table,
     if (lane == 0) mbar_arrive_expect_tx(&full[sb], total);
     __syncwarp();
     if (bytes)
-      bulk_g2s(arena + sb * buf_floats + lane * r_blk * dim,
+      bulk_load(arena + sb * buf_floats + lane * r_blk * dim,
                table + start * dim, bytes, &full[sb]);
   };
 

@@ -38,25 +38,62 @@
 // in bf16 and f16 or 67 TF/s in f32); bytes (Q, K, V, O, dO and lse read
 // once, dQ, dK, dV written once, over 3.35 TB/s) only for short sequences.
 //
-// Design, bf16/f16: 4 warps per block, mma.sync m16n8k16 with f32
-// accumulators, operands staged in shared memory by 16-byte cp.async
-// copies (rows padded by 8 elements so that ldmatrix is free of bank
-// conflicts).
+// Three paths, chosen by the wrapper before the launch
+// (kernels/flash_fwd.py::flash_schedule), each two kernels:
+//
+// wgmma (bf16/f16, D 64 or 128, views TMA can read).  Blocks of 384
+// threads: warpgroup 0 the producer (one thread issues TMA loads of 64 x 64
+// boxes, 128-byte swizzle, through 4-D tensor maps of the (B, H, S, D)
+// views, into a ring of mbarrier stages), warpgroups 1 and 2 consumers of
+// 64 rows each; registers 40 / 232 (setmaxnreg).  Blocks come from a 1-D
+// grid, longest causal walks first across all heads.
+// - dq: a block owns a 128-row q tile.  Each consumer first computes D for
+//   its rows from O and dO in device memory (16-byte loads) and writes D
+//   and lse log2(e) to padded (B H, S_q rounded up to 128) f32 buffers for
+//   the dkv kernel.  Q and dO are loaded once; 64-row K and V tiles stream
+//   through a 3-stage ring.  S = Q K^T and dP = dO V^T are SS wgmma
+//   m64n64k16 (K and V as stored are K-major B); dS = P (dP - D) scale is
+//   formed in the accumulator registers and, rounded to bf16/f16, is the A
+//   operand of the register-A wgmma m64n{D}k16 for dQ += dS K (K as stored
+//   is MN-major B).
+// - dkv: a block owns a 128-row kv tile of one (batch, kv head), each
+//   consumer 64 kv rows with its own dK and dV accumulators (2 x D / 2
+//   registers a thread).  K and V are loaded once; the 64-row Q and dO
+//   tiles of every query head of the GQA group, with their lse log2(e) and
+//   D (two 256-byte bulk copies), stream through the ring.  S^T = K Q^T and
+//   dP^T = V dO^T are SS wgmma m64n64k16, so P^T and dS^T come out in the
+//   accumulator layout, which is the A-register layout of dV += P^T dO and
+//   dK += dS^T Q (register-A wgmma m64n{D}k16, dO and Q as stored are
+//   MN-major B).  The q tiles stay 64 rows at D = 128 with nothing
+//   spilled.
+// A consumer waits for each group of products before it uses their
+// results (the two consumers run out of step, so one's exponentials run
+// under the other's products); issuing tile i's first products under tile
+// i - 1's last ones spilled the dkv kernel at D = 128 and made ptxas
+// serialize its wgmmas.  A consumer releases a stage (one arrival per
+// warp) once the products that read it completed, and skips a tile wholly
+// masked for its rows.  Masks are selects against each row's or column's
+// band under one warp-uniform branch, on edge tiles only.  dQ, dK and dV
+// are staged through the consumer's own rows of its Q or K / V tile and
+// written in 16-byte stores.
+//
+// mma_sync (other bf16/f16 shapes, e.g. D = 32): 4 warps per block,
+// mma.sync m16n8k16 with f32 accumulators, operands staged in shared memory
+// by 16-byte cp.async copies (rows padded by 8 elements so that ldmatrix is
+// free of bank conflicts).
 // - dq: 64 q rows (16 per warp), kv tiles of 64; the next K and V tiles
 //   are copied into a second buffer while the current ones are used.  Q
-//   and dO fragments are read from shared memory at each tile (keeping
-//   them in registers would spill at D = 128).  The S and dP accumulators
-//   give dS, which packed to bf16/f16 is already the A fragment of dS K.
-// - dkv: 64 kv rows (16 per warp), q tiles of 64 rows (32 at D = 128, to
-//   keep the dK and dV accumulators, 128 registers a thread, clear of
-//   spills), the next q tile's Q, dO, lse and D copied under the current
-//   one.  S^T = K Q^T and dP^T = V dO^T are computed directly, so their
-//   accumulators are the A fragments of P^T dO and dS^T Q; Q and dO are
-//   the B operands through ldmatrix .trans.
-// f32: plain CUDA-core kernels in full f32 (no TF32), 4 threads per row,
-// 32-row tiles, each thread owning D/4 output columns.
+//   and dO fragments are read from shared memory at each tile.  The S and
+//   dP accumulators give dS, which packed to bf16/f16 is already the A
+//   fragment of dS K.
+// - dkv: 64 kv rows (16 per warp), q tiles of 64 rows (32 at D = 128), the
+//   next q tile's Q, dO, lse and D copied under the current one.  S^T =
+//   K Q^T and dP^T = V dO^T are computed directly, so their accumulators
+//   are the A fragments of P^T dO and dS^T Q; Q and dO are the B operands
+//   through ldmatrix .trans.
 //
-// Not used: wgmma, TMA, warp specialisation (later work).
+// simt (f32): plain CUDA-core kernels in full f32 (no TF32), 4 threads per
+// row, 32-row tiles, each thread owning D/4 output columns.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -64,6 +101,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -86,6 +124,10 @@ struct Params {
   float scale;
   float scale_log2;  // scale * log2(e)
   int causal;
+  // wgmma path: lse log2(e) and D, (B H, sq_pad) each, written by its dq
+  // kernel (delta above is then the second of the two)
+  float* lse2;
+  int sq_pad;
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -132,18 +174,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack2;
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -499,6 +530,454 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc(const Params p) {
                    static_cast<T*>(p.dv) + out, c0 + warp * 16, p.Sk, lane);
 }
 
+// ------------------------------------------------------------ wgmma path
+namespace wg {
+
+constexpr int THREADS = 384;
+constexpr int QM = 128;  // q rows of a dq block (two consumers x 64)
+constexpr int QN = 64;   // kv rows of a dq step
+constexpr int KM = 128;  // kv rows of a dkv block (two consumers x 64)
+constexpr int KQ = 64;   // q rows of a dkv step
+
+template <int D>
+struct DqSmem {
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = QM * D * 2;   // the Q tile; dO's the same
+  static constexpr int KV_BYTES = QN * D * 2;  // one K or V tile
+  static constexpr int TILES = 2 * Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int DELTA = TILES;  // QM floats: D of the block's rows
+  // q_full, then full and empty for each stage
+  static constexpr int BARS = DELTA + QM * 4;
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int STAGES = 3;
+  static constexpr int K_BYTES = KM * D * 2;  // the K tile; V's the same
+  static constexpr int Q_BYTES = KQ * D * 2;  // one Q or dO tile
+  // a stage: Q, dO, then KQ floats each of lse log2(e) and D (padded to
+  // keep the next stage's tiles on the swizzle's 1024 bytes)
+  static constexpr int STAGE = 2 * Q_BYTES + 1024;
+  static constexpr int TILES = 2 * K_BYTES + STAGES * STAGE;
+  // kv_full, then full and empty for each stage
+  static constexpr int BYTES = TILES + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using L = DqSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const qs = align1024(smem_raw);
+  unsigned char* const dos = qs + L::Q_BYTES;
+  unsigned char* const ring = dos + L::Q_BYTES;  // stage s: K, then V
+  float* const dl_s = reinterpret_cast<float*>(qs + L::DELTA);
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(qs + L::BARS);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + STAGES;
+
+  // a 1-D grid, q tiles last first across all (batch, head) pairs: the
+  // longest causal rows start first
+  const int bh = blockIdx.x % (p.B * p.H), b = bh / p.H, h = bh % p.H;
+  const int q0 = ((p.Sq + QM - 1) / QM - 1 - blockIdx.x / (p.B * p.H)) * QM;
+  const int hk = h / (p.H / p.Hkv);
+  const int n = kv_end(p, q0, QM, QN);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tq);
+      hopper::tma_prefetch(&tk);
+      hopper::tma_prefetch(&tv);
+      hopper::tma_prefetch(&tdo);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+      hopper::tma_load_tile<D, QM>(qs, &tq, q_full, q0, h, b);
+      hopper::tma_load_tile<D, QM>(dos, &tdo, q_full, q0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) hopper::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        unsigned char* const kt = ring + s * 2 * L::KV_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::KV_BYTES);
+        hopper::tma_load_tile<D, QN>(kt, &tk, &full[s], i * QN, hk, b);
+        hopper::tma_load_tile<D, QN>(kt + L::KV_BYTES, &tv, &full[s], i * QN,
+                                     hk, b);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<232>();
+  using MS = hopper::WgmmaN<T, QN>;  // S, dP: 64 x QN
+  using MO = hopper::WgmmaN<T, D>;   // dQ: 64 x D
+  const int cw = threadIdx.x / 128 - 1;  // rows q0 + 64 cw .. + 63
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const int q0w = q0 + 64 * cw;
+  const int row0 = q0w + 16 * warp + lane / 4;  // rows row0, row0 + 8
+  const int diag = p.Sk - p.Sq;
+
+  // D = rowsum(dO * O) for this consumer's 64 rows, two threads a row; D
+  // and lse log2(e) (0 past S_q) go to the dkv kernel's padded buffers
+  {
+    const int t = threadIdx.x % 128, r = t / 2, row = q0w + r;
+    const int c_lo = (t % 2) * (D / 2);
+    float acc = 0.f;
+    if (row < p.Sq) {
+      const T* orow = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh +
+                      (long long)row * p.o_ss;
+      const T* drow = static_cast<const T*>(p.dout) + b * p.do_sb +
+                      h * p.do_sh + (long long)row * p.do_ss;
+#pragma unroll
+      for (int c = c_lo; c < c_lo + D / 2; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+        const T* oe = reinterpret_cast<const T*>(&ov);
+        const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += to_f32(oe[e]) * to_f32(de[e]);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (t % 2 == 0) {
+      dl_s[64 * cw + r] = acc;
+      const long long at = (long long)bh * p.sq_pad + row;
+      p.delta[at] = acc;
+      p.lse2[at] =
+          row < p.Sq ? p.lse[(long long)bh * p.Sq + row] * kLog2e : 0.f;
+    }
+  }
+  hopper::warpgroup_barrier(1 + cw);
+  // per row of this thread: D, lse log2(e), and the last kv column kept
+  // (-1 past S_q)
+  float dl[2], lse2[2];
+  int hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    dl[r] = dl_s[row - q0];
+    lse2[r] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] * kLog2e : 0.f;
+    hi[r] = row >= p.Sq ? -1 : p.causal ? min(p.Sk - 1, row + diag) : p.Sk - 1;
+  }
+  const float sl2 = p.scale_log2;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const unsigned char* const qw = qs + cw * 64 * 128;
+  const unsigned char* const dow = dos + cw * 64 * 128;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES, c0 = i * QN;
+    const unsigned char* const kt = ring + s * 2 * L::KV_BYTES;
+    const unsigned char* const vt = kt + L::KV_BYTES;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    // a tile wholly masked for this consumer's rows adds nothing
+    const bool skip = q0w >= p.Sq || (p.causal && c0 > q0w + 63 + diag);
+    if (!skip) {
+      float sc[QN / 2], dp[QN / 2];
+#pragma unroll
+      for (int e = 0; e < QN / 2; ++e) sc[e] = dp[e] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_off = (kk / 4) * QM * 128 + (kk % 4) * 32;
+        const int b_off = (kk / 4) * QN * 128 + (kk % 4) * 32;
+        MS::template ss<0>(sc, hopper::desc_k_major_sw128(qw + a_off),
+                           hopper::desc_k_major_sw128(kt + b_off), kk > 0);
+        MS::template ss<0>(dp, hopper::desc_k_major_sw128(dow + a_off),
+                           hopper::desc_k_major_sw128(vt + b_off), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // masked scores to -inf (P = 0) by selects, under one uniform branch
+      if (tile_needs_mask(p, q0w, c0, 64, QN)) {
+#pragma unroll
+        for (int j = 0; j < QN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = c0 + 8 * j + 2 * t4 + e % 2 <= hi[e / 2]
+                                ? sc[4 * j + e]
+                                : -INFINITY;
+      }
+      // dS = P (dP - D) scale, rounded as the A operand of dQ += dS K
+#pragma unroll
+      for (int j = 0; j < QN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const float pv =
+              hopper::exp2_approx(fmaf(sc[4 * j + e], sl2, -lse2[r]));
+          sc[4 * j + e] = pv * (dp[4 * j + e] - dl[r]) * p.scale;
+        }
+      uint32_t dsf[QN / 16][4];
+      hopper::acc_to_a<T, QN>(sc, dsf);
+      hopper::wgmma_fence();  // dS was written
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        MO::template rs<1>(
+            dq, dsf[kk], hopper::desc_mn_major_sw128(kt + kk * 2048, QN * 128),
+            1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // this consumer's Q rows are read by it alone: stage dQ through them
+  hopper::store_tile<T, D, QM>(
+      dq, 1.f, 1.f, qs, 64 * cw,
+      static_cast<T*>(p.dq) + ((long long)bh * p.Sq + q0w) * D, p.Sq - q0w,
+      1 + cw);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using L = DkvSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const ks = align1024(smem_raw);
+  unsigned char* const vs = ks + L::K_BYTES;
+  unsigned char* const ring = vs + L::K_BYTES;  // stage s: Q, dO, lse2, D
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(ks + L::TILES);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + STAGES;
+
+  // a 1-D grid, kv tiles in order across all (batch, kv head) pairs:
+  // the longest causal columns start first
+  const int bk = blockIdx.x % (p.B * p.Hkv), b = bk / p.Hkv, hk = bk % p.Hkv;
+  const int c0 = blockIdx.x / (p.B * p.Hkv) * KM;
+  const int group = p.H / p.Hkv;
+  const int i0 = first_q_tile(p, c0, KQ);
+  const int per_head = (p.Sq + KQ - 1) / KQ - i0;
+  const int steps = group * per_head;
+  // step t: query head hk * group + t / per_head, q tile i0 + t % per_head
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tq);
+      hopper::tma_prefetch(&tk);
+      hopper::tma_prefetch(&tv);
+      hopper::tma_prefetch(&tdo);
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * L::K_BYTES);
+      hopper::tma_load_tile<D, KM>(ks, &tk, kv_full, c0, hk, b);
+      hopper::tma_load_tile<D, KM>(vs, &tv, kv_full, c0, hk, b);
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % STAGES;
+        const int h = hk * group + t / per_head;
+        const int q0 = (i0 + t % per_head) * KQ;
+        if (t >= STAGES) hopper::mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        unsigned char* const st = ring + s * L::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::Q_BYTES + 2 * KQ * 4);
+        hopper::tma_load_tile<D, KQ>(st, &tq, &full[s], q0, h, b);
+        hopper::tma_load_tile<D, KQ>(st + L::Q_BYTES, &tdo, &full[s], q0, h,
+                                     b);
+        const long long at = (long long)(b * p.H + h) * p.sq_pad + q0;
+        hopper::bulk_load(st + 2 * L::Q_BYTES, p.lse2 + at, KQ * 4, &full[s]);
+        hopper::bulk_load(st + 2 * L::Q_BYTES + KQ * 4, p.delta + at, KQ * 4,
+                          &full[s]);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<232>();
+  using MS = hopper::WgmmaN<T, KQ>;  // S^T, dP^T: 64 x KQ
+  using MO = hopper::WgmmaN<T, D>;   // dK, dV: 64 x D
+  const int cw = threadIdx.x / 128 - 1;  // kv rows c0 + 64 cw .. + 63
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const int c0w = c0 + 64 * cw;
+  const int col0 = c0w + 16 * warp + lane / 4;  // kv rows col0, col0 + 8
+  const int diag = p.Sk - p.Sq;
+  const unsigned char* const kw = ks + cw * 64 * 128;
+  const unsigned char* const vw = vs + cw * 64 * 128;
+  const float sl2 = p.scale_log2;
+  // per kv row of this thread: the q rows [qlo, qhi] that reach it (qhi
+  // -1 past S_k)
+  int qlo[2], qhi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int c = col0 + 8 * r;
+    qlo[r] = p.causal ? c - diag : 0;
+    qhi[r] = c < p.Sk ? p.Sq - 1 : -1;
+  }
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % STAGES;
+    const int q0 = (i0 + t % per_head) * KQ;
+    const unsigned char* const st = ring + s * L::STAGE;
+    hopper::mbar_wait(&full[s], (t / STAGES) & 1);
+    // a tile wholly masked for this consumer's kv rows adds nothing
+    const bool skip = c0w >= p.Sk || (p.causal && q0 + KQ - 1 + diag < c0w);
+    if (!skip) {
+      const unsigned char* const qt = st;
+      const unsigned char* const dot = st + L::Q_BYTES;
+      const float* const lse_s =
+          reinterpret_cast<const float*>(st + 2 * L::Q_BYTES);
+      const float* const dl_s = lse_s + KQ;
+      float sc[KQ / 2], dp[KQ / 2];
+#pragma unroll
+      for (int e = 0; e < KQ / 2; ++e) sc[e] = dp[e] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a_off = (kk / 4) * KM * 128 + (kk % 4) * 32;
+        const int b_off = (kk / 4) * KQ * 128 + (kk % 4) * 32;
+        MS::template ss<0>(sc, hopper::desc_k_major_sw128(kw + a_off),
+                           hopper::desc_k_major_sw128(qt + b_off), kk > 0);
+        MS::template ss<0>(dp, hopper::desc_k_major_sw128(vw + a_off),
+                           hopper::desc_k_major_sw128(dot + b_off), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // rows are kv rows, columns q rows: masked scores to -inf (P = 0) by
+      // selects under one uniform branch, then P^T and dS^T, rounded as the
+      // A operands of dV += P^T dO and dK += dS^T Q
+      if (tile_needs_mask(p, q0, c0w, KQ, 64)) {
+#pragma unroll
+        for (int j = 0; j < KQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * t4 + e % 2, r = e / 2;
+            sc[4 * j + e] =
+                q >= qlo[r] && q <= qhi[r] ? sc[4 * j + e] : -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < KQ / 8; ++j) {
+        const int qc = 8 * j + 2 * t4;  // q row within the tile
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + qc);
+        const float2 dd = *reinterpret_cast<const float2*>(dl_s + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l2 = e % 2 ? ls.y : ls.x, dlt = e % 2 ? dd.y : dd.x;
+          const float pv =
+              hopper::exp2_approx(fmaf(sc[4 * j + e], sl2, -l2));
+          dp[4 * j + e] = pv * (dp[4 * j + e] - dlt) * p.scale;
+          sc[4 * j + e] = pv;
+        }
+      }
+      uint32_t pf[KQ / 16][4], dsf[KQ / 16][4];
+      hopper::acc_to_a<T, KQ>(sc, pf);
+      hopper::acc_to_a<T, KQ>(dp, dsf);
+      hopper::wgmma_fence();  // P^T and dS^T were written
+#pragma unroll
+      for (int kk = 0; kk < KQ / 16; ++kk) {
+        MO::template rs<1>(
+            dv, pf[kk],
+            hopper::desc_mn_major_sw128(dot + kk * 2048, KQ * 128), 1);
+        MO::template rs<1>(
+            dk, dsf[kk],
+            hopper::desc_mn_major_sw128(qt + kk * 2048, KQ * 128), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // this consumer's K and V rows are read by it alone: stage through them
+  const long long out = ((long long)bk * p.Sk + c0w) * D;
+  hopper::store_tile<T, D, KM>(dk, 1.f, 1.f, ks, 64 * cw,
+                               static_cast<T*>(p.dk) + out, p.Sk - c0w,
+                               1 + cw);
+  hopper::store_tile<T, D, KM>(dv, 1.f, 1.f, vs, 64 * cw,
+                               static_cast<T*>(p.dv) + out, p.Sk - c0w,
+                               1 + cw);
+}
+
+template <typename T, int D>
+int launch(const Params& p, cudaStream_t s) {
+  const CUtensorMapDataType type = hopper::tma_type<T>();
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = hopper::encode_bhsd(&tq, type, p.q, p.B, p.H, p.Sq, D, p.q_sb,
+                               p.q_sh, p.q_ss);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tk, type, p.k, p.B, p.Hkv, p.Sk, D, p.k_sb,
+                             p.k_sh, p.k_ss);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tv, type, p.v, p.B, p.Hkv, p.Sk, D, p.v_sb,
+                             p.v_sh, p.v_ss);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tdo, type, p.dout, p.B, p.H, p.Sq, D, p.do_sb,
+                             p.do_sh, p.do_ss);
+  if (rc != 0) return rc;
+  cudaError_t e = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_wgmma<T, D>),
+      DqSmem<D>::BYTES);
+  if (e == cudaSuccess)
+    e = hopper::allow_smem(
+        reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<T, D>),
+        DkvSmem<D>::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_wgmma<T, D>
+      <<<(unsigned)((p.Sq + QM - 1) / QM) * p.B * p.H, THREADS,
+         DqSmem<D>::BYTES, s>>>(tq, tk, tv, tdo, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkv_wgmma<T, D>
+      <<<(unsigned)((p.Sk + KM - 1) / KM) * p.B * p.Hkv, THREADS,
+         DkvSmem<D>::BYTES, s>>>(tq, tk, tv, tdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 // ---------------------------------------------------------------- f32 path
 constexpr int FB = 32, FTHREADS = 128;  // 32-row tiles, 4 threads per row
 
@@ -671,8 +1150,8 @@ template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
            cudaStream_t s) {
   // above 48 KB a block's dynamic shared memory must be allowed explicitly
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      hopper::allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, threads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -706,12 +1185,20 @@ int launch_f32(const Params& p, cudaStream_t s) {
                 p, s);
 }
 
+// path 1 (mma_sync) at D 32, 64, 128; path 2 (wgmma) at D 64, 128
 template <typename T>
-int launch_tc_d(int D, const Params& p, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_tc<T, 32>(p, s);
-    case 64: return launch_tc<T, 64>(p, s);
-    case 128: return launch_tc<T, 128>(p, s);
+int launch_16(int path, int D, const Params& p, cudaStream_t s) {
+  if (path == 2) {
+    switch (D) {
+      case 64: return wg::launch<T, 64>(p, s);
+      case 128: return wg::launch<T, 128>(p, s);
+    }
+  } else if (path == 1) {
+    switch (D) {
+      case 32: return launch_tc<T, 32>(p, s);
+      case 64: return launch_tc<T, 64>(p, s);
+      case 128: return launch_tc<T, 128>(p, s);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -720,37 +1207,44 @@ int launch_tc_d(int D, const Params& p, cudaStream_t s) {
 
 extern "C" {
 
-// dtype 0 f32 (CUDA cores), 1 bf16, 2 f16 (tensor cores); D 32, 64 or 128.
-// q, o and dout (B, H, S_q, D), k and v (B, H_kv, S_k, D), with their
-// batch, head and sequence element strides in `strides` (15 values: q, k,
-// v, o, dout; last dim contiguous; for bf16/f16 every stride a multiple of
-// 8 and the bases 16-byte aligned); lse (B, H, S_q) f32; delta (B, H, S_q)
-// f32 scratch; dq (B, H, S_q, D), dk and dv (B, H_kv, S_k, D) contiguous in
-// the inputs' dtype.  Launches the dq kernel, then the dkv kernel, on
-// `stream`; returns the first CUDA error.
-int flash_bwd_launch(int dtype, int D, const void* q, const void* k,
-                     const void* v, const void* o, const void* dout,
-                     const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int B, int H, int Hkv, int Sq, int Sk,
-                     const long long* strides, float scale, int causal,
-                     void* stream) {
+// Path codes shared with kernels/flash_fwd.py: 0 simt (f32), 1 mma_sync and
+// 2 wgmma (bf16/f16); dtype 0 f32, 1 bf16, 2 f16; D 32, 64 or 128 (wgmma:
+// 64, 128).  q, o and dout (B, H, S_q, D), k and v (B, H_kv, S_k, D), with
+// their batch, head and sequence element strides in `strides` (15 values:
+// q, k, v, o, dout; last dim contiguous; for bf16/f16 every stride a
+// multiple of 8 and the bases 16-byte aligned); lse (B, H, S_q) f32; dq
+// (B, H, S_q, D), dk and dv (B, H_kv, S_k, D) contiguous in the inputs'
+// dtype.  Scratch: simt and mma_sync take delta (B, H, S_q) f32; wgmma
+// takes delta of 2 (B H) sq_pad f32 (lse log2(e), then D), sq_pad = S_q
+// rounded up to 128.  Launches the dq kernel, then the dkv kernel, on
+// `stream`; returns the first CUDA error, or -1 / -2 when a TMA descriptor
+// cannot be encoded.
+int flash_bwd_launch(int path, int dtype, int D, const void* q,
+                     const void* k, const void* v, const void* o,
+                     const void* dout, const float* lse, float* delta,
+                     void* dq, void* dk, void* dv, int B, int H, int Hkv,
+                     int Sq, int Sk, const long long* strides, float scale,
+                     int causal, void* stream) {
   const long long* st = strides;
+  const int sq_pad = (Sq + 127) / 128 * 128;
+  float* const lse2 = path == 2 ? delta : nullptr;
+  if (path == 2) delta += (long long)B * H * sq_pad;
   Params p{q,      k,      v,      o,      dout,   lse,    delta,  dq,
            dk,     dv,     B,      H,      Hkv,    Sq,     Sk,     st[0],
            st[1],  st[2],  st[3],  st[4],  st[5],  st[6],  st[7],  st[8],
            st[9],  st[10], st[11], st[12], st[13], st[14], scale,
-           scale * kLog2e, causal};
+           scale * kLog2e, causal, lse2,   sq_pad};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      switch (D) {
-        case 32: return launch_f32<32>(p, s);
-        case 64: return launch_f32<64>(p, s);
-        case 128: return launch_f32<128>(p, s);
-      }
-      break;
-    case 1: return launch_tc_d<__nv_bfloat16>(D, p, s);
-    case 2: return launch_tc_d<__half>(D, p, s);
+  if (dtype == 0 && path == 0) {
+    switch (D) {
+      case 32: return launch_f32<32>(p, s);
+      case 64: return launch_f32<64>(p, s);
+      case 128: return launch_f32<128>(p, s);
+    }
+  } else if (dtype == 1) {
+    return launch_16<__nv_bfloat16>(path, D, p, s);
+  } else if (dtype == 2) {
+    return launch_16<__half>(path, D, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

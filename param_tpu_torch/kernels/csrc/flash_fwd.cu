@@ -25,24 +25,57 @@
 // f16, or 67 TF/s in f32 outside the tensor cores); bytes (Q, K, V read
 // once and O written once, over 3.35 TB/s) only for short sequences.
 //
-// Design, bf16/f16: 4 warps per block, 64 q rows (16 per warp) and kv tiles
-// of 64 rows.  Q, K and V tiles are staged in shared memory with 16-byte
-// cp.async copies (zero-filled past S_q / S_k; rows padded by 8 elements so
-// that ldmatrix is free of bank conflicts); V_j is copied while S = Q K_j^T
-// is computed, and K_{j+1} while P V_j is.  Q stays in registers as mma.sync
-// A fragments for the whole walk.  S and O are mma.sync m16n8k16 with f32
-// accumulators; the S accumulators of a warp are already the A fragments of
-// P for the PV product once packed to bf16/f16.  Row max and sum are
-// reduced over the 4 lanes that share a row.  Exponentials are exp2 of
-// scores pre-scaled by scale * log2(e).  q tiles are issued last first, so
-// the longest causal rows start first.  O is written through shared memory
-// in 16-byte chunks.
-// f32: a plain CUDA-core kernel in full f32 (no TF32): 32 q rows and kv
-// tiles of 32 rows per block of 128 threads; 4 threads share a q row, each
-// computes 8 of its scores and owns D/4 of its output columns.
+// Three paths, chosen by the wrapper before the launch
+// (kernels/flash_fwd.py::flash_schedule):
 //
-// Not used: wgmma, TMA, warp specialisation, keeping P in registers across
-// a producer/consumer split (later work).
+// wgmma (bf16/f16, D 64 or 128, q/k/v views TMA can read: 16-byte aligned
+// bases, strides multiples of 16 bytes).  A block of 384 threads owns a
+// 128-row q tile of one (batch, head).  Warpgroup 0 is the producer: one
+// thread TMA-loads (4-D tensor maps over the (B, H, S, D) views, 64 x 64
+// boxes, 128-byte swizzle; hopper.cuh) the Q tile once, then each K and V
+// tile of 128 rows into a ring of 3 (D = 128) or 4 (D = 64) mbarrier
+// stages (a full barrier each for K and V, an empty barrier per stage).
+// Warpgroups 1 and 2 are consumers, 64 q rows each.  S = Q K^T is an SS
+// wgmma m64n128k16 (Q K-major, K as stored is K-major B); the online
+// softmax stays in f32 in the accumulator registers (row max and sum over
+// the 4 lanes of a row, ex2.approx of the scores times scale log2(e) less
+// the row max, one FMA and one MUFU op an element); P is rounded to
+// bf16/f16 in registers and is the A operand of the register-A wgmma
+// m64n{D}k16 for O += P V (V as stored is MN-major B).  Each step issues S
+// of tile j, rescales O while it runs, issues P V of tile j - 1, and
+// computes the softmax of tile j in f32 while that P V runs (P is rounded
+// into the A registers only after the product completed: ptxas serializes
+// the wgmmas when a register they read is written under them), so a
+// consumer keeps the tensor cores busy through most of its softmax.  The
+// two consumers take turns issuing their products (a pair of named
+// barriers), so one's softmax also runs under the other's products.  A
+// consumer releases a stage (one arrival per warp) once its P V group on
+// it completed.  Only tiles on the band's edges, or past S_k,
+// are masked, by selects against each row's column band under one
+// warp-uniform branch (a per-element branch cost more than the softmax).
+// TMA zero-fills rows past S_q / S_k.  O / l is staged through the
+// consumer's own rows of the Q tile (swizzled, conflict-free) and written
+// in 16-byte stores.  Registers: producer 24, consumers 240 (setmaxnreg).
+// Tensor maps are encoded on the host per call and passed as
+// __grid_constant__ parameters, so CUDA-graph replays keep them.
+//
+// mma_sync (bf16/f16 shapes the wgmma path does not take, e.g. D = 32): 4
+// warps per block, 64 q rows (16 per warp) and kv tiles of 64 rows.  Q, K
+// and V tiles are staged in shared memory with 16-byte cp.async copies
+// (zero-filled past S_q / S_k; rows padded by 8 elements so that ldmatrix
+// is free of bank conflicts); V_j is copied while S = Q K_j^T is computed,
+// and K_{j+1} while P V_j is.  Q stays in registers as mma.sync A fragments
+// for the whole walk.  S and O are mma.sync m16n8k16 with f32 accumulators;
+// the S accumulators of a warp are already the A fragments of P for the PV
+// product once packed to bf16/f16.  O is written through shared memory in
+// 16-byte chunks.
+//
+// simt (f32): a plain CUDA-core kernel in full f32 (no TF32): 32 q rows and
+// kv tiles of 32 rows per block of 128 threads; 4 threads share a q row,
+// each computes 8 of its scores and owns D/4 of its output columns.
+//
+// Every path issues q tiles last first, so the longest causal rows start
+// first (wgmma: across all heads, from a 1-D grid).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,6 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -116,18 +150,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack2;
 
 // ------------------------------------------------------ tensor-core path
 constexpr int BM = 64, BN = 64, THREADS = 128, PAD = 8;
@@ -316,6 +339,298 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc(const Params p) {
   }
 }
 
+// ------------------------------------------------------------ wgmma path
+namespace wg {
+
+constexpr int BM = 128, BN = 128, THREADS = 384;
+
+template <int D>
+struct Smem {
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int Q_BYTES = BM * D * 2;   // the Q tile
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int TILES = Q_BYTES + STAGES * 2 * KV_BYTES;
+  // q_full, then full_k, full_v and empty for each stage
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024 bytes
+  static constexpr int BYTES = TILES + 1024 + BARRIERS * 8;
+};
+
+// Columns [lo, hi] that row r keeps: the causal / window band, cut at S_k
+// (rows at or past S_q get one too; they are computed and not stored).
+__device__ __forceinline__ void row_band(const Params& p, int r, int& lo,
+                                         int& hi) {
+  hi = p.Sk - 1;
+  lo = 0;
+  if (p.causal) {
+    const int diag = p.Sk - p.Sq;
+    hi = min(hi, r + diag);
+    if (p.window > 0) lo = r + diag - p.window + 1;
+  }
+}
+
+// One consumer's state: its 64 rows' O accumulator, running max m (of the
+// scores times scale log2(e)) and sum l, and P of the last tile.
+template <int D>
+struct Rows {
+  float o[D / 2];
+  float m[2], l[2];
+  uint32_t pf[BN / 16][4];
+};
+
+// S = Q K^T for this consumer's rows (issued, not waited for)
+template <typename T, int D>
+__device__ __forceinline__ void issue_s(float (&sc)[BN / 2],
+                                        const unsigned char* qw,
+                                        const unsigned char* kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::WgmmaN<T, BN>::template ss<0>(
+        sc,
+        hopper::desc_k_major_sw128(qw + (kk / 4) * BM * 128 + (kk % 4) * 32),
+        hopper::desc_k_major_sw128(kt + (kk / 4) * BN * 128 + (kk % 4) * 32),
+        kk > 0);
+  hopper::wgmma_commit();
+}
+
+// O += P V with P of the last tile in registers (issued, not waited for)
+template <typename T, int D>
+__device__ __forceinline__ void issue_pv(Rows<D>& st, const unsigned char* vt) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    hopper::WgmmaN<T, D>::template rs<1>(
+        st.o, st.pf[kk], hopper::desc_mn_major_sw128(vt + kk * 2048, BN * 128),
+        1);
+  hopper::wgmma_commit();
+}
+
+// The online softmax of one S tile (columns c0 ..), in place: masks it
+// where it must, updates m and l, leaves P (f32) in sc and the factor that
+// rescales O in alpha.
+template <int D>
+__device__ __forceinline__ void softmax(const Params& p, float (&sc)[BN / 2],
+                                        Rows<D>& st, int c0, int q0w, int t4,
+                                        const int (&lo)[2], const int (&hi)[2],
+                                        float (&alpha)[2]) {
+  if (tile_needs_mask(p, q0w, c0, 64, BN)) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 8 * j + 2 * t4 + e % 2, r = e / 2;
+        sc[4 * j + e] = c >= lo[r] && c <= hi[r] ? sc[4 * j + e] : -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+  const float sl2 = p.scale_log2;
+  float m_use[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(st.m[r], quad_max(mx[r]) * sl2);
+    // a row with nothing unmasked yet keeps m = -inf: p = 0, alpha = 0
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = hopper::exp2_approx(st.m[r] - m_use[r]);
+    st.m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] =
+          hopper::exp2_approx(fmaf(sc[4 * j + e], sl2, -m_use[e / 2]));
+      sum[e / 2] += sc[4 * j + e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + quad_sum(sum[r]);
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(Rows<D>& st, const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    st.o[4 * j] *= alpha[0];
+    st.o[4 * j + 1] *= alpha[0];
+    st.o[4 * j + 2] *= alpha[1];
+    st.o[4 * j + 3] *= alpha[1];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Smem<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const qs =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* const ring = qs + L::Q_BYTES;  // stage s: K, then V
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(qs + L::TILES);
+  uint64_t* const full_k = q_full + 1;
+  uint64_t* const full_v = full_k + STAGES;
+  uint64_t* const empty = full_v + STAGES;
+
+  // a 1-D grid, q tiles last first across all (batch, head) pairs: with
+  // causal the blocks start longest first and the card ends on short ones
+  const int bh = blockIdx.x % (p.B * p.H), b = bh / p.H, h = bh % p.H;
+  const int q0 = ((p.Sq + BM - 1) / BM - 1 - blockIdx.x / (p.B * p.H)) * BM;
+  const int hk = h / (p.H / p.Hkv);
+  int j0, j1;
+  kv_range(p, q0, BM, BN, j0, j1);
+  const int n = max(0, j1 - j0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tq);
+      hopper::tma_prefetch(&tk);
+      hopper::tma_prefetch(&tv);
+      hopper::mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+      hopper::tma_load_tile<D, BM>(qs, &tq, q_full, q0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES, r0 = (j0 + i) * BN;
+        // wait until both consumers released this stage's previous use
+        if (i >= STAGES) hopper::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        unsigned char* const kt = ring + s * 2 * L::KV_BYTES;
+        hopper::mbar_arrive_expect_tx(&full_k[s], L::KV_BYTES);
+        hopper::tma_load_tile<D, BN>(kt, &tk, &full_k[s], r0, hk, b);
+        hopper::mbar_arrive_expect_tx(&full_v[s], L::KV_BYTES);
+        hopper::tma_load_tile<D, BN>(kt + L::KV_BYTES, &tv, &full_v[s], r0,
+                                     hk, b);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<240>();
+  const int cw = threadIdx.x / 128 - 1;  // rows q0 + 64 cw .. + 63
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const int q0w = q0 + 64 * cw;
+  const int row0 = q0w + 16 * warp + lane / 4;  // rows row0, row0 + 8
+  const unsigned char* const qw = qs + cw * 64 * 128;
+  int lo[2], hi[2];
+  row_band(p, row0, lo[0], hi[0]);
+  row_band(p, row0 + 8, lo[1], hi[1]);
+  auto k_tile = [&](int i) { return ring + (i % STAGES) * 2 * L::KV_BYTES; };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[i % STAGES]);
+  };
+
+  Rows<D> st;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+  st.m[0] = st.m[1] = -INFINITY;
+  st.l[0] = st.l[1] = 0.f;
+  float sc[BN / 2], alpha[2];
+
+  hopper::mbar_wait(q_full, 0);
+  if (n > 0) {
+    // tile 0: S and its softmax alone
+    hopper::mbar_wait(&full_k[0], 0);
+    hopper::wgmma_fence();
+    issue_s<T, D>(sc, qw, k_tile(0));
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    softmax<D>(p, sc, st, j0 * BN, q0w, t4, lo, hi, alpha);
+    hopper::acc_to_a<T, BN>(sc, st.pf);
+  }
+  // Step i issues S of tile i, rescales O while it runs, issues P V of tile
+  // i - 1, and runs the softmax of tile i while that P V is on the tensor
+  // cores.  The consumers take turns issuing (named barriers 3 + cw: each
+  // waits on its own for the other's arrival, consumer 0 first), so one's
+  // softmax runs under the other's products.
+  if (cw == 1 && n > 1) hopper::pair_arrive(3);
+  for (int i = 1; i < n; ++i) {
+    hopper::mbar_wait(&full_k[i % STAGES], (i / STAGES) & 1);
+    hopper::pair_sync(3 + cw);
+    hopper::wgmma_fence();  // P was written
+    issue_s<T, D>(sc, qw, k_tile(i));
+    rescale<D>(st, alpha);
+    hopper::mbar_wait(&full_v[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
+    hopper::wgmma_fence();  // O was rescaled
+    issue_pv<T, D>(st, k_tile(i - 1) + L::KV_BYTES);
+    if (cw == 0 || i < n - 1) hopper::pair_arrive(4 - cw);
+    hopper::wgmma_wait<1>();  // S done; P V may still run
+    hopper::fence_regs(sc);
+    softmax<D>(p, sc, st, (j0 + i) * BN, q0w, t4, lo, hi, alpha);
+    hopper::wgmma_wait<0>();  // P V of tile i - 1 done: release its stage
+    hopper::fence_regs(st.o);
+    release(i - 1);
+    hopper::acc_to_a<T, BN>(sc, st.pf);
+  }
+  if (n > 0) {
+    // P V of the last tile
+    rescale<D>(st, alpha);
+    hopper::mbar_wait(&full_v[(n - 1) % STAGES], ((n - 1) / STAGES) & 1);
+    hopper::wgmma_fence();
+    issue_pv<T, D>(st, k_tile(n - 1) + L::KV_BYTES);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st.o);
+    release(n - 1);
+  }
+
+  // epilogue: O / l through this consumer's own rows of the Q tile
+  const float inv0 = st.l[0] > 0.f ? 1.f / st.l[0] : 0.f;
+  const float inv1 = st.l[1] > 0.f ? 1.f / st.l[1] : 0.f;
+  hopper::store_tile<T, D, BM>(
+      st.o, inv0, inv1, qs, 64 * cw,
+      static_cast<T*>(p.o) + ((long long)bh * p.Sq + q0w) * D, p.Sq - q0w,
+      1 + cw);
+  if (p.lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row < p.Sq)
+        p.lse[(long long)bh * p.Sq + row] =
+            (st.m[r] + log2f(st.l[r])) * kLn2;
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const Params& p, cudaStream_t s) {
+  const CUtensorMapDataType type = hopper::tma_type<T>();
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::encode_bhsd(&tq, type, p.q, p.B, p.H, p.Sq, D, p.q_sb,
+                               p.q_sh, p.q_ss);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tk, type, p.k, p.B, p.Hkv, p.Sk, D, p.k_sb,
+                             p.k_sh, p.k_ss);
+  if (rc == 0)
+    rc = hopper::encode_bhsd(&tv, type, p.v, p.B, p.Hkv, p.Sk, D, p.v_sb,
+                             p.v_sh, p.v_ss);
+  if (rc != 0) return rc;
+  const int smem = Smem<D>::BYTES;
+  const cudaError_t e = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_fwd_wgmma<T, D>), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned grid = (unsigned)((p.Sq + BM - 1) / BM) * p.B * p.H;
+  flash_fwd_wgmma<T, D><<<grid, THREADS, smem, s>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 // ---------------------------------------------------------------- f32 path
 constexpr int FBM = 32, FBN = 32, FTHREADS = 128;
 
@@ -410,8 +725,8 @@ template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
            cudaStream_t s) {
   // above 48 KB a block's dynamic shared memory must be allowed explicitly
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      hopper::allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, threads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -432,12 +747,20 @@ int launch_f32(const Params& p, cudaStream_t s) {
   return launch(flash_fwd_f32<D>, grid, FTHREADS, smem, p, s);
 }
 
+// path 1 (mma_sync) at D 32, 64, 128; path 2 (wgmma) at D 64, 128
 template <typename T>
-int launch_tc_d(int D, const Params& p, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_tc<T, 32>(p, s);
-    case 64: return launch_tc<T, 64>(p, s);
-    case 128: return launch_tc<T, 128>(p, s);
+int launch_16(int path, int D, const Params& p, cudaStream_t s) {
+  if (path == 2) {
+    switch (D) {
+      case 64: return wg::launch<T, 64>(p, s);
+      case 128: return wg::launch<T, 128>(p, s);
+    }
+  } else if (path == 1) {
+    switch (D) {
+      case 32: return launch_tc<T, 32>(p, s);
+      case 64: return launch_tc<T, 64>(p, s);
+      case 128: return launch_tc<T, 128>(p, s);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -446,32 +769,35 @@ int launch_tc_d(int D, const Params& p, cudaStream_t s) {
 
 extern "C" {
 
-// dtype 0 f32 (CUDA cores), 1 bf16, 2 f16 (tensor cores); D 32, 64 or 128.
-// q (B, H, S_q, D), k and v (B, H_kv, S_k, D) with the given element
-// strides (last dim contiguous; for bf16/f16 every stride a multiple of 8
-// and the bases 16-byte aligned); o (B, H, S_q, D) contiguous in q's dtype;
-// lse (B, H, S_q) f32 or null.  window 0 means none.
-int flash_fwd_launch(int dtype, int D, const void* q, const void* k,
-                     const void* v, void* o, float* lse, int B, int H,
-                     int Hkv, int Sq, int Sk, long long q_sb, long long q_sh,
-                     long long q_ss, long long k_sb, long long k_sh,
-                     long long k_ss, long long v_sb, long long v_sh,
-                     long long v_ss, float scale, int causal, int window,
-                     void* stream) {
+// Path codes shared with kernels/flash_fwd.py: 0 simt (f32, CUDA cores), 1
+// mma_sync and 2 wgmma (bf16/f16, tensor cores); dtype 0 f32, 1 bf16, 2
+// f16; D 32, 64 or 128 (wgmma: 64, 128).  q (B, H, S_q, D), k and v (B,
+// H_kv, S_k, D) with the given element strides (last dim contiguous; for
+// bf16/f16 every stride a multiple of 8 and the bases 16-byte aligned);
+// o (B, H, S_q, D) contiguous in q's dtype; lse (B, H, S_q) f32 or null.
+// window 0 means none.  Returns a cudaError_t, or -1 / -2 when a TMA
+// descriptor cannot be encoded.
+int flash_fwd_launch(int path, int dtype, int D, const void* q,
+                     const void* k, const void* v, void* o, float* lse,
+                     int B, int H, int Hkv, int Sq, int Sk, long long q_sb,
+                     long long q_sh, long long q_ss, long long k_sb,
+                     long long k_sh, long long k_ss, long long v_sb,
+                     long long v_sh, long long v_ss, float scale, int causal,
+                     int window, void* stream) {
   Params p{q,    k,    v,    o,    lse,  B,    H,    Hkv,
            Sq,   Sk,   q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
            v_sb, v_sh, v_ss, scale * kLog2e, causal, window};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      switch (D) {
-        case 32: return launch_f32<32>(p, s);
-        case 64: return launch_f32<64>(p, s);
-        case 128: return launch_f32<128>(p, s);
-      }
-      break;
-    case 1: return launch_tc_d<__nv_bfloat16>(D, p, s);
-    case 2: return launch_tc_d<__half>(D, p, s);
+  if (dtype == 0 && path == 0) {
+    switch (D) {
+      case 32: return launch_f32<32>(p, s);
+      case 64: return launch_f32<64>(p, s);
+      case 128: return launch_f32<128>(p, s);
+    }
+  } else if (dtype == 1) {
+    return launch_16<__nv_bfloat16>(path, D, p, s);
+  } else if (dtype == 2) {
+    return launch_16<__half>(path, D, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -386,35 +386,10 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A row-major (rows, cols) matrix of 16-bit values as boxes of (box_rows,
 // 64) elements with the 128-byte swizzle, zeros outside.
-bool encode(CUtensorMap* map, EncodeTiled fn, CUtensorMapDataType type,
+bool encode(CUtensorMap* map, hopper::EncodeTiled fn,
+            CUtensorMapDataType type,
             const void* base, int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
@@ -426,32 +401,19 @@ bool encode(CUtensorMap* map, EncodeTiled fn, CUtensorMapDataType type,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// error codes beside cudaError_t's: the driver has no
-// cuTensorMapEncodeTiled, or it refused the shape
-constexpr int kNoEncoder = -1, kEncodeFailed = -2;
-
 template <typename T, typename OutT>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
            int splits, int k_split, int rows_fastest, cudaStream_t s) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kNoEncoder;
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
+  if (fn == nullptr) return hopper::kNoEncoder;
+  const CUtensorMapDataType type = hopper::tma_type<T>();
   CUtensorMap ma, mb;
   if (!encode(&ma, fn, type, a, M, K, BM) || !encode(&mb, fn, type, b, K, N, BK))
-    return kEncodeFailed;
+    return hopper::kEncodeFailed;
   // above 48 KB of dynamic shared memory: once per instantiation and card
-  static uint64_t smem_set = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64 || !(smem_set >> dev & 1)) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        gemm_wgmma_kernel<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    if (dev < 64) smem_set |= 1ull << dev;
-  }
+  const cudaError_t rc = hopper::allow_smem(
+      reinterpret_cast<const void*>(gemm_wgmma_kernel<T, OutT>), SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   const unsigned tm = (M + BM - 1) / BM, tn = (N + BN - 1) / BN;
   const dim3 grid = rows_fastest ? dim3(tm, tn, splits) : dim3(tn, tm, splits);
   gemm_wgmma_kernel<T, OutT><<<grid, THREADS, SMEM, s>>>(

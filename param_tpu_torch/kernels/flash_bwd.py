@@ -26,10 +26,10 @@ from typing import Optional
 
 import torch
 
-from param_tpu_torch.kernels import bindings, launch_counts
+from param_tpu_torch.kernels import bindings
 from param_tpu_torch.kernels.flash_fwd import (
-    HEAD_DIMS, _MAX_ROWS, _check_args as _check_fwd_args, _strides,
-    attention_keep_mask, kernel_takes,
+    HEAD_DIMS, PATHS, _MAX_ROWS, _check_args as _check_fwd_args, _path,
+    _strides, attention_keep_mask, count_launch, kernel_takes,
 )
 
 
@@ -130,10 +130,12 @@ def kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                    causal: bool = False, scale: Optional[float] = None):
-    """Launch K7 on ``q``'s CUDA device: the dq kernel (which also writes
-    D = rowsum(do * o) to a scratch buffer), then the dk/dv kernel.  q, k,
-    v, o and do may be strided views whose last dimension is contiguous;
-    dq, dk and dv come out contiguous in the inputs' dtype."""
+    """Launch K7 on ``q``'s CUDA device, on the path
+    :func:`~param_tpu_torch.kernels.flash_fwd.flash_schedule` picks: the dq
+    kernel (which also writes D = rowsum(do * o) to a scratch buffer), then
+    the dk/dv kernel.  q, k, v, o and do may be strided views whose last
+    dimension is contiguous; dq, dk and dv come out contiguous in the
+    inputs' dtype."""
     _check_args(q, k, v, o, lse, do, causal)
     (b, h, sq, d), (_, hkv, sk, _) = q.shape, k.shape
     ins = (q, k, v, o, do)
@@ -147,10 +149,7 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("K7 takes a contiguous f32 lse")
     if any(t.device != q.device for t in ins + (lse,)):
         raise ValueError("K7's inputs must share a device")
-    if not all(kernel_takes(t) for t in ins):
-        raise ValueError("K7 takes tensors whose last dimension is "
-                         "contiguous (bf16/f16: 16-byte aligned rows, "
-                         "strides a multiple of 8 elements)")
+    path = _path(ins)
     if b * max(h, hkv) > _MAX_ROWS or max(sq, sk) >= 2**31:
         raise ValueError("attention dimensions out of the kernel's range")
     if scale is None:
@@ -162,16 +161,19 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for t in (dq, dk, dv):
             t.zero_()
     else:
-        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        # wgmma: lse log2(e) and D, each (B H, S_q rounded up to 128)
+        shape = ((2, b * h, -(-sq // 128) * 128) if path == "wgmma"
+                 else (b, h, sq))
+        delta = torch.empty(shape, dtype=torch.float32, device=q.device)
         strides = (ctypes.c_longlong * 15)(*[s for t in ins
                                               for s in _strides(t)])
         rc = bindings.entry("flash_bwd", "flash_bwd_launch")(
-            bindings.DTYPE_CODES[q.dtype], d, *(t.data_ptr() for t in ins),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, hkv, sq, sk, strides, float(scale),
-            int(causal), bindings.stream_of(q))
-        bindings.check(rc, "flash_bwd")
-        launch_counts["flash_bwd"] += 1
+            PATHS[path], bindings.DTYPE_CODES[q.dtype], d,
+            *(t.data_ptr() for t in ins), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk,
+            strides, float(scale), int(causal), bindings.stream_of(q))
+        bindings.check(rc, f"flash_bwd ({path})")
+        count_launch("flash_bwd", path)
     return dq, dk, dv
 
 

@@ -9,6 +9,14 @@ diagonal bottom-right (row r keeps columns c <= r + S_k - S_q; needs
 S_q <= S_k); ``window`` W (causal only) also drops c <= r + S_k - S_q - W.
 Counterpart of ``param_tpu/ops/attention.py::_flash_kernel`` and
 ``::_flash_kernel_causal`` (``_flash_forward``).
+
+K6 and K7 (:mod:`.flash_bwd`) have three hand-written paths, picked before
+the launch by :func:`flash_schedule`: ``wgmma`` (TMA loads into mbarrier
+rings, a producer warp and two consumer warpgroups on ``wgmma``) for bf16
+/ f16 at D 64 and 128 when every view is one a TMA tensor map can describe
+(:func:`tma_takes`); ``mma_sync`` for the other 16-bit shapes (D = 32);
+``simt`` for f32.  Launch counters: ``flash_fwd`` / ``flash_bwd`` per call
+and ``flash_fwd_<path>`` / ``flash_bwd_<path>`` for the path taken.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ import torch
 from param_tpu_torch.kernels import bindings, launch_counts
 
 HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+# path -> its code in csrc/flash_fwd.cu and csrc/flash_bwd.cu
+PATHS = {"simt": 0, "mma_sync": 1, "wgmma": 2}
 _MAX_ROWS = 65535  # B * H: the grid's y dimension
 
 
@@ -100,13 +111,51 @@ def _strides(t: torch.Tensor):
 
 
 def kernel_takes(t: torch.Tensor) -> bool:
-    """Whether K6 / K7 read ``t`` through its strides: last dimension
-    contiguous and, for bf16 / f16 (16-byte copies of rows), the base
-    16-byte aligned and every stride a multiple of 8 elements."""
-    if t.stride(-1) != 1:
+    """Whether K6 / K7 read the (B, H, S, D) ``t`` through its strides:
+    last dimension contiguous and, for bf16 / f16 (16-byte copies of rows),
+    the base 16-byte aligned and every stride a multiple of 8 elements."""
+    sb, sh, ss, sd = t.stride()
+    if sd != 1:
         return False
     return t.dtype == torch.float32 or (
-        t.data_ptr() % 16 == 0 and not any(s % 8 for s in _strides(t)))
+        t.data_ptr() % 16 == 0 and not (sb % 8 or sh % 8 or ss % 8))
+
+
+def tma_takes(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map (csrc/hopper.cuh ``encode_bhsd``) describes
+    the 16-bit (B, H, S, D) view ``t``: what :func:`kernel_takes` asks, and
+    no zero stride (an expanded dimension)."""
+    return (t.dtype != torch.float32 and kernel_takes(t)
+            and 0 not in t.stride()[:3])
+
+
+def _path(views) -> str:
+    """The path of K6 / K7 for these views; raises for views no kernel
+    reads (on the main path only :func:`tma_takes` runs)."""
+    q = views[0]
+    aligned = all(tma_takes(t) for t in views)
+    if not aligned and not all(kernel_takes(t) for t in views):
+        raise ValueError("K6 / K7 take tensors whose last dimension is "
+                         "contiguous (bf16/f16: 16-byte aligned rows, "
+                         "strides a multiple of 8 elements)")
+    return flash_schedule(q.dtype, q.shape[-1], aligned)
+
+
+def flash_schedule(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The path of K6 / K7 for inputs of ``dtype`` and head dim ``d``:
+    ``simt`` for f32; ``wgmma`` for 16-bit inputs at D 64 or 128 when
+    ``aligned`` (every view :func:`tma_takes`); else ``mma_sync``."""
+    if dtype == torch.float32:
+        return "simt"
+    if aligned and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma_sync"
+
+
+def count_launch(kernel: str, path: str) -> None:
+    """One launch of ``kernel`` (``flash_fwd`` / ``flash_bwd``) on ``path``."""
+    launch_counts[kernel] += 1
+    launch_counts[f"{kernel}_{path}"] += 1
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,10 +174,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must share a device")
-    if not all(kernel_takes(t) for t in (q, k, v)):
-        raise ValueError("K6 takes tensors whose last dimension is "
-                         "contiguous (bf16/f16: 16-byte aligned rows, "
-                         "strides a multiple of 8 elements)")
+    path = _path((q, k, v))
     if b * h > _MAX_ROWS or max(sq, sk) >= 2**31:
         raise ValueError("attention dimensions out of the kernel's range")
     if scale is None:
@@ -138,13 +184,13 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if return_lse else None)
     if out.numel():
         rc = bindings.entry("flash_fwd", "flash_fwd_launch")(
-            bindings.DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(),
+            PATHS[path], bindings.DTYPE_CODES[q.dtype], d, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None, b, h, hkv, sq, sk,
             *_strides(q), *_strides(k), *_strides(v), float(scale),
             int(causal), int(window or 0), bindings.stream_of(q))
-        bindings.check(rc, "flash_fwd")
-        launch_counts["flash_fwd"] += 1
+        bindings.check(rc, f"flash_fwd ({path})")
+        count_launch("flash_fwd", path)
     return (out, lse) if return_lse else out
 
 

@@ -48,7 +48,9 @@ from param_tpu_torch.kernels.flash_bwd import (
     flash_bwd_cuda, flash_bwd_plain, flash_bwd_tolerance, kernel_layout,
 )
 from param_tpu_torch.kernels.flash_fwd import (
-    attention_keep_mask, flash_fwd_cuda, flash_fwd_plain, flash_fwd_tolerance,
+    PATHS as FLASH_PATHS, attention_keep_mask, count_launch, flash_fwd_cuda,
+    flash_fwd_plain, flash_fwd_tolerance, flash_schedule, kernel_takes,
+    tma_takes,
 )
 from param_tpu_torch.kernels.gemm import (
     gemm_cuda, gemm_plain, gemm_schedule, gemm_wres_cuda, gemm_wres_plain,
@@ -65,7 +67,9 @@ from param_tpu_torch.kernels.ring import (
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
 )
-from param_tpu_torch.ops.datasets import GEMM_A, GEMM_B, GEMM_C
+from param_tpu_torch.ops.datasets import (
+    ATTN_GPT2, ATTN_LLAMA2, GEMM_A, GEMM_B, GEMM_C,
+)
 
 
 @pytest.fixture
@@ -485,6 +489,87 @@ def test_flash_fwd_tolerance_flags_a_dropped_kv_entry(dtype):
     assert (diff > tol[:, :, 1:][:, :, late]).any()
 
 
+def _fused_heads(y, h, hkv, d):
+    """q, k, v as the strided head views of one (b, s, (h + 2 hkv) d)
+    projection ``y``, as the transformer block hands them to K6 / K7."""
+    b, s = y.shape[:2]
+    q, k, v = y.split([h * d, hkv * d, hkv * d], dim=-1)
+    return (q.reshape(b, s, h, d).transpose(1, 2),
+            k.reshape(b, s, hkv, d).transpose(1, 2),
+            v.reshape(b, s, hkv, d).transpose(1, 2))
+
+
+def _dense_heads(b, h, hkv, s, d, dtype):
+    return (torch.empty((b, h, s, d), dtype=dtype),
+            torch.empty((b, hkv, s, d), dtype=dtype),
+            torch.empty((b, hkv, s, d), dtype=dtype))
+
+
+# (name, q / k / v views, the path K6 and K7 take for them)
+_SCHEDULE_CASES = (
+    [(f"llama2 {shape} {str(dt)[6:]}", lambda s=shape, dt=dt: _dense_heads(
+        s[0], s[1], s[1], s[2], s[3], dt), "wgmma")
+     for shape in ATTN_LLAMA2 for dt in (torch.bfloat16, torch.float16)]
+    + [(f"gpt2 {shape}", lambda s=shape: _dense_heads(
+        s[0], s[1], s[1], s[2], s[3], torch.bfloat16), "wgmma")
+       for shape in ATTN_GPT2]
+    + [("gqa 32 / 8 heads", lambda: _dense_heads(1, 32, 8, 2048, 128,
+                                                 torch.bfloat16), "wgmma"),
+       ("train step's fused projection, D 128",
+        lambda: _fused_heads(torch.empty((1, 2048, 3 * 4096),
+                                         dtype=torch.bfloat16), 32, 32, 128),
+        "wgmma"),
+       ("fused projection, D 64, gqa",
+        lambda: _fused_heads(torch.empty((2, 130, 12 * 64),
+                                         dtype=torch.float16), 8, 2, 64),
+        "wgmma"),
+       ("head dim 32", lambda: _dense_heads(4, 16, 16, 1024, 32,
+                                            torch.bfloat16), "mma_sync"),
+       ("f32", lambda: _dense_heads(1, 4, 4, 512, 64, torch.float32),
+        "simt"),
+       ("f32 head dim 128", lambda: _dense_heads(1, 4, 4, 512, 128,
+                                                 torch.float32), "simt"),
+       ("expanded batch (zero stride)",
+        lambda: tuple(t.expand(2, -1, -1, -1) for t in _dense_heads(
+            1, 4, 4, 64, 64, torch.bfloat16)), "mma_sync")])
+
+
+@pytest.mark.parametrize("name,views,path", _SCHEDULE_CASES,
+                         ids=[c[0] for c in _SCHEDULE_CASES])
+def test_flash_schedule_picks_the_path(name, views, path):
+    """What K6 and K7 would launch for these q / k / v views (the window
+    does not change the path, so the llama2 rows stand for it too)."""
+    q, k, v = views()
+    assert all(kernel_takes(t) for t in (q, k, v)), name
+    aligned = all(tma_takes(t) for t in (q, k, v))
+    assert flash_schedule(q.dtype, q.shape[-1], aligned) == path
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_schedule_keeps_wgmma_off_views_tma_cannot_read(d):
+    """A row stride that is no multiple of 8 elements (16 bytes): no TMA
+    map describes it, so the schedule does not send it to wgmma; no kernel
+    reads it (the wrappers refuse it, and flash_mha's backward copies it
+    first)."""
+    x = torch.zeros((1, 64, 4 * d + 4), dtype=torch.bfloat16)
+    q = x[..., :4 * d].reshape(1, 64, 4, d).transpose(1, 2)
+    assert q.stride(2) % 8 and not tma_takes(q) and not kernel_takes(q)
+    assert flash_schedule(q.dtype, d, tma_takes(q)) == "mma_sync"
+    assert flash_schedule(q.dtype, d, True) == "wgmma"
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("path", list(FLASH_PATHS))
+def test_flash_path_counters_stay_in_step_with_the_totals(kernel, path):
+    kernels.reset_launch_counts()
+    for p in list(FLASH_PATHS) + [path]:
+        count_launch(kernel, p)
+    per_path = {p: kernels.launch_counts[f"{kernel}_{p}"] for p in FLASH_PATHS}
+    assert kernels.launch_counts[kernel] == sum(per_path.values()) == 4
+    assert per_path[path] == 2
+    kernels.reset_launch_counts()
+
+
 # (B, H, H_kv, S_q, S_k, D, causal, window): the chip_smoke phase-11 cases
 # scaled down, plus the head dim 32 and ragged lengths
 _K6_CASES = [
@@ -505,17 +590,27 @@ _K6_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", _K6_CASES)
+def _flash_path(dtype, d):
+    """The path K6 / K7 must take for dense inputs."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if d in (64, 128) else "mma_sync"
+
+
 def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
                                         d, causal, window):
     q, k, v = (t.to(cuda_device, dtype) for t in _attn(b, h, hkv, sq, sk, d,
                                                         seed=sq + d))
+    path = _flash_path(dtype, d)
     before = kernels.launch_counts["flash_fwd"]
+    on_path = kernels.launch_counts[f"flash_fwd_{path}"]
     got, lse = flash_fwd_cuda(q, k, v, causal, None, window, return_lse=True)
     want, want_lse = flash_fwd_plain(q, k, v, causal, None, window,
                                      return_lse=True)
     assert flash_fwd_cuda(q, k, v, causal, None, window).shape == got.shape
     torch.cuda.synchronize()
     assert kernels.launch_counts["flash_fwd"] == before + 2
+    assert kernels.launch_counts[f"flash_fwd_{path}"] == on_path + 2
     assert got.dtype == dtype and got.shape == (b, h, sq, d)
     tol = flash_fwd_tolerance(q, k, v, want, causal, None, window)
     diff = (got.float() - want.float()).abs()
@@ -524,22 +619,36 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
+def _fused_random(b, s, h, hkv, d, dtype, device, seed):
+    """q, k, v: strided head views of one random (b, s, (h + 2 hkv) d)
+    projection; do: the transposed-head view of a random (b, s, h d)
+    gradient (the layouts the transformer block passes to K6 / K7)."""
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.standard_normal((b, s, (h + 2 * hkv) * d),
+                                             dtype=np.float32))
+    q, k, v = _fused_heads(y.to(device, dtype), h, hkv, d)
+    g = torch.from_numpy(rng.standard_normal((b, s, h * d), dtype=np.float32))
+    do = g.to(device, dtype).reshape(b, s, h, d).transpose(1, 2)
+    return q, k, v, do
+
+
 @pytest.mark.cuda
-def test_flash_fwd_kernel_takes_strided_heads(cuda_device):
-    """Heads split out of a fused (B, S, 3 H D) projection, as the
-    transformer block passes them, with no copy."""
-    b, s, h, d = 2, 130, 4, 64
-    rng = np.random.default_rng(5)
-    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d),
-                                               dtype=np.float32))
-    qkv = qkv.to(cuda_device, torch.bfloat16)
-    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
-               for t in qkv.split(h * d, dim=-1))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,hkv", [(64, 4), (128, 4), (128, 2), (32, 4)])
+def test_flash_fwd_kernel_takes_strided_heads(cuda_device, dtype, d, hkv):
+    """Heads split out of a fused (B, S, (H + 2 H_kv) D) projection, as the
+    transformer block passes them, with no copy, on the path the schedule
+    gives dense inputs (wgmma at D 64 and 128, mma_sync at 32)."""
+    b, s, h = 2, 130, 4
+    q, k, v, _ = _fused_random(b, s, h, hkv, d, dtype, cuda_device, seed=5)
     assert not q.is_contiguous()
+    path = _flash_path(dtype, d)
+    on_path = kernels.launch_counts[f"flash_fwd_{path}"]
     got = flash_fwd_cuda(q, k, v, causal=True)
     want = flash_fwd_plain(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True)
     torch.cuda.synchronize()
+    assert kernels.launch_counts[f"flash_fwd_{path}"] == on_path + 1
     diff = (got.float() - want.float()).abs()
     assert (diff <= flash_fwd_tolerance(q, k, v, want, True)).all()
     assert diff.max().item() <= 2e-2
@@ -718,12 +827,15 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
                                         d, causal):
     ins = _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, seed=sq + d,
                       device=cuda_device)
+    path = _flash_path(dtype, d)
     before = kernels.launch_counts["flash_bwd"]
+    on_path = kernels.launch_counts[f"flash_bwd_{path}"]
     got = flash_bwd_cuda(*ins, causal)
     want = flash_bwd_plain(*ins, causal)
     tols = flash_bwd_tolerance(*ins, want, causal)
     torch.cuda.synchronize()
     assert kernels.launch_counts["flash_bwd"] == before + 1
+    assert kernels.launch_counts[f"flash_bwd_{path}"] == on_path + 1
     for g, w, tol in zip(got, want, tols):
         assert g.dtype == dtype and g.shape == w.shape and g.is_contiguous()
         diff = (g.float() - w.float()).abs()
@@ -731,28 +843,44 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-def test_flash_bwd_kernel_takes_strided_heads(cuda_device, d):
-    """q, k, v split out of a fused (B, S, 3 H D) projection and dO the
-    transposed-head gradient of (B, S, H D), as the block passes them."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,hkv", [(64, 4), (128, 4), (128, 2), (32, 4)])
+def test_flash_bwd_kernel_takes_strided_heads(cuda_device, dtype, d, hkv):
+    """q, k, v split out of a fused (B, S, (H + 2 H_kv) D) projection and dO
+    the transposed-head gradient of (B, S, H D), as the block passes them,
+    on the path the schedule gives dense inputs."""
     b, s, h = 2, 130, 4
-    rng = np.random.default_rng(6)
-    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d),
-                                               dtype=np.float32))
-    qkv = qkv.to(cuda_device, torch.bfloat16)
-    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
-               for t in qkv.split(h * d, dim=-1))
-    g = torch.from_numpy(rng.standard_normal((b, s, h * d), dtype=np.float32))
-    do = g.to(cuda_device, torch.bfloat16).reshape(b, s, h, d).transpose(1, 2)
+    q, k, v, do = _fused_random(b, s, h, hkv, d, dtype, cuda_device, seed=6)
     assert not q.is_contiguous() and not do.is_contiguous()
+    path = _flash_path(dtype, d)
     o, lse = flash_fwd_cuda(q, k, v, True, return_lse=True)
+    on_path = kernels.launch_counts[f"flash_bwd_{path}"]
     got = flash_bwd_cuda(q, k, v, o, lse, do, True)
     dense = [t.contiguous() for t in (q, k, v, o)] + [lse, do.contiguous()]
     want = flash_bwd_plain(*dense, True)
     tols = flash_bwd_tolerance(*dense, want, True)
     torch.cuda.synchronize()
+    assert kernels.launch_counts[f"flash_bwd_{path}"] == on_path + 1
     for x, w, tol in zip(got, want, tols):
         assert ((x.float() - w.float()).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 4, 4, 256, 256, 128, True), (1, 4, 2, 200, 300, 64, True),
+    (2, 3, 3, 192, 192, 64, False)])
+def test_flash_bwd_is_the_same_from_run_to_run(cuda_device, dtype, b, h, hkv,
+                                               sq, sk, d, causal):
+    """No atomics: two K7 runs on the same inputs give bitwise-equal dq,
+    dk and dv."""
+    ins = _bwd_inputs(b, h, hkv, sq, sk, d, causal, dtype, seed=7,
+                      device=cuda_device)
+    first = flash_bwd_cuda(*ins, causal)
+    second = flash_bwd_cuda(*ins, causal)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
