@@ -89,7 +89,7 @@ Phases (any failure exits non-zero):
      forward residuals where it computes the same function, and for GQA
      and f32 SDPA's backward through autograd (enable_gqa for GQA), timed
      by its kernel time in torch.profiler, with the kernels that name the
-     backend PyTorch picked.
+     backend PyTorch picked (K7 is timed that way too on those rows).
  15. Train-step parity: a small block (emb 512, 8 heads; f32, f32 GQA and
      bf16) trained two steps by make_train_step on the card against the
      same on the CPU, losses and every parameter; K6 and K7 launch once
@@ -419,12 +419,11 @@ def main(out_path=None) -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     build_s = build.build_all()
-    reg_counts = {n: [int(r) for r in re.findall(r"Used (\d+) registers",
-                                                 build.build_log(n))]
-                  for n in build.SOURCES}
-    spills = {n: [int(b) for b in re.findall(r"(\d+) bytes spill stores",
-                                             build.build_log(n))]
-              for n in build.SOURCES}
+    resources = {n: build.kernel_resources(n) for n in build.SOURCES}
+    reg_counts = {n: [r.get("registers") for r in k.values()]
+                  for n, k in resources.items()}
+    spills = {n: [r.get("spill_stores") for r in k.values()]
+              for n, k in resources.items()}
     say(f"phase 1 device: {kind} | nvidia-smi: {smi} | "
         f"capability {torch.cuda.get_device_capability(0)} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
@@ -432,7 +431,7 @@ def main(out_path=None) -> int:
         f"spill-store bytes per kernel {spills}")
     flash_res = {}
     for lib in ("flash_fwd", "flash_bwd"):
-        for mangled, res in build.kernel_resources(lib).items():
+        for mangled, res in resources[lib].items():
             m = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|tc|f32)",
                           mangled)
             dims = re.search(r"Li(\d+)E", mangled)
@@ -1309,8 +1308,12 @@ def main(out_path=None) -> int:
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = F.scaled_dot_product_attention(
             *leaves, is_causal=causal, enable_gqa=k.shape[1] != q.shape[1])
-        run = lambda: torch.autograd.grad(out, leaves, do,  # noqa: E731
-                                          retain_graph=True)
+        return profiled_kernels(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True))
+
+    def profiled_kernels(run):
+        """Kernel ms per call of ``run`` from torch.profiler (10 calls after
+        3 warm-ups), and its largest kernels."""
         for _ in range(3):
             run()
         torch.cuda.synchronize()
@@ -1389,6 +1392,10 @@ def main(out_path=None) -> int:
         if autograd_lib is not None:
             rec["library_ms"] = autograd_lib["ms"]
             rec["library_kernels"] = autograd_lib["kernels"]
+            # the kernel timed the library's way too, for a like-for-like
+            # ratio
+            rec["profiled_ms"] = profiled_kernels(
+                lambda: flash_bwd_cuda(*ins, causal))["ms"]
         flops = 10 * b * h * d * kept_pairs(sq, sk, causal, None)
         nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + o.numel()
                    + do.numel()) * q.element_size() + lse.numel() * 4)
@@ -1410,7 +1417,8 @@ def main(out_path=None) -> int:
             text += (f"; library: SDPA's backward through autograd "
                      f"(enable_gqa={hkv != h}) {autograd_lib['ms']:.4f} ms of "
                      f"kernel time a call (torch.profiler), largest kernels "
-                     f"{autograd_lib['kernels']}")
+                     f"{autograd_lib['kernels']}; K7 timed the same way "
+                     f"{rec['profiled_ms']:.4f} ms")
         say(f"phase 14 K7 {name}: {shape} | path {path} | max_abs_err "
             f"{err:.3e} over dq, dk, dv, largest error / bound {ratio:.3f} "
             f"(bound {bound_text}) | {text} ({rec['tflops']:.1f} TF/s) bound "

@@ -22,7 +22,6 @@ from inside that checkout.
 
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import time
@@ -39,6 +38,9 @@ from param_tpu_torch.utils.timer import time_samples
 CASES = [("llama2", (1, 32, 2048, 128), True, False),
          ("gpt2", (8, 12, 1024, 64), False, False),
          ("llama2 train-step views", (1, 32, 2048, 128), True, True)]
+# eager calls in a window timed on the host clock, and windows (the median
+# is printed)
+CALLS, WINDOWS = 50, 9
 
 
 def host_us(fn, calls: int, windows: int) -> float:
@@ -73,19 +75,12 @@ def inputs(shape, fused, gen, dev):
     return q, k, v, do
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--calls", type=int, default=50,
-                    help="eager calls in a window timed on the host clock")
-    ap.add_argument("--windows", type=int, default=9,
-                    help="windows; the median is printed")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("flash_host: needs an NVIDIA GPU (it times the "
                          "card's kernels)")
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(0)
     smi = nvidia_smi_name_power(0)
     for name, shape, causal, fused in CASES:
         q, k, v, do = inputs(shape, fused, gen, dev)
@@ -98,7 +93,7 @@ def main(argv=None) -> int:
             print(json.dumps({
                 "kernel": kernel, "case": name, "shape": list(shape),
                 "causal": causal,
-                "host_us": host_us(fn, args.calls, args.windows),
+                "host_us": host_us(fn, CALLS, WINDOWS),
                 "card_ms": statistics.median(card), "card": smi}),
                 flush=True)
         del q, k, v, do, o, lse

@@ -586,10 +586,6 @@ _K6_CASES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", _K6_CASES)
 def _flash_path(dtype, d):
     """The path K6 / K7 must take for dense inputs."""
     if dtype == torch.float32:
@@ -597,6 +593,10 @@ def _flash_path(dtype, d):
     return "wgmma" if d in (64, 128) else "mma_sync"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", _K6_CASES)
 def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
                                         d, causal, window):
     q, k, v = (t.to(cuda_device, dtype) for t in _attn(b, h, hkv, sq, sk, d,
