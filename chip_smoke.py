@@ -38,7 +38,19 @@ Phases (any failure exits non-zero):
      wgmma path; library call torch.matmul on the stacked A.
   9. K5 (int4 GEMM): llama2-7B MLP projections (M, 4096) @ (4096, 11008)
      and (M, 11008) @ (11008, 4096), g = 128, at M = 1, 8, 32, and MLP_A's
-     (512, 4096) @ (4096, 4096), with bf16-exact scales.  Library call:
+     (512, 4096) @ (4096, 4096), with bf16-exact scales.  Each row names
+     its path (stream up to M = 32, wgmma at 512, from the launch
+     counters) and K splits; its f32-output kernel is held to 1e-5 x
+     max |want| and its bf16-output kernel (the main path's) to one bf16
+     ulp of max |want| against the plain version rounded to bf16, and so
+     is the parent's design (mma_sync and its reduce kernel, the path of
+     unaligned products); each must give the same bits twice.  It prints the
+     ptxas registers and spills of its path's kernels and the profiler's
+     kernel split (one kernel; the parent design's main kernel and its
+     reduce), and times the parent's design (the mma_sync kernel and its
+     reduce kernel, still in the source) beside it.  A planted fault (one
+     packed byte changed between the plain call and the kernel's, at M = 1
+     and 512) must break the tolerance.  Library call:
      torch._weight_int4pack_mm on the same nibbles (q + 8 unsigned, zero
      point 0, bf16 scales; the one-off _convert_weight_to_int4pack is not
      timed); torch.matmul on the dequantized bf16 weight is timed beside it
@@ -47,10 +59,10 @@ Phases (any failure exits non-zero):
      reset before each command and read after it: ``cli.compute gemm``
      (GEMM_A bf16 through K3's wgmma path; GEMM_C --compare; --weight-
      resident 8 through K4), ``emb --dataset baseline`` (K1), ``linear``, and
-     ``cli.inference --dtype int4`` (K5, 18 layers; beside it the int8 and
-     bf16 rungs, and int4 / int8 at batch 1); one int4 forward
-     launches K5 exactly 18 times, and a small int4 MLP on the card agrees
-     with the CPU plain path.
+     ``cli.inference --dtype int4`` (K5, 18 layers, all on the wgmma path;
+     beside it the int8 and bf16 rungs, and int4 / int8 at batch 1); one
+     int4 forward launches K5 exactly 18 times, all on wgmma, and a small
+     int4 MLP on the card agrees with the CPU plain path.
  11. K6 (flash-attention forward) against its plain version (f32
      attention on upcast inputs) with the logsumexp: llama2 (1, 32, 2048,
      128) causal, gpt2 (8, 12, 1024, 64), GQA 32 / 8 heads, a window of
@@ -69,10 +81,12 @@ Phases (any failure exits non-zero):
      ``attention --dataset llama2 --paths xla,flash,dpa`` and
      ``transformer --dataset llama2 --fwd-only`` (K6), ``decode --dataset
      llama3-gqa``, ``serve --dataset llama2`` in bf16 and int4 (K5, exactly
-     4 launches per decode step); K5 alone at the serve path's (1, 4096) @
-     (4096, 12288) and (4096, 4096); host-clock time against the card's
-     kernel time (torch.profiler) for the llama2 block forward and the
-     bf16 / int4 decode step at batch 1 and 32.
+     4 launches per decode step, all on the stream path); K5 alone (as in
+     phase 9) at the serve path's QKV (M, 4096) @ (4096, 12288) and output
+     (M, 4096) @ (4096, 4096) projections at M = 1, 8, 32; host-clock time
+     against the card's kernel time (torch.profiler) for the llama2 block
+     forward and the bf16 / int4 decode step at batch 1 and 32, the int4
+     step also with K5 on the parent's design.
  14. K7 (flash-attention backward) against its plain version (f32 on
      upcast inputs) from K6's output and lse and a random dO: llama2 (1,
      32, 2048, 128) causal, contiguous and in the train step's layout
@@ -767,8 +781,58 @@ def main(out_path=None) -> int:
     del a, b, a2, want, got
 
     # ---------------------------------------------------------------- 9
+    import param_tpu_torch.kernels.int4_gemm as k5mod
+    from torch.autograd import DeviceType
+
     k5 = {}
     G = 128
+    k5_res = build.kernel_resources("int4_gemm")
+    # the bf16-output kernel(s) of each K5 path, as ptxas names them
+    K5_KERNELS = {"stream": r"st18int4_stream_kernelI13__nv_bfloat16",
+                  "stream wgmma": r"int4_stream_wgmma_kernelILi(16|32)E13",
+                  "wgmma": r"wq17int4_wgmma_kernelI13__nv_bfloat16",
+                  "mma_sync": r"int4_mma_kernelILb1E|splitk_reduce_kernelI13"}
+
+    def k5_resources(path, m):
+        key = "stream wgmma" if path == "stream" and m > 8 else path
+        out = {}
+        for name, res in k5_res.items():
+            if re.search(K5_KERNELS[key], name):
+                label = re.search(r"int4_(stream_wgmma|stream|wgmma|mma)"
+                                  r"_kernel|splitk_reduce_kernel",
+                                  name).group(0)
+                rows = re.search(r"kernelILi(\d+)E", name)
+                out[label + (f"<{rows.group(1)}>" if rows else "")] = res
+        return out
+
+    def profiled_kernels(run):
+        """Kernel ms per call of ``run`` from torch.profiler (10 calls after
+        3 warm-ups), and its largest kernels."""
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                    ev.self_device_time_total / 1e3 / 10
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        return dict(ms=sum(by_name.values()),
+                    kernels=[f"{nm[:60]} {ms:.4f} ms" for nm, ms in top])
+
+    def k5_path(x, packed, scale):
+        """The path (and K splits) K5 takes for these tensors."""
+        (m, k), (kh, n) = x.shape, packed.shape
+        aligned = (n % 16 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
+                   and packed.data_ptr() % 16 == 0
+                   and scale.data_ptr() % 16 == 0)
+        return k5mod.int4_schedule(m, n, kh, kh // scale.shape[0], aligned,
+                                   sms)
 
     def int4pack_library(x, packed, scale, want):
         """torch._weight_int4pack_mm on K5's weights: signed nibble q as
@@ -797,7 +861,7 @@ def main(out_path=None) -> int:
         return (lambda: torch._weight_int4pack_mm(x, wp, G, sz),
                 "torch._weight_int4pack_mm")
 
-    def k5_case(m, k, n, phase):
+    def k5_case(m, k, n, phase, fault=False):
         x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
         packed = torch.randint(-128, 128, (k // 2, n), generator=gen,
                                device=dev, dtype=torch.int32).to(torch.int8)
@@ -806,33 +870,108 @@ def main(out_path=None) -> int:
                  * 0.02).bfloat16().float()
         want = int4_gemm_plain(x, packed, scale, torch.float32)
         tol = 1e-5 * want.abs().max().item()
-        err = check(f"K5 {(m, k, n)}",
-                    int4_gemm_cuda(x, packed, scale, torch.float32), want, tol)
+        # the bf16-output kernels (the main path's) against the plain
+        # version rounded to bf16: one bf16 ulp of max |want|
+        want16 = int4_gemm_plain(x, packed, scale)
+        tol16 = 2.0 ** -7 * want.abs().max().item()
+        path, _, splits = k5_path(x, packed, scale)
+        if m <= 32 and path != "stream" or m == 512 and path != "wgmma":
+            fail(f"K5 {(m, k, n)}: took {path}, not its designed path")
+
+        def held(label, run):
+            """The f32- and bf16-output kernels of ``run``'s path against
+            the plain version, each twice (bitwise repeat); returns the
+            f32 error and the bf16 one, and the counters that moved."""
+            before = dict(kernels.launch_counts)
+            got, again = run(torch.float32), run(torch.float32)
+            got16, again16 = run(torch.bfloat16), run(torch.bfloat16)
+            moved = {c: v - before[c] for c, v in
+                     kernels.launch_counts.items() if v != before[c]}
+            err = check(f"K5 {(m, k, n)} {label}", got, want, tol)
+            err16 = check(f"K5 {(m, k, n)} {label} bf16 out", got16, want16,
+                          tol16)
+            if not (torch.equal(got, again) and torch.equal(got16, again16)):
+                fail(f"K5 {(m, k, n)} ({label}): two runs differ")
+            return err, err16, moved
+
+        err, err16, moved = held(
+            path, lambda od: int4_gemm_cuda(x, packed, scale, od))
+        if moved != {"int4_gemm": 4, f"int4_gemm_{path}": 4}:
+            fail(f"K5 {(m, k, n)}: launches moved {moved}, not 4 on {path}")
+        # the parent's design (mma_sync + its reduce kernel), still the
+        # path of unaligned products, held to the same tolerances
+        with k5mod.forced_path("mma_sync"):
+            err_p, err16_p, moved_p = held(
+                "mma_sync", lambda od: int4_gemm_cuda(x, packed, scale, od))
+        if moved_p != {"int4_gemm": 4, "int4_gemm_mma_sync": 4}:
+            fail(f"K5 {(m, k, n)}: the mma_sync design moved {moved_p}, "
+                 f"not 4 launches on mma_sync")
         nbytes = k * n // 2 + (k // G) * n * 4 + m * k * 2 + m * n * 2
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, fp32=False)
         w_bf16 = int4_dequant(packed, scale).bfloat16()
         lib, lib_note = int4pack_library(x, packed, scale, want)
-        rec = timings(lambda: int4_gemm_cuda(x, packed, scale),
-                      lambda: int4_gemm_plain(x, packed, scale), lib,
-                      50 if m <= 32 else 10)
+        iters = 50 if m <= 32 else 10
+        kernel = lambda: int4_gemm_cuda(x, packed, scale)  # noqa: E731
+        rec = timings(kernel, lambda: int4_gemm_plain(x, packed, scale), lib,
+                      iters)
         rec["library_note"] = lib_note
         rec["dequant_matmul"] = timed(lambda: torch.matmul(x, w_bf16), 50)
+        prof = profiled_kernels(kernel)
+        # the parent's design in this run
+        with k5mod.forced_path("mma_sync"):
+            rec["t_parent"] = timed(kernel, iters)
+            rec["t_parent_eager"] = timed(kernel, iters, graph=False)
+            prof_parent = profiled_kernels(kernel)
         rec.update(shape=f"({m}, {k}) @ int4 ({k}, {n}) g={G}, bf16 out",
-                   max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
-                   gbps=nbytes / rec["ms"] / 1e6)
+                   max_abs_err=err, tol=tol, max_abs_err_bf16=err16,
+                   tol_bf16=tol16, parent_max_abs_err=err_p,
+                   parent_max_abs_err_bf16=err16_p, bound_ms=b_ms,
+                   bound_by=b_by, gbps=nbytes / rec["ms"] / 1e6, path=path,
+                   splits=splits, parent_ms=rec["t_parent"]["ms"],
+                   profile=prof, profile_parent=prof_parent,
+                   bitwise_repeat=True, ptxas=k5_resources(path, m))
+        if fault:
+            # planted fault: change one packed byte (the pair of rows with
+            # the largest |x|) after the plain call; the kernel's output
+            # must then break the tolerance
+            i = int((x[0, 0::2].float().abs() + x[0, 1::2].float().abs())
+                    .argmax())
+            packed[i, 0] ^= 0x77
+            bad = int4_gemm_cuda(x, packed, scale, torch.float32)
+            torch.cuda.synchronize()
+            packed[i, 0] ^= 0x77
+            fault_err = (bad - want).abs().max().item()
+            if not fault_err > tol:
+                fail(f"K5 {(m, k, n)}: the planted fault (packed byte ({i}, "
+                     f"0) changed) was not flagged: err {fault_err:.3e} <= "
+                     f"tol {tol:.3e}")
+            rec["fault_err"] = fault_err
+            say(f"phase {phase} K5 {rec['shape']} planted fault (packed byte "
+                f"({i}, 0) changed): max_abs_err {fault_err:.3e} > tol "
+                f"{tol:.3e}, flagged")
         k5[f"{(m, k, n)}"] = rec
-        say(f"phase {phase} K5 {rec['shape']}: max_abs_err {err:.3e} (tol "
-            f"{tol:.3e}) | {timing_text(rec, lib_note)}"
+        say(f"phase {phase} K5 {rec['shape']}: path {path}, {splits} K "
+            f"split(s), bitwise repeatable | max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}), bf16 out {err16:.3e} (tol {tol16:.3e}); mma_sync "
+            f"design {err_p:.3e}, bf16 out {err16_p:.3e}, bitwise repeatable "
+            f"| {timing_text(rec, lib_note)}"
             f"{'' if lib else f' ({lib_note})'} "
-            f"({rec['gbps']:.0f} GB/s) "
-            f"bound {b_ms:.4f} ms ({b_by}) | not the same function: "
-            f"torch.matmul on the dequantized bf16 weight "
-            f"{fmt(rec['dequant_matmul'])} | {smi}")
+            f"({rec['gbps']:.0f} GB/s) bound {b_ms:.4f} ms ({b_by}) | "
+            f"parent design (mma_sync + reduce) {fmt(rec['t_parent'])} "
+            f"[issued eagerly {fmt(rec['t_parent_eager'])}] | profiler: "
+            f"{'; '.join(prof['kernels'])} (parent: "
+            f"{'; '.join(prof_parent['kernels'])}) | ptxas "
+            + "; ".join(f"{nm} {r.get('registers')} registers, "
+                        f"{r.get('spill_stores')} / {r.get('spill_loads')} "
+                        f"bytes spilled" for nm, r in rec["ptxas"].items())
+            + f" | not the same function: torch.matmul on the dequantized "
+            f"bf16 weight {fmt(rec['dequant_matmul'])} | {smi}")
 
     for m, k, n in [(mm, kk, nn) for mm in (1, 8, 32)
                     for kk, nn in ((4096, 11008), (11008, 4096))] + \
             [(512, 4096, 4096)]:
-        k5_case(m, k, n, 9)
+        k5_case(m, k, n, 9, fault=(m, k, n) in ((1, 4096, 11008),
+                                                (512, 4096, 4096)))
     result["phases"]["k5"] = k5
     torch.cuda.empty_cache()
 
@@ -907,8 +1046,11 @@ def main(out_path=None) -> int:
             f"inference {dtype} batch {batch}", inference_cli.main,
             ["--shape", f"18,4096,4096,4096,{batch}", "--dtype", dtype], 1,
             ["int4_gemm"] if dtype == "int4" else [])
-    if cli_runs["inference_int4_K5"]["launches"]["int4_gemm"] % 18:
-        fail("phase 10: the int4 bench's K5 launches are not 18 per forward")
+    n_inf = cli_runs["inference_int4_K5"]["launches"]
+    if n_inf["int4_gemm"] % 18 or \
+            n_inf.get("int4_gemm_wgmma", 0) != n_inf["int4_gemm"]:
+        fail(f"phase 10: the int4 bench's K5 launches are not 18 per forward "
+             f"on the wgmma path ({n_inf})")
 
     # one full-width int4 forward: exactly 18 K5 launches
     qp = pack_int4_mlp(quantize_weights_int4(init_mlp(
@@ -918,11 +1060,13 @@ def main(out_path=None) -> int:
     with torch.no_grad():
         out = mlp_forward_int4(qp, xq)
     torch.cuda.synchronize()
-    if kernels.launch_counts["int4_gemm"] != 18 or out.shape != (512, 4096) \
-            or not torch.isfinite(out.float()).all():
+    if kernels.launch_counts["int4_gemm"] != 18 or \
+            kernels.launch_counts["int4_gemm_wgmma"] != 18 or \
+            out.shape != (512, 4096) or not torch.isfinite(out.float()).all():
         fail(f"phase 10: one int4 forward launched K5 "
-             f"{kernels.launch_counts['int4_gemm']} times (want 18), output "
-             f"{tuple(out.shape)}")
+             f"{kernels.launch_counts['int4_gemm']} times, "
+             f"{kernels.launch_counts['int4_gemm_wgmma']} on wgmma (want 18 "
+             f"and 18), output {tuple(out.shape)}")
     del qp, xq, out
     # a small int4 MLP on the card (M 5 and 96: both K5 schedules) against
     # the CPU plain path; each layer's output is rounded to bf16 on both
@@ -941,7 +1085,8 @@ def main(out_path=None) -> int:
         if not err <= tol:
             fail(f"phase 10: int4 MLP card vs CPU (M={mm}) max abs err "
                  f"{err:.3e} > {tol:.3e}")
-    say(f"phase 10 int4 forward: 18 K5 launches per full-width forward; "
+    say(f"phase 10 int4 forward: 18 K5 launches per full-width forward, all "
+        f"on the wgmma path; "
         f"small int4 MLP card vs CPU max abs err {worst:.3e} (tol 2e-2 x "
         f"max|out|, one bf16 rounding per layer) | {smi}")
     result["phases"]["cli"] = cli_runs
@@ -1142,8 +1287,11 @@ def main(out_path=None) -> int:
 
     # ---------------------------------------------------------------- 13
     LLAMA2 = (4096, 32, 11008)  # emb, heads, ffn
-    k5_case(1, 4096, 12288, 13)  # the serve path's QKV projection
-    k5_case(1, 4096, 4096, 13)   # and its output projection
+    # the serve path's QKV and output projections at batch 1, 8 and 32
+    # (phase 9 has its FFN projections)
+    for mm in (1, 8, 32):
+        k5_case(mm, 4096, 12288, 13)
+        k5_case(mm, 4096, 4096, 13)
     serve_runs = {
         "attention_llama2": drive(
             "attention llama2", compute_cli.main,
@@ -1166,9 +1314,12 @@ def main(out_path=None) -> int:
     }
     # 3 shapes x 16 calls x (1 untimed + 5 timed windows) x 4 projections
     n_serve = serve_runs["serve_llama2_int4"]["launches"]["int4_gemm"]
-    if n_serve != 3 * 16 * 6 * 4:
-        fail(f"phase 13: serve int4 launched K5 {n_serve} times, not 4 per "
-             f"decode step ({3 * 16 * 6 * 4})")
+    n_stream = serve_runs["serve_llama2_int4"]["launches"].get(
+        "int4_gemm_stream", 0)
+    if n_serve != 3 * 16 * 6 * 4 or n_stream != n_serve:
+        fail(f"phase 13: serve int4 launched K5 {n_serve} times, {n_stream} "
+             f"on the stream path, not 4 per decode step, all streamed "
+             f"({3 * 16 * 6 * 4})")
     # one full-width int4 decode step: exactly 4 K5 launches
     e, h, ff = LLAMA2
     cfg = tfm.TransformerConfig(batch=1, seq=1, emb=e, heads=h, ffn=ff,
@@ -1183,17 +1334,19 @@ def main(out_path=None) -> int:
     with torch.no_grad():
         out, _ = tfm.decode_step(p4, cache, x1, 2046, cfg)
     torch.cuda.synchronize()
-    if kernels.launch_counts["int4_gemm"] != 4 or out.shape != (1, 1, e) or \
-            not torch.isfinite(out.float()).all():
+    if kernels.launch_counts["int4_gemm"] != 4 or \
+            kernels.launch_counts["int4_gemm_stream"] != 4 or \
+            out.shape != (1, 1, e) or not torch.isfinite(out.float()).all():
         fail(f"phase 13: one int4 decode step launched K5 "
-             f"{kernels.launch_counts['int4_gemm']} times (want 4)")
-    say(f"phase 13 int4 decode step: 4 K5 launches per full-width llama2 "
+             f"{kernels.launch_counts['int4_gemm']} times, "
+             f"{kernels.launch_counts['int4_gemm_stream']} on the stream path "
+             f"(want 4 and 4)")
+    say(f"phase 13 int4 decode step: 4 K5 launches, all on the stream path, "
+        f"per full-width llama2 "
         f"decode step; the serve bench launched K5 {n_serve} times for "
         f"{3 * 16 * 6} steps | {smi}")
     del p4, cache, x1, out
     result["phases"]["serve_cli"] = serve_runs
-
-    from torch.autograd import DeviceType
 
     def breakdown(label, fn, n=20, grad=False, phase=13):
         """Host-clock ms per call (unprofiled, synchronised), and the
@@ -1253,6 +1406,12 @@ def main(out_path=None) -> int:
             rows[f"serve_{name}_b{b}"] = breakdown(
                 f"serve decode_step {name} batch {b} (cache 2048, llama2)",
                 lambda: tfm.decode_step(params, cache, x1, 2046, cfg))
+        # the int4 step with K5 on the parent's design, in this run
+        with k5mod.forced_path("mma_sync"):
+            rows[f"serve_int4_b{b}_parent_k5"] = breakdown(
+                f"serve decode_step int4 batch {b}, K5 on the parent's design "
+                f"(mma_sync + reduce)",
+                lambda: tfm.decode_step(p_int4, cache, x1, 2046, cfg))
         del cache, x1
     del p_bf, p_int4, x
     result["phases"]["breakdown"] = rows
@@ -1310,26 +1469,6 @@ def main(out_path=None) -> int:
             *leaves, is_causal=causal, enable_gqa=k.shape[1] != q.shape[1])
         return profiled_kernels(lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True))
-
-    def profiled_kernels(run):
-        """Kernel ms per call of ``run`` from torch.profiler (10 calls after
-        3 warm-ups), and its largest kernels."""
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                run()
-            torch.cuda.synchronize()
-        by_name = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                    ev.self_device_time_total / 1e3 / 10
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-        return dict(ms=sum(by_name.values()),
-                    kernels=[f"{nm[:60]} {ms:.4f} ms" for nm, ms in top])
 
     def k7_case(name, b, h, hkv, sq, sk, d, causal, dt, iters, fault=False,
                 no_library=None, fused=False, repeat=False,
@@ -1921,12 +2060,13 @@ def main(out_path=None) -> int:
         entry("gemm weight-resident bf16 (K4)", src + "gemm.cu",
               "param_tpu/ops/matmul.py:38",
               cli_launches("gemm_wres_K4", "gemm_wres"), k4),
-        entry("int4 gemm (K5)", src + "int4_gemm.cu",
+        entry("int4 gemm (K5), wgmma path", src + "int4_gemm.cu",
               "param_tpu/ops/matmul.py:196",
-              cli_launches("inference_int4_K5", "int4_gemm"),
+              cli_launches("inference_int4_K5", "int4_gemm_wgmma"),
               k5["(512, 4096, 4096)"]),
-        entry("int4 gemm, serve decode step (K5)", src + "int4_gemm.cu",
-              "param_tpu/ops/matmul.py:196", n_serve, k5["(1, 4096, 12288)"]),
+        entry("int4 gemm, serve decode step (K5), stream path",
+              src + "int4_gemm.cu", "param_tpu/ops/matmul.py:196", n_stream,
+              k5["(1, 4096, 12288)"]),
         entry("flash attention forward (K6), wgmma path",
               src + "flash_fwd.cu", "param_tpu/ops/attention.py:251",
               k6_launches, k6["llama2_causal"]),

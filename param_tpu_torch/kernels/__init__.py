@@ -7,7 +7,11 @@
   GEMM (wgmma / TMA for bf16 and f16, mma.sync where TMA cannot read the
   rows, an FMA core for f32; split K for small grids); stacked GEMMs
   sharing one weight.
-- K5 :mod:`.int4_gemm` (``csrc/int4_gemm.cu``): x @ group-int4 weights.
+- K5 :mod:`.int4_gemm` (``csrc/int4_gemm.cu``, ``csrc/hopper.cuh``): x @
+  group-int4 weights; four paths picked by ``int4_schedule`` (a weight
+  stream for M <= 32, on mma.sync up to M = 8 and register-A wgmma
+  above, wgmma / TMA above M = 32, mma.sync where 16-byte copies cannot
+  read the rows, the CUDA cores for g % 16 != 0).
 - K6 :mod:`.flash_fwd` (``csrc/flash_fwd.cu``, ``csrc/hopper.cuh``):
   flash-attention forward (causal, sliding window, GQA, optional
   logsumexp); three paths picked by ``flash_schedule`` (wgmma / TMA for
@@ -39,6 +43,10 @@ launch_counts = {
     "gemm_wgmma": 0,
     "gemm_mma_sync": 0,
     "int4_gemm": 0,
+    "int4_gemm_stream": 0,
+    "int4_gemm_wgmma": 0,
+    "int4_gemm_mma_sync": 0,
+    "int4_gemm_simt": 0,
     "flash_fwd": 0,
     "flash_fwd_wgmma": 0,
     "flash_fwd_mma_sync": 0,

@@ -38,6 +38,8 @@ _SIGNATURES = {
         "int4_gemm_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
         "int4_gemm_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "int4_gemm_hopper": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
     },
     "flash_fwd": {
         "flash_fwd_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,

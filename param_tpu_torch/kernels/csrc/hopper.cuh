@@ -2,10 +2,12 @@
 // (2-D, and 4-D for (B, H, S, D) views) and 1-D bulk copies, the
 // shared-memory matrix descriptors of wgmma, and wgmma with f32
 // accumulators: m64n256k16 with both operands in shared memory, m64n64k16
-// and m64n128k16 with A in shared memory or in registers.  Host side: the
+// and m64n128k16 with A in shared memory or in registers, m64n{16,32}k16
+// (bf16) with A in registers.  Host side: the
 // driver's tensor-map encoder and a once-per-kernel shared-memory opt-in.
-// Used by K3/K4's wgmma path (gemm.cu), K6/K7's wgmma paths (flash_fwd.cu,
-// flash_bwd.cu) and, for the mbarriers, by K9/K10 (coalesce.cu).
+// Used by K3/K4's wgmma path (gemm.cu), K5's wgmma path (int4_gemm.cu),
+// K6/K7's wgmma paths (flash_fwd.cu, flash_bwd.cu) and, for the mbarriers,
+// by K9/K10 (coalesce.cu).
 //
 // The layout every piece here agrees on.  A TMA box whose inner dimension
 // is 64 16-bit values (128 bytes), loaded with CU_TENSOR_MAP_SWIZZLE_128B,
@@ -94,22 +96,29 @@ __device__ __forceinline__ uint64_t global_ns() {
   return t;
 }
 
+// Whether the barrier's phase of parity `parity` has completed; the
+// thread may be suspended for a while (a hardware time limit) before a
+// false answer.
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
 // Wait for the completion of the barrier's phase of parity `parity`.  A
 // phase that never completes (a wrong byte count or arrival count) traps
 // after 10 s instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
   uint64_t t0 = 0;
   while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
+    if (mbar_try_wait(bar, parity)) return;
     if (t0 == 0) {
       t0 = global_ns();
     } else if (global_ns() - t0 > 10000000000ull) {
@@ -205,6 +214,12 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory (st.shared)
+// visible to the async proxy (wgmma operands, TMA stores) that reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Keep the compiler from moving reads of the accumulators above a
@@ -382,6 +397,47 @@ struct Wgmma<__half> {
         "r"(scale_d), "n"(TRANS_B))
 
 
+// m64n16k16 and m64n32k16 with A in registers (RS only): small
+// N for products whose N side is a handful of rows (x^T in a swapped
+// GEMM); D is N / 2 registers a thread.
+#define HOPPER_WGMMA_RS_N16(TYPE)                                           \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %13, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TYPE "." TYPE           \
+      " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "  \
+      "1, %14;\n"                                                           \
+      "}\n"                                                                 \
+      : HOPPER_ACC8(0)                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),            \
+        "r"(scale_d), "n"(TRANS_B))
+
+#define HOPPER_WGMMA_RS_N32(TYPE)                                           \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %21, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPE "." TYPE           \
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"                    \
+      "}\n"                                                                 \
+      : HOPPER_ACC8(0), HOPPER_ACC8(8)                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),            \
+        "r"(scale_d), "n"(TRANS_B))
+
+#define HOPPER_WGMMA_SMALL(T, NAME, N, MACRO)                             \
+  template <>                                                             \
+  struct WgmmaN<T, N> {                                                   \
+    template <int TRANS_B>                                                \
+    __device__ __forceinline__ static void rs(float (&d)[N / 2],          \
+                                              const uint32_t (&a)[4],     \
+                                              uint64_t desc_b,            \
+                                              int scale_d) {              \
+      MACRO(NAME);                                                        \
+    }                                                                     \
+  };
+
 #define HOPPER_WGMMA_TYPE(T, NAME)                                        \
   template <>                                                             \
   struct WgmmaN<T, 64> {                                                  \
@@ -422,8 +478,13 @@ template <typename T, int N>
 struct WgmmaN;
 HOPPER_WGMMA_TYPE(__nv_bfloat16, "bf16")
 HOPPER_WGMMA_TYPE(__half, "f16")
+HOPPER_WGMMA_SMALL(__nv_bfloat16, "bf16", 16, HOPPER_WGMMA_RS_N16)
+HOPPER_WGMMA_SMALL(__nv_bfloat16, "bf16", 32, HOPPER_WGMMA_RS_N32)
 
 #undef HOPPER_WGMMA_TYPE
+#undef HOPPER_WGMMA_SMALL
+#undef HOPPER_WGMMA_RS_N16
+#undef HOPPER_WGMMA_RS_N32
 #undef HOPPER_WGMMA_SS_N64
 #undef HOPPER_WGMMA_SS_N128
 #undef HOPPER_WGMMA_RS_N64

@@ -114,7 +114,8 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, *,
     each weight is dequantized in f32.
 
     ``variant`` names one of the reference's three TPU schedules of this one
-    function; the port has one kernel, so all three run it.  ``block_k`` is
+    function; the port's K5 picks its path from the shape instead, so all
+    three run it.  ``block_k`` is
     accepted and unused: the kernel masks K itself, with no padding.  Any N
     works with ``block_n=0``; an explicit ``block_n`` must divide N."""
     if variant not in INT4_VARIANTS:

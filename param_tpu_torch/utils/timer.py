@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import statistics
 import time
+from functools import lru_cache
 from typing import Callable, List, Optional
 
 import torch
@@ -27,7 +28,9 @@ def time_samples(fn: Callable[[], object], iters: int, device="cuda",
     ``graph=True`` (CUDA only) captures the ``iters`` calls once into a CUDA
     graph and times its replays: the card's time for the launches back to
     back, without the host's cost of issuing them.  ``fn`` must then not
-    synchronise with the host."""
+    synchronise with the host.  One call of ``fn`` on the capture stream
+    comes first, so what a kernel keeps per stream (K5's split-K counters)
+    exists before the capture."""
     dev = torch.device(device)
     for _ in range(iters if warmup is None else warmup):
         fn()
@@ -42,8 +45,14 @@ def time_samples(fn: Callable[[], object], iters: int, device="cuda",
     torch.cuda.synchronize(dev)
     run = lambda: [fn() for _ in range(iters)]  # noqa: E731
     if graph:
+        side = _capture_stream(dev.index if dev.index is not None
+                               else torch.cuda.current_device())
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.synchronize(dev)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=side):
             run()
         run = g.replay
         run()  # the first replay uploads the graph
@@ -56,6 +65,13 @@ def time_samples(fn: Callable[[], object], iters: int, device="cuda",
         torch.cuda.synchronize(dev)
         out.append(start.elapsed_time(end) / iters)
     return out
+
+
+@lru_cache(maxsize=None)
+def _capture_stream(index: int) -> "torch.cuda.Stream":
+    """The side stream on which :func:`time_samples` captures its graphs
+    on card ``index``."""
+    return torch.cuda.Stream(torch.device("cuda", index))
 
 
 def time_ms(fn: Callable[[], object], iters: int, device="cuda",

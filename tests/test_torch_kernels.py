@@ -56,8 +56,10 @@ from param_tpu_torch.kernels.gemm import (
     gemm_cuda, gemm_plain, gemm_schedule, gemm_wres_cuda, gemm_wres_plain,
     k_split,
 )
+import param_tpu_torch.kernels.int4_gemm as k5
 from param_tpu_torch.kernels.int4_gemm import (
-    int4_dequant, int4_gemm_cuda, int4_gemm_plain, mma_schedule,
+    STREAM_MAX_M, forced_path, int4_dequant, int4_gemm_cuda, int4_gemm_plain,
+    int4_schedule, mma_schedule, stream_tile, takes,
 )
 from param_tpu_torch.kernels.ring import (
     check_errors, ring_all_gather_bidir_cuda, ring_all_gather_bidir_plain,
@@ -206,6 +208,9 @@ def _packed(kh, n, groups, seed=0):
     return packed, scale
 
 
+_SMS_K5 = 132  # an H100's SMs
+
+
 def test_int4_dequant_matches_loop():
     packed, scale = _packed(6, 5, 3)
     got = int4_dequant(torch.from_numpy(packed), torch.from_numpy(scale))
@@ -225,6 +230,62 @@ def test_mma_schedule_covers_k_in_k16_steps(m, n, kh):
     rows, splits = mma_schedule(m, n, kh, sms=132)
     assert rows % 8 == 0 and splits * rows >= kh
     assert (splits - 1) * rows < kh  # no split without work
+
+
+# (M, N, K) of the main path's int4 products: the decode step's four
+# projections (QKV, O, FFN up, FFN down) at batch 1, 8 and 32, llama2-7B
+# widths, g = 128; and the inference bench's layer at batch 512
+_INT4_DECODE = [(m, n, k) for m in (1, 8, 32)
+                for n, k in ((12288, 4096), (4096, 4096), (11008, 4096),
+                             (4096, 11008))]
+
+
+@pytest.mark.parametrize("m,n,k", _INT4_DECODE)
+def test_int4_schedule_streams_the_decode_projections(m, n, k):
+    path, rows, splits = int4_schedule(m, n, k // 2, 64, True, _SMS_K5)
+    assert path == "stream"
+    mr, bn = stream_tile(m)
+    tiles = math.ceil(m / mr) * math.ceil(n / bn)
+    assert tiles * splits >= _SMS_K5  # the card is filled
+
+
+def test_int4_schedule_takes_wgmma_at_the_inference_batch():
+    path, rows, splits = int4_schedule(512, 4096, 2048, 64, True, _SMS_K5)
+    assert (path, rows, splits) == ("wgmma", 2048, 1)  # 128 tiles, one wave
+
+
+@pytest.mark.parametrize("m,n,kh,gh", [
+    (1, 4096, 2048, 64), (8, 11008, 2048, 64), (32, 4096, 5504, 64),
+    (16, 1040, 256, 8), (5, 272, 384, 24), (2, 512, 512, 512),
+    (33, 4096, 2048, 64), (128, 4096, 2048, 64), (200, 1024, 512, 32),
+    (512, 11008, 2048, 64)])
+def test_int4_schedule_splits_cover_k_in_whole_steps(m, n, kh, gh):
+    """Stream splits are whole 64-row multiples, wgmma splits whole 32-row
+    steps; every packed row has a split and every split a row; wgmma splits
+    only below one wave of tiles and then stays within it."""
+    path, rows, splits = int4_schedule(m, n, kh, gh, True, _SMS_K5)
+    assert path == ("stream" if m <= STREAM_MAX_M else "wgmma")
+    assert rows % (64 if path == "stream" else 32) == 0
+    assert splits * rows >= kh and (splits - 1) * rows < kh
+    if path == "wgmma":
+        tiles = math.ceil(m / 128) * math.ceil(n / 128)
+        assert splits == 1 if tiles >= _SMS_K5 else tiles * splits <= _SMS_K5
+
+
+@pytest.mark.parametrize("m", [1, 32, 33, 512])
+@pytest.mark.parametrize("gh,aligned,want", [
+    (4, True, "simt"), (12, False, "simt"), (64, False, "mma_sync"),
+    (8, False, "mma_sync"), (16, True, None), (64, True, None)])
+def test_int4_schedule_keeps_mma_sync_and_simt_where_they_are_needed(
+        m, gh, aligned, want):
+    """gh % 8 != 0 takes simt, unaligned takes mma_sync; aligned shapes
+    stream up to M = 32, above it wgmma needs gh % 32 == 0."""
+    path = int4_schedule(m, 1024, 1024, gh, aligned, _SMS_K5)[0]
+    if want is None:
+        want = ("stream" if m <= STREAM_MAX_M else
+                "wgmma" if gh % 32 == 0 else "mma_sync")
+    assert path == want
+    assert takes(path, gh, aligned)
 
 
 _GEMM_ODD = [(100, 100, 100), (256, 256, 256), (128, 1024, 64), (1, 8, 8),
@@ -368,26 +429,149 @@ def test_gemm_wres_kernel_matches_plain(cuda_device, dtype, s, m, k, n):
         assert kernels.launch_counts[path] == before[path] + 1
 
 
+def _int4_path(x, p, sc):
+    """The path int4_gemm_cuda takes for these tensors, and its splits."""
+    (m, k), (kh, n) = x.shape, p.shape
+    aligned = (n % 16 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
+               and p.data_ptr() % 16 == 0 and sc.data_ptr() % 16 == 0)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    path, _, splits = int4_schedule(m, n, kh, kh // sc.shape[0], aligned, sms)
+    return path, splits
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 3, 8, 32, 33, 96])
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 32, 33, 96, 128, 512])
 @pytest.mark.parametrize("n,kh,groups", [(256, 256, 4), (200, 256, 2),
                                          (200, 250, 2), (1024, 512, 8),
-                                         (136, 96, 3)])
+                                         (136, 96, 3), (1024, 1024, 16)])
 def test_int4_gemm_kernel_matches_plain(cuda_device, m, n, kh, groups):
+    """Every path against the plain version; the aligned shapes (N % 16 ==
+    0, gh % 8 == 0) take stream up to M = 32 and wgmma above it (gh % 32 ==
+    0), (1024, 1024, 16) splits K on both; each launch moves its path's
+    counter."""
     packed, scale = _packed(kh, n, groups, seed=m)
     rng = np.random.default_rng(m)
     x = torch.from_numpy(rng.standard_normal((m, 2 * kh), dtype=np.float32))
     x = x.to(cuda_device, torch.bfloat16)
     p = torch.from_numpy(packed).to(cuda_device)
     sc = torch.from_numpy(scale).to(cuda_device)
-    before = kernels.launch_counts["int4_gemm"]
+    path, splits = _int4_path(x, p, sc)
+    if n % 16 == 0 and (kh // groups) % 8 == 0:
+        assert path == ("stream" if m <= STREAM_MAX_M else "wgmma"), path
+    if (n, kh, groups) == (1024, 1024, 16) and m <= 128:
+        assert splits > 1, (m, splits)
+    before = dict(kernels.launch_counts)
     for out_dtype in (torch.float32, torch.bfloat16):
         got = int4_gemm_cuda(x, p, sc, out_dtype)
         want = int4_gemm_plain(x, p, sc, out_dtype)
         torch.cuda.synchronize()
         err, tol = _max_err_tol(got, want)
         assert err <= tol, (err, tol)
-    assert kernels.launch_counts["int4_gemm"] == before + 2
+    moved = {c for c, v in kernels.launch_counts.items() if v != before[c]}
+    assert moved == {"int4_gemm", f"int4_gemm_{path}"}, moved
+    assert kernels.launch_counts["int4_gemm"] == before["int4_gemm"] + 2
+    assert kernels.launch_counts[f"int4_gemm_{path}"] == \
+        before[f"int4_gemm_{path}"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,path", [(1, "stream"), (8, "stream"),
+                                    (32, "stream"), (128, "wgmma"),
+                                    (512, "wgmma")])
+def test_int4_gemm_new_paths_repeat_bitwise(cuda_device, m, path):
+    """Split K is added in a fixed order by the tile's last block: two runs
+    give the same bits."""
+    kh, n = 1024, 1024
+    packed, scale = _packed(kh, n, 16, seed=11)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((m, 2 * kh), dtype=np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    p = torch.from_numpy(packed).to(cuda_device)
+    sc = torch.from_numpy(scale).to(cuda_device)
+    assert _int4_path(x, p, sc)[0] == path
+    first = int4_gemm_cuda(x, p, sc, torch.float32)
+    second = int4_gemm_cuda(x, p, sc, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    err, tol = _max_err_tol(first, int4_gemm_plain(x, p, sc, torch.float32))
+    assert err <= tol, (err, tol)
+
+
+def _int4_split_case(device, m):
+    """x, packed and scale of a (M, 2048) @ int4 (2048, 1024) product that
+    splits K on its path (stream up to M = 32, wgmma above)."""
+    packed, scale = _packed(1024, 1024, 16, seed=13)
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((m, 2048), dtype=np.float32))
+    return (x.to(device, torch.bfloat16), torch.from_numpy(packed).to(device),
+            torch.from_numpy(scale).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 32, 128])
+def test_int4_gemm_split_k_on_two_streams_at_once(cuda_device, m):
+    """Split-K launches on two streams may overlap: each stream keeps its
+    own arrival counters, so every result has one stream's bits."""
+    x, p, sc = _int4_split_case(cuda_device, m)
+    path, splits = _int4_path(x, p, sc)
+    assert splits > 1 and path == ("stream" if m <= 32 else "wgmma")
+    want = int4_gemm_cuda(x, p, sc, torch.float32)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(int4_gemm_cuda(x, p, sc, torch.float32))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 128])
+def test_int4_gemm_replays_from_a_cuda_graph(cuda_device, m):
+    """A split-K launch captured on a warmed-up stream replays with the
+    same bits, also beside eager launches on another stream."""
+    x, p, sc = _int4_split_case(cuda_device, m)
+    want = int4_gemm_cuda(x, p, sc, torch.float32)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        int4_gemm_cuda(x, p, sc, torch.float32)  # the stream's counters
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        out = int4_gemm_cuda(x, p, sc, torch.float32)
+    eager = []
+    for _ in range(5):
+        g.replay()
+        eager.append(int4_gemm_cuda(x, p, sc, torch.float32))
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert all(torch.equal(e, want) for e in eager)
+
+
+def test_forced_path_nests_and_restores():
+    assert k5._forced is None
+    with forced_path("mma_sync"):
+        assert k5._forced == "mma_sync"
+        with forced_path("stream"):
+            assert k5._forced == "stream"
+        assert k5._forced == "mma_sync"
+    assert k5._forced is None
+    with pytest.raises(RuntimeError), forced_path("wgmma"):
+        raise RuntimeError
+    assert k5._forced is None
+
+
+@pytest.mark.parametrize("path", ["tiles", "", "STREAM", None])
+def test_forced_path_refuses_unknown_paths(path):
+    with pytest.raises(ValueError):
+        with forced_path(path):
+            pass
+    assert k5._forced is None
 
 
 @pytest.mark.cuda
@@ -401,6 +585,21 @@ def test_gemm_kernels_raise_on_what_they_do_not_take(cuda_device):
         int4_gemm_cuda(a, torch.zeros((4, 8), dtype=torch.int8,
                                       device=cuda_device),
                        torch.ones((1, 8), device=cuda_device))
+    # K5's stream and wgmma paths refuse what 16-byte copies and TMA cannot
+    # describe (N % 16 != 0) and groups that are not whole k16 / K steps
+    x = torch.ones((4, 64), device=cuda_device, dtype=torch.bfloat16)
+    odd = torch.zeros((32, 24), dtype=torch.int8, device=cuda_device)
+    for path in ("stream", "wgmma"):
+        with forced_path(path), pytest.raises(ValueError):
+            int4_gemm_cuda(x, odd, torch.ones((1, 24), device=cuda_device))
+    p = torch.zeros((32, 32), dtype=torch.int8, device=cuda_device)
+    with forced_path("stream"), pytest.raises(ValueError):  # gh 4
+        int4_gemm_cuda(x, p, torch.ones((8, 32), device=cuda_device))
+    with forced_path("wgmma"), pytest.raises(ValueError):  # gh 16
+        int4_gemm_cuda(x, p, torch.ones((2, 32), device=cuda_device))
+    with pytest.raises(ValueError):
+        with forced_path("tiles"):
+            int4_gemm_cuda(x, p, torch.ones((2, 32), device=cuda_device))
 
 
 def _attn(b, h, hkv, sq, sk, d, seed=0):
