@@ -118,12 +118,24 @@ Phases (any failure exits non-zero):
      all-gather, loopback) on one card: first the op API of
      ``param_tpu_torch.ops.ring_collectives`` (ring_all_gather,
      ring_all_reduce, ring_all_gather_bidir, loopback_remote_copy) at n 1,
-     2, 4, 8 ranks with the launch counts reset before and read after;
+     2, 4, 8 ranks, 1 MiB a rank, and at n 8, 8 MiB, with the launch counts
+     reset before and read after: every kernel, and K8a / K8b on each of
+     their routes (copy, memory, K8b's cluster), must have launched;
      then each kernel against its plain version at n 1, 2, 4, 8 with
      per-rank payloads of 4 KiB, 1 MiB and 64 MiB in f32 and 1 MiB in
      bf16, every byte equal; a planted fault (rank 0 sends its first hop
      to right + 1) must raise from the bounded wait, and the next call
-     must be right again.  No library call computes these on one card.
+     must be right again (K8b on both its routes).  Each K8a / K8b row
+     prints its plan (blocks a rank, slice bytes, lag, slots and where
+     they are, scope); each K8b row over 2 to 8 ranks is also held and
+     timed on its other route (cluster or memory, through
+     ``ring.forced_route``), and K8b also runs at 2, 4 and 16 MiB a rank
+     on both routes, about where ``ring_plan`` switches between them.
+     Library yardsticks, on a
+     stack X of the shards made before the timed window: K8a and K8c
+     ``X.expand(n, n, L).contiguous()`` (``X.clone()`` over one rank,
+     where that is a view), K8b ``X.view(n, n, c).sum(0)``; K8d has none
+     (``Tensor.clone`` is its plain version).
      With two or more cards the rings also run with one rank per card,
      timed beside NCCL's all-gather and reduce-scatter at the same per-rank
      shape (``torch.cuda.nccl``), and once behind a peer card still busy
@@ -137,8 +149,10 @@ Phases (any failure exits non-zero):
  19. The coalesced-fetch kernels and the headline bench, at the
      experiment's full sizes (table 1,048,576 x 128 f32): K9 (k-row bulk
      fetch, tile sums) at k 1, 2, 4, 8, 16, 32 (262,144 rows, 4096 a tile)
-     against its plain version within rtol 1e-4, and a planted fault (one
-     start shifted by one row) must break that comparison; K10 (block-
+     against its plain version within rtol 1e-4, timed beside
+     ``F.embedding_bag`` over each tile's row ids (its library call), and a
+     planted fault (one start shifted by one row) must break that
+     comparison; K10 (block-
      coalesced bag, r_blk 8, 16 bags a tile) at B 8192 x nnz 32 uniform and
      zipf ids against the plain bag (K1's) within rtol 1e-5, and K1 at the
      same ids (stage B's shape) against it too; timed beside K1, the
@@ -156,7 +170,8 @@ issued eagerly from Python), the plain version issued eagerly.  Bounds: bytes ov
 3.35 TB/s, or operations over the H100's peak for the type (989 TF/s bf16,
 67 TF/s f32).
 Then a ``{"kernels": [...]}`` line (K6 and K7 by the path the main path
-took; every main-path launch of theirs must have been on wgmma), and last
+took; every main-path launch of theirs must have been on wgmma; K8a, K8b
+and their one-rank copy by route, each with its own launches), and last
 the ``{"ok": true, ...}`` line.
 ``--out PATH`` also writes the full results as JSON to PATH.
 """
@@ -1749,37 +1764,63 @@ def main(out_path=None) -> int:
                      f"err {err:.3e})")
         return 0.0
 
-    # the op API, the path a user of the rings calls: every kernel launches
+    KIB, MIB = 1 << 10, 1 << 20
+
+    # the op API, the path a user of the rings calls: every kernel launches,
+    # K8a / K8b on each of their routes (at 8 MiB a rank K8b's cluster one)
     kernels.reset_launch_counts()
-    for n in (1, 2, 4, 8):
-        xs = ring_shards(n, 1 << 20, torch.float32)
+    for n, nbytes in ((1, MIB), (2, MIB), (4, MIB), (8, MIB), (8, 8 * MIB)):
+        xs = ring_shards(n, nbytes, torch.float32)
         for name, fn in ops_api.items():
             if name == "all_reduce":
                 want = rings.ring_all_reduce([x.cpu() for x in xs])
             else:
                 want = ring_kernels[name][1](xs)
-            same_bytes(f"phase 17 {name} n={n} (op API)", fn(xs), want)
-    ring_launches = {k: kernels.launch_counts[k]
-                     for _, _, k in ring_kernels.values()}
+            same_bytes(f"phase 17 {name} n={n} {nbytes} B (op API)", fn(xs),
+                       want)
+        del xs
+    ring_launches = {k: v for k, v in kernels.launch_counts.items()
+                     if k.startswith("ring_")}
     if min(ring_launches.values()) <= 0:
-        fail(f"phase 17: a ring kernel was not launched by the op API "
-             f"({ring_launches})")
+        fail(f"phase 17: a ring kernel or route was not launched by the op "
+             f"API ({ring_launches})")
     say(f"phase 17 op API (ring_all_gather, ring_all_reduce, "
         f"ring_all_gather_bidir, loopback_remote_copy at n 1, 2, 4, 8, 1 MiB "
-        f"f32 per rank): every result equal to the plain rings | launches "
-        f"{ring_launches}")
+        f"f32 per rank, and at n 8, 8 MiB): every result equal to the plain "
+        f"rings | launches {ring_launches}")
 
     k8_rows = {}
-    KIB, MIB = 1 << 10, 1 << 20
+
+    def ring_library(coll, xs):
+        """One PyTorch call computing the same function on a stacked copy
+        of the shards made here, outside any timed window: every rank's
+        gather (shift 0) as one expand of the stack, the reduce-scatter's
+        chunk sums as one sum over the ranks (rank r's result is row
+        (r + 1) % n; the sums may differ from the ring's in the last bit,
+        so this row compares time only); None for the loopback, whose
+        plain version is the copy itself.  Over one rank the gather is a
+        copy, and ``expand().contiguous()`` of the stack a view, so the
+        call there is ``X.clone()``."""
+        n = len(xs)
+        x = torch.stack(xs)
+        if coll in ("all_gather", "bidir") and n == 1:
+            return lambda: x.clone()
+        if coll in ("all_gather", "bidir"):
+            return lambda: x.expand(n, n, x.shape[1]).contiguous()
+        if coll == "reduce_scatter":
+            return lambda: x.view(n, n, -1).sum(0)
+        return None
 
     def k8_case(coll, n, nbytes, dt):
         cuda_fn, plain_fn, _ = ring_kernels[coll]
         xs = ring_shards(n, nbytes, dt)
         err = same_bytes(f"K8 {coll} n={n} {nbytes} B", cuda_fn(xs),
                          plain_fn(xs))
+        plan = k8.launch_plan(coll, xs, nbytes // n
+                              if coll == "reduce_scatter" else nbytes)
         iters = 50 if nbytes <= MIB else 3
         rec = timings(lambda: cuda_fn(xs, check=False),
-                      lambda: plain_fn(xs), None, iters)
+                      lambda: plain_fn(xs), ring_library(coll, xs), iters)
         k8.check_errors(xs)  # no wait ran out while timing
         if coll in ("all_gather", "bidir"):
             nbytes_io = n * nbytes + n * n * nbytes
@@ -1795,11 +1836,36 @@ def main(out_path=None) -> int:
         rec.update(shape=f"n={n} ranks (one card), {size} {str(dt)[6:]} per "
                          f"rank", max_abs_err=err, bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes_io,
-                   gbps=nbytes_io / rec["ms"] / 1e6, library_ms=None)
+                   gbps=nbytes_io / rec["ms"] / 1e6, plan=plan.text())
         k8_rows[f"{coll} n={n} {size} {str(dt)[6:]}"] = rec
-        say(f"phase 17 K8 {coll}: {rec['shape']}: every byte equal | "
-            f"{timing_text(rec, '')} ({rec['gbps']:.0f} GB/s of inputs read "
-            f"+ outputs written) bound {b_ms:.4f} ms ({b_by}) | {smi}")
+        lib = {"all_gather": "X.expand(n, n, L).contiguous()",
+               "bidir": "X.expand(n, n, L).contiguous()",
+               "reduce_scatter": "X.view(n, n, c).sum(0)"}.get(coll, "")
+        if n == 1 and coll in ("all_gather", "bidir"):
+            lib = "X.clone()"
+        say(f"phase 17 K8 {coll}: {rec['shape']}: every byte equal | plan "
+            f"{plan.text()} | {timing_text(rec, lib)} ({rec['gbps']:.0f} "
+            f"GB/s of HBM: inputs read + outputs written) bound "
+            f"{b_ms:.4f} ms ({b_by}) | {smi}")
+        if coll == "reduce_scatter" and 2 <= n <= 8:
+            # K8b's other route, held and timed too, with its own plain and
+            # library times on the same inputs
+            other = "memory" if plan.route == "cluster" else "cluster"
+            with k8.forced_route(other):
+                same_bytes(f"K8 {coll} n={n} {nbytes} B ({other} route)",
+                           cuda_fn(xs), plain_fn(xs))
+                orec = timings(lambda: cuda_fn(xs, check=False),
+                               lambda: plain_fn(xs), ring_library(coll, xs),
+                               iters)
+                k8.check_errors(xs)
+                oplan = k8.launch_plan(coll, xs, nbytes // n)
+            orec.update(shape=rec["shape"], max_abs_err=err, bound_ms=b_ms,
+                        bound_by=b_by, plan=oplan.text(),
+                        gbps=nbytes_io / orec["ms"] / 1e6)
+            rec[f"{other}_route"] = orec
+            say(f"phase 17 K8 {coll}: {rec['shape']}, {other} route: every "
+                f"byte equal | plan {oplan.text()} | "
+                f"{timing_text(orec, lib)} | {smi}")
         del xs
         torch.cuda.empty_cache()
         return rec
@@ -1811,24 +1877,33 @@ def main(out_path=None) -> int:
                                (64 * MIB, torch.float32),
                                (MIB, torch.bfloat16)):
                 k8_case(coll, n, nbytes, dt)
+    # K8b's two routes about where ring_plan switches between them
+    for n in (2, 4, 8):
+        for nbytes in (2 * MIB, 4 * MIB, 16 * MIB):
+            k8_case("reduce_scatter", n, nbytes, torch.float32)
 
     # a planted fault: rank 0 sends its first hop to right + 1
     fault_rec = {}
-    for coll in ("all_gather", "reduce_scatter", "bidir"):
+    for coll, route in (("all_gather", None), ("reduce_scatter", "memory"),
+                        ("reduce_scatter", "cluster"), ("bidir", None)):
         cuda_fn, plain_fn, _ = ring_kernels[coll]
+        name = coll if route is None else f"{coll} ({route} route)"
         xs = ring_shards(4, MIB, torch.float32)
-        t0 = time.perf_counter()
-        try:
-            cuda_fn(xs, fault=1, timeout_s=0.05)
-        except RuntimeError as e:
-            fault_rec[coll] = dict(raised=str(e),
-                                   seconds=time.perf_counter() - t0)
-        else:
-            fail(f"phase 17 K8 {coll}: the planted fault was not flagged")
-        same_bytes(f"K8 {coll} after the fault", cuda_fn(xs), plain_fn(xs))
-        say(f"phase 17 K8 {coll} planted fault (rank 0's first hop to "
+        with (k8.forced_route(route) if route else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            try:
+                cuda_fn(xs, fault=1, timeout_s=0.05)
+            except RuntimeError as e:
+                fault_rec[name] = dict(raised=str(e),
+                                       seconds=time.perf_counter() - t0)
+            else:
+                fail(f"phase 17 K8 {name}: the planted fault was not "
+                     f"flagged")
+            same_bytes(f"K8 {name} after the fault", cuda_fn(xs),
+                       plain_fn(xs))
+        say(f"phase 17 K8 {name} planted fault (rank 0's first hop to "
             f"right + 1, n=4, 1 MiB): raised after "
-            f"{fault_rec[coll]['seconds']:.3f} s: {fault_rec[coll]['raised']}"
+            f"{fault_rec[name]['seconds']:.3f} s: {fault_rec[name]['raised']}"
             f" | the next call is right again")
     cards = torch.cuda.device_count()
     if cards >= 2:
@@ -1912,8 +1987,12 @@ def main(out_path=None) -> int:
         nbytes = coal.K_ROWS * CD * 4 + n * 4 + n_tiles * CD * 4
         b_ms, b_by = bound_ms(nbytes, coal.K_ROWS * CD)
         nk, npl = itertools.cycle(shifted), itertools.cycle(shifted)
+        # the library call: F.embedding_bag over each tile's row ids
+        nl = itertools.cycle([(st.long()[:, None] + torch.arange(
+            k, device=dev)).reshape(n_tiles, -1) for st in shifted])
         rec = timings(lambda: kc.desc_fetch_cuda(ctab, next(nk), k),
-                      lambda: kc.desc_fetch_plain(ctab, next(npl), k), None,
+                      lambda: kc.desc_fetch_plain(ctab, next(npl), k),
+                      lambda: F.embedding_bag(next(nl), ctab, mode="sum"),
                       20)
         rec.update(shape=f"table ({CE}, {CD}) f32, {n} starts x {k} rows "
                          f"({coal.ROWS_PER_TILE} rows a tile)",
@@ -1922,7 +2001,8 @@ def main(out_path=None) -> int:
                    ns_per_copy=rec["ms"] * 1e6 / n)
         k9[k] = rec
         say(f"phase 19 K9 k={k}: {rec['shape']} max_abs_err {err:.3e} (tol "
-            f"{tol:.3e}) | {timing_text(rec, '')} ({rec['gbps']:.0f} GB/s, "
+            f"{tol:.3e}) | {timing_text(rec, 'F.embedding_bag')} "
+            f"({rec['gbps']:.0f} GB/s, "
             f"{rec['ns_per_copy']:.3f} ns per copy) bound {b_ms:.4f} ms "
             f"({b_by}) | {smi}")
         del starts, shifted, want
@@ -2073,14 +2153,23 @@ def main(out_path=None) -> int:
         entry("flash attention backward (K7), wgmma path",
               src + "flash_bwd.cu", "param_tpu/ops/attention.py:809, :841",
               k7_launches, k7["llama2_causal"]),
-        entry("ring all-gather (K8a)", src + "ring.cu",
+        entry("ring all-gather (K8a), memory route", src + "ring.cu",
               "param_tpu/ops/ring_collectives.py:55",
-              ring_launches["ring_all_gather"],
+              ring_launches["ring_all_gather_memory"],
               k8_rows["all_gather n=8 64 MiB float32"]),
-        entry("ring reduce-scatter (K8b)", src + "ring.cu",
+        entry("ring reduce-scatter (K8b), cluster route", src + "ring.cu",
               "param_tpu/ops/ring_collectives.py:112",
-              ring_launches["ring_reduce_scatter"],
+              ring_launches["ring_reduce_scatter_cluster"],
               k8_rows["reduce_scatter n=8 64 MiB float32"]),
+        entry("ring reduce-scatter (K8b), memory route", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:112",
+              ring_launches["ring_reduce_scatter_memory"],
+              k8_rows["reduce_scatter n=8 64 MiB float32"]["memory_route"]),
+        entry("ring copy, one rank (K8a / K8b at n = 1)", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:55, :112",
+              ring_launches["ring_all_gather_copy"]
+              + ring_launches["ring_reduce_scatter_copy"],
+              k8_rows["all_gather n=1 64 MiB float32"]),
         entry("both-direction ring all-gather (K8c)", src + "ring.cu",
               "param_tpu/ops/ring_collectives.py:181",
               ring_launches["ring_bidir_all_gather"],

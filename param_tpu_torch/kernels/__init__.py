@@ -28,7 +28,8 @@
 
 Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
-through; kernels with several paths also count ``<kernel>_<path>``.
+through; kernels with several paths (or routes) also count
+``<kernel>_<path>``.
 Importing this package builds nothing.
 """
 
@@ -56,7 +57,12 @@ launch_counts = {
     "flash_bwd_mma_sync": 0,
     "flash_bwd_simt": 0,
     "ring_all_gather": 0,
+    "ring_all_gather_memory": 0,
+    "ring_all_gather_copy": 0,
     "ring_reduce_scatter": 0,
+    "ring_reduce_scatter_memory": 0,
+    "ring_reduce_scatter_cluster": 0,
+    "ring_reduce_scatter_copy": 0,
     "ring_bidir_all_gather": 0,
     "ring_loopback": 0,
     "desc_fetch": 0,

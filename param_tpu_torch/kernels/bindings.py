@@ -47,10 +47,11 @@ _SIGNATURES = {
                              _I, _P],
     },
     "ring": {
-        "ring_capacity": [_I, _I, _I],
+        "ring_capacity": [_I, _I, _I, _I],
+        "ring_cluster_capacity": [_I, _I, _I, _I],
         "ring_enable_peer": [_I, _I],
-        "ring_launch": [_I, _I, _I, _I, _I, _I, _LP, _LP, _LP, _LP, _L, _L,
-                        _I, _L, _I, _I, _L, _P, _P],
+        "ring_launch": [_I, _I, _I, _I, _I, _I, _I, _LP, _LP, _LP, _LP, _L,
+                        _L, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P],
         "ring_flag_words": [],
         "ring_max_blocks": [],
     },

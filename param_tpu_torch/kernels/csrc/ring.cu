@@ -19,51 +19,87 @@
 // Here a rank is a (rank, block) column of one launch: on one card all n
 // ranks run in one launch (grid.y = n); across cards one launch per card
 // (grid.y = 1, rank0 = that card's rank), peers reached through peer
-// pointers.  The kernel body reads only a table of per-rank pointers, so
-// it does not know whether a peer is on its card.
+// pointers.  The kernel body reads only a table of per-rank pointers.
 //
-// What bounds it on an H100: bytes.  A gather hop reads a chunk from the
-// rank's own output (its input at hop 0) and writes it into the same place
-// of the neighbour's output; a K8b hop reads the partial sum that arrived
-// and the rank's own share, and writes their sum into the neighbour's slot.
-// There is no arithmetic but K8b's one add per element and hop.  On one
-// card all of it is HBM traffic.
+// What bounds it on an H100: bytes.  K8a must read each input once and
+// write n outputs of n chunks each (n + n^2 chunks of HBM traffic); K8b
+// must read each input once and write its chunk of the sum.  There is no
+// arithmetic but K8b's one add per element and hop.  What a ring adds on
+// top is the forwarded bytes: a rank reads back every chunk it passes on
+// (K8a) or every partial sum it adds to (K8b).  A whole-range hop (a whole
+// chunk a hop) reads them back from HBM on one card, because the n ranks
+// write n whole chunks between a chunk's arrival and its forward, far
+// more than the 50 MB L2; and it pays a signal, a fence and a poll per
+// hop.
 //
-// Design:
+// K8a and K8b: slice-pipelined hops (as NCCL's slice pipeline).
 // - Each rank's chunk is cut into ``blocks`` byte ranges of ``per_block``
-//   bytes (16-byte multiples); block b of rank r talks only to block b of
-//   its neighbours, so no block waits on another block of its own rank.
-//   Copies are 16-byte vectors through L2 (ld.cg / st.cg) where every
-//   pointer and the length allow it, else 4-, 2- or 1-byte words.
-// - Push, per (rank, direction, hop, block): the sender writes the
-//   payload, then sets the receiver's ``ready`` flag of that hop with
-//   st.release.sys after a system fence; the receiver polls it with
-//   ld.acquire.sys.  Each hop has its own flag, so a hop whose flag never
-//   came is not passed on a later hop's.  The gathers
-//   (K8a, K8c) write straight into the receiver's output, where each chunk
-//   has its own place, so nothing is written twice in a call and no slot
-//   is needed (the TPU stages each hop in a VMEM slot; here the output is
-//   as near as a slot would be).  K8b's partial sums go to the receiver's
-//   two slots in turn; a slot is written again two hops later, so before
-//   that the sender waits for the receiver's ``freed`` ack, which the
-//   receiver sets once it has added from the slot.  Hop 0 sends straight
-//   from the input, so a rank's slots are only ever written by its
-//   neighbour.
-// - Flags are tags ``epoch << 8 | hop + 1``; each (rank, block) keeps its
-//   own call counter (``epoch``) in device memory and bumps it once per
-//   call, so a later call, or a CUDA-graph replay of the same launch, never
-//   takes a flag of an earlier one for its own.  Calls on one workspace are
-//   ordered: stream order on one card, events across cards.
+//   bytes; block b of rank r talks only to block b of its neighbours.  Each
+//   range is cut into slices of S = 2^slice_log2 bytes (the last one
+//   ragged).  A block walks steps t = 0, 1, ...; at step t it runs hop i of
+//   slice t - lag * i for every hop i at once, so a slice goes round the
+//   ring ``lag`` steps a hop behind itself and a forwarded slice is read a
+//   step or two after it was written, while it is still in L2.  The
+//   working set, ranks x blocks x hops x S x (lag + 1), is kept under the
+//   L2 by ``kernels/ring.ring_plan``, which picks blocks, S, lag and slots.
+// - A step waits once for all its hops and signals once for all of them,
+//   so a signal's cost is paid once a step, not once a hop: lane j of warp
+//   0 plans hop j, waits for what it reads, and after the whole block has
+//   copied, releases what it wrote.  Waits poll without sleeping and read
+//   the error word and the clock only now and then.
+// - Memory route (K8a; K8b across cards, or over more than 8 ranks): each
+//   (rank, block, hop) has an arrival counter ``ready``, bumped by the
+//   sender with a release store to ``epoch << 32 | slices sent``.  K8a
+//   writes straight into the receiver's output (each chunk has its own
+//   place there); hop 0 reads the rank's input and also writes its own
+//   copy.  K8b's partial sums go into a ring of D = ``slots`` slices per
+//   (rank, block, hop) of the receiver's global workspace; the receiver
+//   adds its own share and sends the sum on (the last hop writes the
+//   output), then bumps the sender's ``freed`` counter; a sender writes
+//   slot s % D only once freed covers slice s - D.  The workspace is
+//   blocks x (n - 1) x D x S bytes a rank, whatever the chunk.
+// - Cluster route (K8b with 2 to 8 ranks on one card): block b of every
+//   rank is one thread-block cluster, so the slots are in the receiver's
+//   shared memory: a partial goes from the sender's registers straight
+//   into them (distributed shared memory) and never through L2, and the
+//   ready / freed counters are mbarriers there, arrived on remotely.  No
+//   block of a cluster waits on another cluster, so the grid need not be
+//   resident at once.  On the memory route the partials' round trip
+//   through L2 (twice the input's bytes at n = 8) bounded K8b.
+// - D > lag, so no step waits on a step of its own time.
+// - Adds stay in the input dtype, one correctly rounded add a hop in the
+//   ring's order (f32, or bf16 / f16 through f32 rounded to nearest even,
+//   as PyTorch's add does), so K8b matches its plain version bit for bit.
+// - Copies: 16-byte vectors, four a thread in flight (K8b: four pairs),
+//   over all the step's hops at once, when every base and the chunk are
+//   16-byte multiples; else the widest words the alignment allows, hop by
+//   hop.  Data written by another block is read through L2 (ld.cg); the
+//   inputs and the bytes no one reads again in the launch are streamed
+//   (ld.cs / st.cs).
+// - Scope (template): when every rank is on one card, GPU-scope acquire /
+//   release; across cards, system scope.
+//
+// K8c and K8d keep whole-range hops (one range a block), with the same
+// counters, waits and scopes; K8a and K8b over one rank are a copy, one
+// range a block.
+//
+// Safety, in every kernel:
+// - Global counters are tags ``epoch << 32 | count``; each (rank, block)
+//   keeps its own call counter (``epoch``) in device memory and bumps it
+//   once per call, so a later call, or a CUDA-graph replay of the same
+//   launch, never takes a count of an earlier one for its own (the
+//   cluster route's mbarriers are made anew by each launch).  Calls on one
+//   workspace are ordered: stream order on one card, events across cards.
 // - Every wait is bounded by the global timer (``timeout_ns``).  When it
-//   runs out the block writes an error word and returns; a block that sees
-//   the error word set while waiting returns too, so a fault ends the
-//   launch instead of hanging it.  The wrapper reads the word and raises.
-// - Co-residency: a block spins on a flag that another block sets, so all
-//   blocks of a launch must be resident at once.  ring_capacity() gives
-//   the number that fit; the wrapper keeps the grid within it.
-// - K8b adds in the input dtype (f32, or bf16 / f16 through f32 rounded to
-//   nearest even, as PyTorch's add does), in the ring's order, so it
-//   matches its plain version bit for bit.
+//   runs out the block writes an error word and stops; a block that sees
+//   the error word set while waiting stops too, so a fault ends the launch
+//   instead of hanging it (on the cluster route a stopped block still
+//   meets its peers at the final cluster barrier).  The wrapper reads the
+//   word and raises.
+// - Co-residency: on the memory route a block spins on a counter that
+//   another block sets, so all blocks of a launch must be resident at
+//   once.  ring_capacity() gives the number that fit; the wrapper keeps
+//   the grid within it.
 // - ``fault`` 1 plants a fault for the checks: in K8a-c rank 0 sends its
 //   first clockwise hop to right + 1 instead of right.
 
@@ -76,16 +112,29 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kClusterThreads = 256;  // K8b's cluster route: three an SM
 constexpr int kMaxRanks = 16;
 constexpr int kMaxBlocks = 256;  // per rank; sizes the flag arrays
+constexpr unsigned kPollsPerCheck = 16;  // a wait reads the error word and
+                                         // the clock once in so many polls
 
 // flag words of one rank (u64 each), kMaxBlocks of each:
-//   epoch, loopback count, barrier, freed[slot] (K8b), ready[dir][hop]
-constexpr int kEpoch = 0, kLoops = 1, kBarrier = 2, kFreed = 3, kReady = 5;
+//   epoch, loopback count, barrier, freed[hop] (K8b), ready[dir][hop]
+constexpr int kEpoch = 0, kLoops = 1, kBarrier = 2, kFreed = 3,
+              kReady = kFreed + kMaxRanks;
 constexpr int kFlagArrays = kReady + 2 * kMaxRanks;
 
-enum { kAllGather = 0, kReduceScatter = 1, kBidir = 2, kLoopback = 3 };
+enum {
+  kAllGather = 0,
+  kReduceScatter = 1,
+  kBidir = 2,
+  kLoopback = 3,
+  kReduceScatterCluster = 4,  // K8b with its slots in a cluster's shared
+                              // memory (one card)
+  kCopy = 5                   // K8a or K8b over one rank
+};
 enum { kWaitReady = 1, kWaitFreed = 2, kWaitBarrier = 3 };
+enum { kGpu = 0, kSys = 1 };
 
 struct Table {
   const char* x[kMaxRanks];
@@ -95,8 +144,8 @@ struct Table {
 };
 
 struct Args {
-  int n, shift, fault;
-  long long chunk, per_block, slot_bytes, timeout_ns;
+  int n, shift, fault, vec, lag, slots, slice_log2;
+  long long chunk, per_block, timeout_ns;
   unsigned int* err;
 };
 
@@ -105,29 +154,44 @@ __device__ __forceinline__ unsigned long long* flag(const Table& t, int rank,
   return t.flags[rank] + (long long)array * kMaxBlocks + b;
 }
 
-// One ready word per hop: a hop whose flag never came cannot be passed by
-// a later hop's flag.
+// One ready word per hop: a hop whose counter never came cannot be passed
+// by a later hop's.
 __device__ __forceinline__ int ready_array(int dir, int hop) {
   return kReady + dir * kMaxRanks + hop;
 }
 
-__device__ __forceinline__ char* slot_ptr(const Table& t, const Args& a,
-                                          int rank, int slot) {
-  return t.slots[rank] + (long long)slot * a.slot_bytes;
-}
-
+template <int S>
 __device__ __forceinline__ unsigned long long ld_acquire(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
+  if constexpr (S == kSys)
+    asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
+template <int S>
 __device__ __forceinline__ void st_release(unsigned long long* p,
                                            unsigned long long v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
+  if constexpr (S == kSys)
+    asm volatile("st.release.sys.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
+  else
+    asm volatile("st.release.gpu.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
+}
+
+// Makes the block's writes before the last __syncthreads visible at the
+// scope before the release stores that follow.
+template <int S>
+__device__ __forceinline__ void fence() {
+  if constexpr (S == kSys)
+    asm volatile("fence.acq_rel.sys;" ::: "memory");
+  else
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
 }
 
 __device__ __forceinline__ unsigned int ld_volatile(const unsigned int* p) {
@@ -144,8 +208,8 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 __device__ __forceinline__ unsigned long long tag(unsigned long long epoch,
-                                                  int hop) {
-  return (epoch << 8) | (unsigned long long)(hop + 1);
+                                                  long long count) {
+  return (epoch << 32) | (unsigned long long)count;
 }
 
 __device__ __forceinline__ unsigned int err_code(int kind, int rank, int hop,
@@ -154,26 +218,43 @@ __device__ __forceinline__ unsigned int err_code(int kind, int rank, int hop,
          ((unsigned)(hop & 0xfff) << 4) | (unsigned)what;
 }
 
+// One thread waits until *p >= want.  ``seen`` keeps the largest value
+// this thread has acquired from p, so a counter that is already ahead
+// costs no load.  The poll is a bare acquire load: the error word and the
+// clock are read once in kPollsPerCheck polls.  Returns false (after
+// writing the error word if it was this thread's limit that ran out) when
+// the launch is to stop.
+template <int S>
+__device__ bool thread_wait(const unsigned long long* p,
+                            unsigned long long want, unsigned long long* seen,
+                            const Args& a, unsigned int code) {
+  if (*seen >= want) return true;
+  unsigned long long v = ld_acquire<S>(p);
+  const unsigned long long t0 = global_ns();
+  for (unsigned polls = 1; v < want; ++polls) {
+    if ((polls & (kPollsPerCheck - 1)) == 0) {  // now and then: give up?
+      if (ld_volatile(a.err) != 0) return false;
+      if (global_ns() - t0 > (unsigned long long)a.timeout_ns) {
+        atomicCAS_system(a.err, 0u, code);
+        return false;
+      }
+    }
+    v = ld_acquire<S>(p);
+  }
+  *seen = v;
+  return true;
+}
+
 // Thread 0 waits until *p >= want; the whole block learns whether it got
-// there.  Returns false (after writing the error word if it was this
-// block's limit that ran out) when the launch is to stop.
+// there.  Returns false when the launch is to stop.
+template <int S>
 __device__ bool block_wait(const unsigned long long* p,
                            unsigned long long want, const Args& a,
                            unsigned int code) {
   __shared__ int ok;
   if (threadIdx.x == 0) {
-    ok = 1;
-    const unsigned long long t0 = global_ns();
-    while (ld_acquire(p) < want) {
-      if (ld_volatile(a.err) != 0) { ok = 0; break; }
-      if (global_ns() - t0 > (unsigned long long)a.timeout_ns) {
-        atomicCAS_system(a.err, 0u, code);
-        ok = 0;
-        break;
-      }
-      __nanosleep(64);
-    }
-    __threadfence();
+    unsigned long long seen = 0;
+    ok = thread_wait<S>(p, want, &seen, a, code) ? 1 : 0;
   }
   __syncthreads();
   const bool got = ok != 0;
@@ -181,21 +262,23 @@ __device__ bool block_wait(const unsigned long long* p,
   return got;
 }
 
-// After the block's writes: make them visible system-wide, then set *p.
+// After the block's writes: make them visible at the scope, then set *p.
+template <int S>
 __device__ __forceinline__ void block_signal(unsigned long long* p,
                                              unsigned long long v) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence_system();
-    st_release(p, v);
+    fence<S>();
+    st_release<S>(p, v);
   }
 }
 
-// dst[0:n) = src[0:n) by the whole block, in the widest words the
+// dst[0:n) = src[0:n) by threads 0 .. bd - 1, in the widest words the
 // alignment allows; through L2 (slots are written by other SMs or cards).
-__device__ void copy_bytes(char* dst, const char* src, long long n) {
+__device__ void copy_bytes(char* dst, const char* src, long long n,
+                           long long bd = kThreads) {
   const uintptr_t al = (uintptr_t)dst | (uintptr_t)src | (uintptr_t)n;
-  const long long tid = threadIdx.x, bd = blockDim.x;
+  const long long tid = threadIdx.x;
   if ((al & 15) == 0) {
     const int4* s = reinterpret_cast<const int4*>(src);
     int4* d = reinterpret_cast<int4*>(dst);
@@ -303,13 +386,14 @@ __device__ __forceinline__ void stcg_elem(T* p, T v) {
 }
 
 // dst = a + b elementwise in T over n bytes (a: a received partial sum read
-// through L2, b: the rank's own input).
+// through L2, b: the rank's own input) by threads 0 .. bd - 1, in the
+// widest words allowed.
 template <typename T>
 __device__ void add_bytes(char* dst, const char* a, const char* b,
-                          long long n) {
+                          long long n, long long bd) {
   const uintptr_t al = (uintptr_t)dst | (uintptr_t)a | (uintptr_t)b |
                        (uintptr_t)n;
-  const long long tid = threadIdx.x, bd = blockDim.x;
+  const long long tid = threadIdx.x;
   if ((al & 15) == 0) {
     const int4* pa = reinterpret_cast<const int4*>(a);
     const int4* pb = reinterpret_cast<const int4*>(b);
@@ -335,6 +419,7 @@ struct Block {
 
 // This block's byte range and call number; false if its range is empty
 // (then no rank's block b has anything to move).
+template <int S>
 __device__ bool block_setup(const Table& t, const Args& a, int rank0,
                             Block* blk) {
   __shared__ unsigned long long epoch;
@@ -344,7 +429,7 @@ __device__ bool block_setup(const Table& t, const Args& a, int rank0,
   if (blk->lo >= a.chunk) return false;
   blk->nb = min(a.per_block, a.chunk - blk->lo);
   if (threadIdx.x == 0)
-    epoch = ld_acquire(flag(t, blk->rank, kEpoch, blk->b)) + 1;
+    epoch = ld_acquire<S>(flag(t, blk->rank, kEpoch, blk->b)) + 1;
   __syncthreads();
   blk->epoch = epoch;
   return true;
@@ -355,93 +440,512 @@ __device__ void block_finish(const Table& t, const Block& blk) {
   if (threadIdx.x == 0) *flag(t, blk.rank, kEpoch, blk.b) = blk.epoch;
 }
 
+// ------------------------------------------------ K8a, K8b: sliced steps
+// One hop's work in one step: dst[0:len) = (a ? a + b : b), and also
+// dst2 = b (K8a's hop 0 keeps its own chunk).  ``b_in``: b is the rank's
+// input (streamed); ``last``: no one reads dst again in this launch.
+struct Job {
+  char* dst;   // global: the receiver's output, or (K8b) its slot
+  char* dst2;  // global: K8a's hop 0 keeps its own chunk here
+  char* peer;  // K8b's cluster route: the receiver's slot (shared memory)
+  const char* a;
+  const char* b;
+  int len;
+  int b_in, last;
+};
+
+// One job of the cluster route element by element: b is the rank's
+// input, a (if any) a slot in this block's shared memory, dst global and
+// peer a slot of a cluster peer.
+template <typename T, int kN>
+__device__ void cluster_elems(const Job& jb) {
+  const T* pa = reinterpret_cast<const T*>(jb.a);
+  const T* pb = reinterpret_cast<const T*>(jb.b);
+  for (int i = threadIdx.x; i < jb.len / (int)sizeof(T); i += kN) {
+    T v = ldcg_elem(pb + i);
+    if (pa) v = AddOp<T>::add(pa[i], v);
+    if (jb.dst) stcg_elem(reinterpret_cast<T*>(jb.dst) + i, v);
+    if (jb.peer) reinterpret_cast<T*>(jb.peer)[i] = v;
+  }
+}
+
+// The step's jobs by the block (kN threads).  ``kSmem`` (K8b's cluster
+// route): a and peer are slots in shared memory of this block or a
+// cluster peer, reached by generic addresses; else everything is global,
+// and what other blocks wrote is read through L2.
+// Vector path: item k is vector k & (2^vlog - 1) of job k >> vlog; each
+// thread loads kU items before it stores any, over all the step's hops at
+// once.
+template <typename T, bool kAdds, bool kSmem, int kN = kThreads>
+__device__ void run_jobs(const Job* jobs, int nj, int slice_log2, bool vec) {
+  if (!vec) {
+    for (int j = 0; j < nj; ++j) {
+      const Job& jb = jobs[j];
+      if constexpr (kSmem) {
+        cluster_elems<T, kN>(jb);
+        continue;
+      } else if constexpr (kAdds) {
+        if (jb.a) add_bytes<T>(jb.dst, jb.a, jb.b, jb.len, kN);
+        else copy_bytes(jb.dst, jb.b, jb.len, kN);
+      } else {
+        copy_bytes(jb.dst, jb.b, jb.len, kN);
+      }
+      if (jb.dst2) copy_bytes(jb.dst2, jb.b, jb.len, kN);
+    }
+    return;
+  }
+  constexpr int kU = 4;
+  const int vlog = slice_log2 - 4;
+  const int mask = (1 << vlog) - 1;
+  const int total = nj << vlog;
+  for (int base = threadIdx.x; base < total; base += kU * kN) {
+    int4 vb[kU], va[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int k = base + u * kN;
+      const int j = k >> vlog, e = k & mask;
+      if (k < total && (e << 4) < jobs[j].len) {
+        const Job& jb = jobs[j];
+        const int4* pb = reinterpret_cast<const int4*>(jb.b) + e;
+        vb[u] = jb.b_in ? __ldcs(pb) : __ldcg(pb);
+        if (kAdds && jb.a) {
+          const int4* pa = reinterpret_cast<const int4*>(jb.a) + e;
+          va[u] = kSmem ? *pa : __ldcg(pa);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int k = base + u * kN;
+      const int j = k >> vlog, e = k & mask;
+      if (k >= total || (e << 4) >= jobs[j].len) continue;
+      const Job& jb = jobs[j];
+      int4 v = vb[u];
+      if (kAdds && jb.a) v = AddOp<T>::add4(va[u], v);
+      if (jb.dst) {
+        int4* d = reinterpret_cast<int4*>(jb.dst) + e;
+        if (jb.last) __stcs(d, v);
+        else __stcg(d, v);
+      }
+      if (jb.dst2) __stcs(reinterpret_cast<int4*>(jb.dst2) + e, v);
+      if (kSmem && jb.peer) reinterpret_cast<int4*>(jb.peer)[e] = v;
+    }
+  }
+}
+
+// What lane ``hop`` of warp 0 does in step t: its job (if the hop runs),
+// its waits and its signals.
+struct Plan {
+  bool on;
+  Job job;
+  const unsigned long long* wait[2];
+  unsigned long long want[2];
+  unsigned long long* sig[2];
+  unsigned long long sig_v;
+  int sig_rank[2];  // the cluster peer of each signal (cluster K8b)
+};
+
+// K8a, hop i (0 .. n - 2) of slice s.
+__device__ void gather_hop(const Table& t, const Args& a, const Block& blk,
+                           int i, long long s, Plan* p) {
+  const int n = a.n, r = blk.rank, right = (r + 1) % n;
+  const long long off = s << a.slice_log2;
+  const int c = (r - i + n) % n;  // the rank whose chunk this hop moves
+  const long long at = (long long)((c + a.shift) % n) * a.chunk + blk.lo + off;
+  p->job.len = (int)min((long long)1 << a.slice_log2, blk.nb - off);
+  p->job.a = nullptr;
+  const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n : right;
+  p->job.dst = t.out[to] + at;
+  p->job.dst2 = i == 0 ? t.out[r] + at : nullptr;
+  p->job.b = i == 0 ? t.x[r] + blk.lo + off : t.out[r] + at;
+  p->job.b_in = i == 0;
+  p->job.last = i == n - 2;
+  if (i >= 1) {  // arrived at hop i - 1
+    p->wait[0] = flag(t, r, ready_array(0, i - 1), blk.b);
+    p->want[0] = tag(blk.epoch, s + 1);
+  }
+  p->sig[0] = flag(t, to, ready_array(0, i), blk.b);
+  p->sig_v = tag(blk.epoch, s + 1);
+}
+
+__device__ __forceinline__ char* slot_ptr(const Table& t, const Args& a,
+                                          int rank, int b, int hop,
+                                          long long s) {
+  const long long k = ((long long)b * (a.n - 1) + hop) * a.slots +
+                      s % a.slots;
+  return t.slots[rank] + (k << a.slice_log2);
+}
+
+// K8b, hop i (0 .. n - 1; hop n - 1 writes the output) of slice s.
+__device__ void reduce_hop(const Table& t, const Args& a, const Block& blk,
+                           int i, long long s, Plan* p) {
+  const int n = a.n, r = blk.rank;
+  const int left = (r + n - 1) % n, right = (r + 1) % n;
+  const long long off = s << a.slice_log2;
+  const int c = (r - i + n) % n;  // the chunk this hop adds to
+  p->job.len = (int)min((long long)1 << a.slice_log2, blk.nb - off);
+  p->job.b = t.x[r] + (long long)c * a.chunk + blk.lo + off;
+  p->job.b_in = 1;
+  p->job.dst2 = nullptr;
+  // the partial sum of chunk c that arrived at hop i - 1, and its ack
+  p->job.a = i >= 1 ? slot_ptr(t, a, r, blk.b, i - 1, s) : nullptr;
+  if (i >= 1) {
+    p->wait[0] = flag(t, r, ready_array(0, i - 1), blk.b);
+    p->want[0] = tag(blk.epoch, s + 1);
+    p->sig[1] = flag(t, left, kFreed + i - 1, blk.b);
+  }
+  p->sig_v = tag(blk.epoch, s + 1);
+  if (i == n - 1) {
+    p->job.dst = t.out[r] + blk.lo + off;
+    p->job.last = 1;
+    return;
+  }
+  const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n : right;
+  p->job.dst = slot_ptr(t, a, to, blk.b, i, s);
+  p->job.last = 0;
+  p->sig[0] = flag(t, to, ready_array(0, i), blk.b);
+  if (s >= a.slots) {  // slot s % D of ``to`` held slice s - D
+    p->wait[1] = flag(t, r, kFreed + i, blk.b);
+    p->want[1] = tag(blk.epoch, s - a.slots + 1);
+  }
+}
+
+// Lane ``lane`` of warp 0 plans its hop of step ``st`` and waits for what
+// the hop reads; false (in every lane) when the launch is to stop.
+template <bool kAdds, int S>
+__device__ bool plan_and_wait(const Table& t, const Args& a, const Block& blk,
+                              int hops, long long slices, long long st,
+                              int lane, unsigned long long* seen, Plan* p) {
+  p->on = false;
+  p->job.peer = nullptr;
+  p->wait[0] = p->wait[1] = nullptr;
+  p->sig[0] = p->sig[1] = nullptr;
+  p->sig_v = 0;
+  const long long s = st - (long long)a.lag * lane;
+  if (lane < hops && s >= 0 && s < slices) {
+    p->on = true;
+    if constexpr (kAdds) reduce_hop(t, a, blk, lane, s, p);
+    else gather_hop(t, a, blk, lane, s, p);
+  }
+  bool ok = true;
+  for (int w = 0; w < 2; ++w)
+    if (p->wait[w] &&
+        !thread_wait<S>(p->wait[w], p->want[w], &seen[w], a,
+                        err_code(kAdds ? kReduceScatter : kAllGather,
+                                 blk.rank, lane,
+                                 w == 0 ? kWaitReady : kWaitFreed)))
+      ok = false;
+  return __all_sync(0xffffffffu, ok);
+}
+
+// K8a (T unused) and K8b: ``hops`` hops a step, hop i on slice st - lag i.
+// Lane i of warp 0 plans hop i of the step and waits for what it reads;
+// the whole block copies; then warp 0 releases every hop's counter.
+template <typename T, bool kAdds, int S>
+__device__ void ring_steps(const Table& t, const Args& a, int rank0) {
+  __shared__ Job jobs[kMaxRanks];
+  __shared__ unsigned long long* sig[2][kMaxRanks];
+  __shared__ unsigned long long sig_v[kMaxRanks];
+  __shared__ int njobs, stop;
+  Block blk;
+  if (!block_setup<S>(t, a, rank0, &blk)) return;
+  const int hops = kAdds ? a.n : a.n - 1;
+  const long long slices =
+      (blk.nb + (1ll << a.slice_log2) - 1) >> a.slice_log2;
+  const long long steps = slices + (long long)a.lag * (hops - 1);
+  const int lane = threadIdx.x;  // in warp 0: lane i plans hop i
+  unsigned long long seen[2] = {0, 0};
+  for (long long st = 0; st < steps; ++st) {
+    if (lane < 32) {
+      Plan p;
+      const bool ok = plan_and_wait<kAdds, S>(t, a, blk, hops, slices, st,
+                                              lane, seen, &p);
+      const unsigned on = __ballot_sync(0xffffffffu, p.on);
+      if (p.on) jobs[__popc(on & ((1u << lane) - 1))] = p.job;
+      if (lane < kMaxRanks) {
+        sig[0][lane] = p.sig[0];
+        sig[1][lane] = p.sig[1];
+        sig_v[lane] = p.sig_v;
+      }
+      if (lane == 0) {
+        njobs = __popc(on);
+        stop = ok ? 0 : 1;
+      }
+    }
+    __syncthreads();
+    if (stop) return;
+    run_jobs<T, kAdds, false>(jobs, njobs, a.slice_log2, a.vec != 0);
+    __syncthreads();
+    if (lane < kMaxRanks) {  // the step's writes are done: a release store
+      // of each hop's counter orders them before it
+      if (sig[0][lane]) st_release<S>(sig[0][lane], sig_v[lane]);
+      if (sig[1][lane]) st_release<S>(sig[1][lane], sig_v[lane]);
+    }
+  }
+  if (lane == 0) *flag(t, blk.rank, kEpoch, blk.b) = blk.epoch;
+}
+
+// K8a and K8b over one rank: the rank's own copy, one range a block.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+ring_copy_kernel(Table t, Args a, int rank0) {
+  Block blk;
+  if (!block_setup<S>(t, a, rank0, &blk)) return;
+  copy_bytes(t.out[blk.rank] + blk.lo, t.x[blk.rank] + blk.lo, blk.nb);
+  block_finish(t, blk);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 2)
+ring_all_gather_kernel(Table t, Args a, int rank0) {
+  ring_steps<float, false, S>(t, a, rank0);
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads, 2)
+ring_reduce_scatter_kernel(Table t, Args a, int rank0) {
+  ring_steps<T, true, S>(t, a, rank0);
+}
+
+// ------------------------------------------- K8b on one card: a cluster
+// Block b of every rank forms one thread-block cluster (cluster dims (1,
+// n, 1)), so a partial sum goes from the sender's registers straight into
+// a slot in the receiver's shared memory and never through L2.  Per
+// (rank, block) there are ``slots`` slots of one slice per hop in shared
+// memory; mbarrier full[hop][slot] (in the receiver) completes when the
+// sender has written a slice there, empty[hop][slot] (in the sender) when
+// the receiver has read it.  The step schedule, the plans and the adds
+// are K8b's; only where the slots live and how they are signalled differ.
+constexpr int kMaxSlots = 4;
+
+// p in this block's shared memory -> the same place in cluster peer
+// ``rank``'s, as a generic address.
+__device__ __forceinline__ char* cluster_map(const void* p, int rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out) : "l"(p), "r"(rank));
+  return reinterpret_cast<char*>(out);
+}
+
+// One arrival (with release at cluster scope) on the barrier at the same
+// place as ``bar`` in cluster peer ``rank``.
+__device__ __forceinline__ void cluster_arrive(unsigned long long* bar,
+                                               int rank) {
+  const unsigned local = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               :: "r"(remote) : "memory");
+}
+
+__device__ __forceinline__ bool bar_test(const unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"((unsigned)__cvta_generic_to_shared(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// One thread waits for the phase of parity ``parity`` of a barrier in this
+// block's shared memory, bounded as thread_wait is.
+__device__ bool bar_wait(const unsigned long long* bar, unsigned parity,
+                         const Args& a, unsigned int code) {
+  if (bar_test(bar, parity)) return true;
+  const unsigned long long t0 = global_ns();
+  for (unsigned polls = 1; !bar_test(bar, parity); ++polls) {
+    if ((polls & (kPollsPerCheck - 1)) == 0) {  // now and then: give up?
+      if (ld_volatile(a.err) != 0) return false;
+      if (global_ns() - t0 > (unsigned long long)a.timeout_ns) {
+        atomicCAS_system(a.err, 0u, code);
+        return false;
+      }
+    }
+  }
+  return true;
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"((unsigned)__cvta_generic_to_shared(bar)) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+struct ClusterSlots {
+  char* slots;  // arrivals x ``slots`` x S bytes of dynamic smem
+  unsigned long long (*full)[kMaxSlots];
+  unsigned long long (*empty)[kMaxSlots];
+
+  __device__ char* at(const Args& a, int arrival, int d) const {
+    return slots + (((long long)arrival * a.slots + d) << a.slice_log2);
+  }
+};
+
+// The hop's slot handshakes on the cluster route: it reads slot d of
+// ``in_hop`` (>= 0) in this block, then frees it in the left; it writes
+// slot d of ``out_hop`` (>= 0) in ``to`` once ``to`` has freed it (use -
+// 1), then tells ``to``.
+__device__ void cluster_handshakes(const ClusterSlots& cs, int in_hop,
+                                   int out_hop, int d, unsigned use, int left,
+                                   int to, Plan* p) {
+  if (in_hop >= 0) {
+    p->wait[0] = &cs.full[in_hop][d];
+    p->want[0] = use & 1;
+    p->sig[1] = &cs.empty[in_hop][d];  // in the left
+    p->sig_rank[1] = left;
+  }
+  if (out_hop >= 0) {
+    p->sig[0] = &cs.full[out_hop][d];  // in ``to``
+    p->sig_rank[0] = to;
+    if (use >= 1) {
+      p->wait[1] = &cs.empty[out_hop][d];
+      p->want[1] = (use - 1) & 1;
+    }
+  }
+}
+
+// K8b, hop i (0 .. n - 1) of slice s on the cluster route.
+__device__ void reduce_hop_cluster(const Table& t, const Args& a,
+                                   const Block& blk, const ClusterSlots& cs,
+                                   int i, long long s, Plan* p) {
+  const int n = a.n, r = blk.rank;
+  const int left = (r + n - 1) % n, right = (r + 1) % n;
+  const long long off = s << a.slice_log2;
+  const int c = (r - i + n) % n;  // the chunk this hop adds to
+  const int d = (int)(s % a.slots);
+  const unsigned use = (unsigned)(s / a.slots);  // of slot d
+  const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n : right;
+  p->job.len = (int)min((long long)1 << a.slice_log2, blk.nb - off);
+  p->job.b = t.x[r] + (long long)c * a.chunk + blk.lo + off;
+  p->job.b_in = 1;
+  p->job.dst2 = nullptr;
+  // the partial of chunk c that arrived at hop i - 1
+  p->job.a = i >= 1 ? cs.at(a, i - 1, d) : nullptr;
+  const bool last = i == n - 1;
+  p->job.dst = last ? t.out[r] + blk.lo + off : nullptr;
+  p->job.last = last;
+  p->job.peer = last ? nullptr : cluster_map(cs.at(a, i, d), to);
+  cluster_handshakes(cs, i - 1, last ? -1 : i, d, use, left, to, p);
+}
+
+// K8b on one card, with block b of every rank one thread-block cluster:
+// the steps of ring_steps, but a partial sum passes from the sender's
+// registers into a slot in the receiver's shared memory, and the counters
+// are mbarriers there.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 3)
+ring_reduce_scatter_cluster_kernel(Table t, Args a, int rank0) {
+  extern __shared__ __align__(128) char cluster_slots[];
+  __shared__ unsigned long long full[kMaxRanks][kMaxSlots];
+  __shared__ unsigned long long empty[kMaxRanks][kMaxSlots];
+  __shared__ Job jobs[kMaxRanks];
+  __shared__ unsigned long long* sig[2][kMaxRanks];
+  __shared__ int sig_rank[2][kMaxRanks];
+  __shared__ int stop;
+  const ClusterSlots cs{cluster_slots, full, empty};
+  const int n = a.n, lane = threadIdx.x;
+  if (lane < 32) {
+    for (int k = lane; k < (n - 1) * a.slots; k += 32) {
+      bar_init(&full[k / a.slots][k % a.slots]);
+      bar_init(&empty[k / a.slots][k % a.slots]);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // every peer's barriers exist before any arrives
+  Block blk;
+  blk.rank = rank0 + blockIdx.y;
+  blk.b = blockIdx.x;
+  blk.lo = (long long)blockIdx.x * a.per_block;
+  blk.nb = min(a.per_block, a.chunk - blk.lo);
+  blk.epoch = 0;
+  const long long slices =
+      (blk.nb + (1ll << a.slice_log2) - 1) >> a.slice_log2;
+  const long long steps = slices + (long long)a.lag * (n - 1);
+  for (long long st = 0; st < steps; ++st) {
+    if (lane < 32) {
+      Plan p;
+      p.on = false;
+      p.job.len = 0;
+      p.job.a = nullptr;
+      p.job.dst = p.job.dst2 = p.job.peer = nullptr;
+      p.wait[0] = p.wait[1] = nullptr;
+      p.sig[0] = p.sig[1] = nullptr;
+      const long long s = st - (long long)a.lag * lane;
+      if (lane < n && s >= 0 && s < slices) {
+        p.on = true;
+        reduce_hop_cluster(t, a, blk, cs, lane, s, &p);
+      }
+      bool ok = true;
+      for (int w = 0; w < 2; ++w)
+        if (p.wait[w] &&
+            !bar_wait(p.wait[w], (unsigned)p.want[w], a,
+                      err_code(kReduceScatter, blk.rank, lane,
+                               w == 0 ? kWaitReady : kWaitFreed)))
+          ok = false;
+      ok = __all_sync(0xffffffffu, ok);
+      if (lane < kMaxRanks) {
+        jobs[lane] = p.job;  // by hop; len 0 where it does not run
+        sig[0][lane] = p.sig[0];
+        sig[1][lane] = p.sig[1];
+        sig_rank[0][lane] = p.sig_rank[0];
+        sig_rank[1][lane] = p.sig_rank[1];
+      }
+      if (lane == 0) stop = ok ? 0 : 1;
+    }
+    __syncthreads();
+    if (stop) break;
+    run_jobs<T, true, true, kClusterThreads>(jobs, n, a.slice_log2,
+                                             a.vec != 0);
+    __syncthreads();
+    if (lane < kMaxRanks) {  // release the step's writes and reads
+      asm volatile("fence.acq_rel.cluster;" ::: "memory");
+      if (sig[0][lane]) cluster_arrive(sig[0][lane], sig_rank[0][lane]);
+      if (sig[1][lane]) cluster_arrive(sig[1][lane], sig_rank[1][lane]);
+    }
+  }
+  cluster_sync();  // no peer still writes to or arrives on this block
+}
+
+// ------------------------------------------------- K8c, K8d: whole ranges
 // One hop of a ring gather in direction ``dir``: the chunk of rank ``c``
 // (this rank's input at hop 0, else what arrived at hop - 1) goes to the
 // same place in ``to``'s output; then ``to`` is told.
+template <int S>
 __device__ void gather_send(const Table& t, const Args& a, const Block& blk,
                             int dir, int to, int hop, int c) {
   const long long off = (long long)((c + a.shift) % a.n) * a.chunk + blk.lo;
   const char* src = hop == 0 ? t.x[blk.rank] + blk.lo : t.out[blk.rank] + off;
   copy_bytes(t.out[to] + off, src, blk.nb);
-  block_signal(flag(t, to, ready_array(dir, hop), blk.b),
-               tag(blk.epoch, hop));
+  block_signal<S>(flag(t, to, ready_array(dir, hop), blk.b),
+                  tag(blk.epoch, 1));
 }
 
 // Waits until the chunk of hop ``hop`` in direction ``dir`` has arrived.
+template <int S>
 __device__ __forceinline__ bool gather_wait(const Table& t, const Args& a,
                                             const Block& blk, int kind,
                                             int dir, int hop) {
-  return block_wait(flag(t, blk.rank, ready_array(dir, hop), blk.b),
-                    tag(blk.epoch, hop), a,
-                    err_code(kind, blk.rank, hop, kWaitReady));
+  return block_wait<S>(flag(t, blk.rank, ready_array(dir, hop), blk.b),
+                       tag(blk.epoch, 1), a,
+                       err_code(kind, blk.rank, hop, kWaitReady));
 }
 
-__global__ void __launch_bounds__(kThreads)
-ring_all_gather_kernel(Table t, Args a, int rank0) {
-  Block blk;
-  if (!block_setup(t, a, rank0, &blk)) return;
-  const int n = a.n, r = blk.rank, right = (r + 1) % n;
-  copy_bytes(t.out[r] + ((r + a.shift) % n) * a.chunk + blk.lo,
-             t.x[r] + blk.lo, blk.nb);
-  for (int i = 0; i < n - 1; ++i) {
-    const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n
-                                                      : right;
-    // send the chunk of rank r - i; then rank r - i - 1's arrives
-    gather_send(t, a, blk, 0, to, i, (r - i + n) % n);
-    if (!gather_wait(t, a, blk, kAllGather, 0, i)) return;
-  }
-  block_finish(t, blk);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ring_reduce_scatter_kernel(Table t, Args a, int rank0) {
-  Block blk;
-  if (!block_setup(t, a, rank0, &blk)) return;
-  const int n = a.n, r = blk.rank;
-  const int left = (r + n - 1) % n, right = (r + 1) % n;
-  const char* x = t.x[r];
-  for (int i = 0; i < n - 1; ++i) {
-    const int slot = (i + 1) & 1;
-    const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n
-                                                      : right;
-    if (i >= 2 &&
-        !block_wait(flag(t, r, kFreed + slot, blk.b), tag(blk.epoch, i - 2),
-                    a, err_code(kReduceScatter, r, i, kWaitFreed)))
-      return;
-    char* dst = slot_ptr(t, a, to, slot) + blk.lo;
-    if (i == 0) {
-      copy_bytes(dst, x + r * a.chunk + blk.lo, blk.nb);
-    } else {
-      // arrived at hop i - 1: the partial sum of chunk r - i; add my share
-      add_bytes<T>(dst, slot_ptr(t, a, r, i & 1) + blk.lo,
-                   x + ((r - i + n) % n) * a.chunk + blk.lo, blk.nb);
-    }
-    block_signal(flag(t, to, ready_array(0, i), blk.b), tag(blk.epoch, i));
-    // the slot that arrived at hop i - 1 is free again: tell the left
-    if (i >= 1 && threadIdx.x == 0)
-      st_release(flag(t, left, kFreed + (i & 1), blk.b),
-                 tag(blk.epoch, i - 1));
-    if (!block_wait(flag(t, r, ready_array(0, i), blk.b),
-                    tag(blk.epoch, i), a,
-                    err_code(kReduceScatter, r, i, kWaitReady)))
-      return;
-  }
-  char* out = t.out[r] + blk.lo;
-  if (n == 1) {
-    copy_bytes(out, x + blk.lo, blk.nb);
-  } else {
-    // the full sum of chunk r + 1: the last partial plus my share
-    add_bytes<T>(out, slot_ptr(t, a, r, (n - 1) & 1) + blk.lo,
-                 x + ((r + 1) % n) * a.chunk + blk.lo, blk.nb);
-  }
-  block_finish(t, blk);
-}
-
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 ring_bidir_all_gather_kernel(Table t, Args a, int rank0) {
   Block blk;
-  if (!block_setup(t, a, rank0, &blk)) return;
+  if (!block_setup<S>(t, a, rank0, &blk)) return;
   const int n = a.n, r = blk.rank;
   const int left = (r + n - 1) % n, right = (r + 1) % n;
   copy_bytes(t.out[r] + ((r + a.shift) % n) * a.chunk + blk.lo,
@@ -452,36 +956,42 @@ ring_bidir_all_gather_kernel(Table t, Args a, int rank0) {
   for (int i = 0; i < hops; ++i) {
     const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n
                                                       : right;
-    if (i < cw_hops) gather_send(t, a, blk, 0, to, i, (r - i + n) % n);
-    if (i < ccw_hops) gather_send(t, a, blk, 1, left, i, (r + i) % n);
-    if (i < cw_hops && !gather_wait(t, a, blk, kBidir, 0, i)) return;
-    if (i < ccw_hops && !gather_wait(t, a, blk, kBidir, 1, i)) return;
+    if (i < cw_hops) gather_send<S>(t, a, blk, 0, to, i, (r - i + n) % n);
+    if (i < ccw_hops) gather_send<S>(t, a, blk, 1, left, i, (r + i) % n);
+    if (i < cw_hops && !gather_wait<S>(t, a, blk, kBidir, 0, i)) return;
+    if (i < ccw_hops && !gather_wait<S>(t, a, blk, kBidir, 1, i)) return;
   }
   block_finish(t, blk);
 }
 
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 ring_loopback_kernel(Table t, Args a, int rank0) {
   Block blk;
-  if (!block_setup(t, a, rank0, &blk)) return;
+  if (!block_setup<S>(t, a, rank0, &blk)) return;
   const int n = a.n, r = blk.rank;
   const int left = (r + n - 1) % n, right = (r + 1) % n;
   // the neighbour barrier: signal both neighbours, wait for both
   __shared__ unsigned long long loops;
   if (threadIdx.x == 0) {
-    loops = ld_acquire(flag(t, r, kLoops, blk.b)) + 1;
-    atomicAdd_system(flag(t, left, kBarrier, blk.b), 1ull);
-    atomicAdd_system(flag(t, right, kBarrier, blk.b), 1ull);
+    loops = ld_acquire<S>(flag(t, r, kLoops, blk.b)) + 1;
+    if constexpr (S == kSys) {
+      atomicAdd_system(flag(t, left, kBarrier, blk.b), 1ull);
+      atomicAdd_system(flag(t, right, kBarrier, blk.b), 1ull);
+    } else {
+      atomicAdd(flag(t, left, kBarrier, blk.b), 1ull);
+      atomicAdd(flag(t, right, kBarrier, blk.b), 1ull);
+    }
   }
   __syncthreads();
-  if (!block_wait(flag(t, r, kBarrier, blk.b), 2 * loops, a,
-                  err_code(kLoopback, r, 0, kWaitBarrier)))
+  if (!block_wait<S>(flag(t, r, kBarrier, blk.b), 2 * loops, a,
+                     err_code(kLoopback, r, 0, kWaitBarrier)))
     return;
   // the "remote" copy: to this rank's output through the peer table
   copy_bytes(t.out[r] + blk.lo, t.x[r] + blk.lo, blk.nb);
-  block_signal(flag(t, r, ready_array(0, 0), blk.b), tag(blk.epoch, 0));
-  if (!block_wait(flag(t, r, ready_array(0, 0), blk.b), tag(blk.epoch, 0), a,
-                  err_code(kLoopback, r, 0, kWaitReady)))
+  block_signal<S>(flag(t, r, ready_array(0, 0), blk.b), tag(blk.epoch, 1));
+  if (!block_wait<S>(flag(t, r, ready_array(0, 0), blk.b), tag(blk.epoch, 1),
+                     a, err_code(kLoopback, r, 0, kWaitReady)))
     return;
   if (threadIdx.x == 0) *flag(t, r, kLoops, blk.b) = loops;
   block_finish(t, blk);
@@ -489,18 +999,38 @@ ring_loopback_kernel(Table t, Args a, int rank0) {
 
 typedef void (*RingKernel)(Table, Args, int);
 
-RingKernel pick(int kind, int dtype) {
+template <int S>
+RingKernel pick_scoped(int kind, int dtype) {
   switch (kind) {
-    case kAllGather: return ring_all_gather_kernel;
-    case kBidir: return ring_bidir_all_gather_kernel;
-    case kLoopback: return ring_loopback_kernel;
+    case kAllGather: return ring_all_gather_kernel<S>;
+    case kBidir: return ring_bidir_all_gather_kernel<S>;
+    case kLoopback: return ring_loopback_kernel<S>;
+    case kCopy: return ring_copy_kernel<S>;
     case kReduceScatter:
-      if (dtype == 0) return ring_reduce_scatter_kernel<float>;
-      if (dtype == 1) return ring_reduce_scatter_kernel<__nv_bfloat16>;
-      if (dtype == 2) return ring_reduce_scatter_kernel<__half>;
+      if (dtype == 0) return ring_reduce_scatter_kernel<float, S>;
+      if (dtype == 1) return ring_reduce_scatter_kernel<__nv_bfloat16, S>;
+      if (dtype == 2) return ring_reduce_scatter_kernel<__half, S>;
       return nullptr;
     default: return nullptr;
   }
+}
+
+RingKernel pick(int kind, int dtype, int scope) {
+  if (kind == kReduceScatterCluster) {
+    if (scope != kGpu) return nullptr;  // one card only
+    if (dtype == 0) return ring_reduce_scatter_cluster_kernel<float>;
+    if (dtype == 1) return ring_reduce_scatter_cluster_kernel<__nv_bfloat16>;
+    if (dtype == 2) return ring_reduce_scatter_cluster_kernel<__half>;
+    return nullptr;
+  }
+  if (scope == kGpu) return pick_scoped<kGpu>(kind, dtype);
+  if (scope == kSys) return pick_scoped<kSys>(kind, dtype);
+  return nullptr;
+}
+
+// The cluster K8b's dynamic shared memory: its slots.
+long long cluster_smem(int n, int slots, int slice_log2) {
+  return (long long)(n - 1) * slots << slice_log2;
 }
 
 // Makes ``device`` current for its lifetime and restores the caller's
@@ -521,10 +1051,10 @@ struct OnDevice {
 
 extern "C" {
 
-// Blocks of the ``kind`` kernel that can be resident on ``device`` at once
-// (a negative cudaError_t on failure).
-int ring_capacity(int kind, int dtype, int device) {
-  RingKernel k = pick(kind, dtype);
+// Blocks of the ``kind`` kernel at ``scope`` (0 GPU, 1 system) that can be
+// resident on ``device`` at once (a negative cudaError_t on failure).
+int ring_capacity(int kind, int dtype, int scope, int device) {
+  RingKernel k = pick(kind, dtype, scope);
   if (k == nullptr) return -(int)cudaErrorInvalidValue;
   OnDevice on(device);
   if (on.status != cudaSuccess) return -(int)on.status;
@@ -535,6 +1065,36 @@ int ring_capacity(int kind, int dtype, int device) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return -(int)e;
   return per_sm * sms;
+}
+
+// Clusters of the cluster K8b (n blocks of ``smem`` dynamic bytes each)
+// that can be resident on ``device`` at once (0 if none fits; a negative
+// cudaError_t on failure).
+int ring_cluster_capacity(int dtype, int n, int smem, int device) {
+  RingKernel k = pick(kReduceScatterCluster, dtype, kGpu);
+  if (k == nullptr || n < 2 || n > 8) return -(int)cudaErrorInvalidValue;
+  OnDevice on(device);
+  if (on.status != cudaSuccess) return -(int)on.status;
+  cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(k),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(1, n, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters,
+                                     reinterpret_cast<const void*>(k), &cfg);
+  if (e != cudaSuccess) return -(int)e;
+  return clusters;
 }
 
 // Lets kernels on ``device`` read and write ``peer``'s memory.
@@ -551,16 +1111,23 @@ int ring_enable_peer(int device, int peer) {
 
 // One launch of ranks rank0 .. rank0 + ranks_here - 1 on ``device``.
 // xs / outs / slots / flags hold the n ranks' pointers (peer pointers for
-// ranks on other cards).  Returns cudaGetLastError().
-int ring_launch(int kind, int dtype, int n, int rank0, int ranks_here,
-                int device, const long long* xs, const long long* outs,
-                const long long* slots, const long long* flags,
-                long long chunk, long long per_block, int blocks,
-                long long slot_bytes, int shift, int fault,
-                long long timeout_ns, void* err, void* stream) {
-  RingKernel k = pick(kind, dtype);
+// ranks on other cards).  K8a / K8b walk slices of 2^slice_log2 bytes,
+// ``lag`` steps a hop, through ``slots`` slots a hop (K8b); ``vec``: every
+// base and the chunk are 16-byte multiples.  Returns cudaGetLastError().
+int ring_launch(int kind, int dtype, int scope, int n, int rank0,
+                int ranks_here, int device, const long long* xs,
+                const long long* outs, const long long* slots,
+                const long long* flags, long long chunk, long long per_block,
+                int blocks, int slice_log2, int lag, int nslots, int vec,
+                int shift, int fault, long long timeout_ns, void* err,
+                void* stream) {
+  RingKernel k = pick(kind, dtype, scope);
+  const bool sliced = kind == kAllGather || kind == kReduceScatter ||
+                      kind == kReduceScatterCluster;
   if (k == nullptr || n < 1 || n > kMaxRanks || blocks < 1 ||
-      blocks > kMaxBlocks)
+      blocks > kMaxBlocks ||
+      (sliced && (slice_log2 < 4 || slice_log2 > 30 || lag < 1 ||
+                  (kind != kAllGather && n > 1 && nslots <= lag))))
     return (int)cudaErrorInvalidValue;
   OnDevice on(device);
   if (on.status != cudaSuccess) return (int)on.status;
@@ -575,11 +1142,38 @@ int ring_launch(int kind, int dtype, int n, int rank0, int ranks_here,
   a.n = n;
   a.shift = shift;
   a.fault = fault;
+  a.vec = vec;
+  a.lag = lag;
+  a.slots = nslots;
+  a.slice_log2 = slice_log2;
   a.chunk = chunk;
   a.per_block = per_block;
-  a.slot_bytes = slot_bytes;
   a.timeout_ns = timeout_ns;
   a.err = reinterpret_cast<unsigned int*>(err);
+  if (kind == kReduceScatterCluster) {  // block b of every rank: a cluster
+    if (ranks_here != n || n < 2 || n > 8 || nslots > kMaxSlots)
+      return (int)cudaErrorInvalidValue;
+    const long long smem = cluster_smem(n, nslots, slice_log2);
+    cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(k),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = n;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks, n, 1);
+    cfg.blockDim = dim3(kClusterThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, k, t, a, rank0);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   k<<<dim3(blocks, ranks_here), kThreads, 0,
       reinterpret_cast<cudaStream_t>(stream)>>>(t, a, rank0);
   return (int)cudaGetLastError();

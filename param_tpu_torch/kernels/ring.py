@@ -22,6 +22,18 @@ the same order, so the kernels match them bit for bit.  Counterparts of
 ``_ring_reduce_scatter_kernel``, ``_bidir_all_gather_kernel`` and
 ``_loopback_kernel``.
 
+K8a and K8b walk slices: :func:`ring_plan` (a pure function of the kind,
+the chunk's bytes, the rank count, the co-resident capacity and whether
+all ranks share a card) picks the route, the blocks a rank, the slice
+bytes S, the ``lag`` in steps between a slice's hops, K8b's slots a hop
+and the signals' scope, so that a forwarded slice is read back from L2
+(K8a), and K8b's partial sums pass through shared memory (one card, 2 to
+8 ranks: the cluster route) or through a global workspace of blocks x (n
+- 1) x slots x S bytes a rank whatever the chunk.  S, the lag and the
+slots are this module's constants; :func:`forced_route` makes K8b take
+one route (tests, and holding the route the plan did not pick).  K8c and
+K8d keep one range a block.
+
 Every wait in the kernels is bounded (``timeout_s``); a wait that runs out
 sets an error word, and the wrapper raises (by default it synchronises and
 reads the word after each call; ``check=False`` leaves that to
@@ -31,25 +43,47 @@ workspace's flags are zeroed, so the next call starts clean.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from param_tpu_torch.kernels import bindings, launch_counts
 
 MAX_RANKS = 16
-BLOCK_BYTES = 64 * 1024  # chunk bytes per block before another is added
+MAX_BLOCKS = 256  # per rank: csrc/ring.cu's kMaxBlocks (ring_max_blocks)
+BLOCK_BYTES = 64 * 1024  # K8c / K8d: chunk bytes per block before another
+SLICE_BYTES = 8 * 1024  # K8a / K8b: bytes of one slice of one hop (twice
+# that where a step has at most two hops)
+ACROSS_SLICE_BYTES = 64 * 1024  # K8a / K8b with one rank a card
+LAG = 1  # steps between a slice's hop and its next hop
+SLOTS = LAG + 1  # K8b's slots a hop (more than the lag, or the ring would
+# wait on itself)
+L2_BUDGET = 32 << 20  # bytes of one card's slices in flight, times lag + 1
+ACROSS_BUDGET = 128 << 20  # the same across cards, where the link binds:
+# it only bounds K8b's workspace
+CLUSTER_SMEM = 64 * 1024  # cluster K8b: slot bytes a block (three an SM)
+CLUSTER_MAX_RANKS = 8  # the portable cluster size
+CLUSTER_MIN_INPUT = 4 << 20  # K8b takes the cluster route from this many
+# input bytes a rank: below it the cluster's set-up costs more than it
+# saves (both routes' times on the H100, chip_smoke.py phase 17, cross
+# between 2 and 4 MiB at n 2 and 8; at n = 4 they tie at 2 MiB)
 TIMEOUT_S = 1.0
 ADD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _KINDS = {"all_gather": 0, "reduce_scatter": 1, "bidir": 2, "loopback": 3}
+_ROUTE_KINDS = {"cluster": 4, "copy": 5}  # csrc/ring.cu's kernels for them
+_SCOPES = {"gpu": 0, "sys": 1}
 _COUNTS = {"all_gather": "ring_all_gather",
            "reduce_scatter": "ring_reduce_scatter",
            "bidir": "ring_bidir_all_gather", "loopback": "ring_loopback"}
 _WAITS = {1: "ready flag", 2: "freed ack", 3: "neighbour barrier"}
+ROUTES = ("memory", "cluster")  # K8b's routes over two or more ranks
+_forced_route: Optional[str] = None  # the route forced_route sets, if any
 
 
 # ------------------------------------------------------------ plain versions
@@ -123,12 +157,180 @@ def ring_loopback_plain(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [x.clone() for x in shards]
 
 
+# ------------------------------------------------------------------ plan
+@dataclass(frozen=True)
+class RingPlan:
+    """How one ring launch cuts its chunk (``chunk_bytes`` a rank).
+
+    ``blocks`` a rank, each over ``per_block`` bytes (a 16-byte multiple;
+    the last block takes the rest); each block's range in slices of
+    ``slice_bytes`` (the last one ragged); a slice's hop i runs ``lag``
+    steps after its hop i - 1; K8b receives each hop in ``slots`` slots of
+    one slice, in global memory (``route`` "memory": ``workspace_bytes``
+    of them a rank) or, on K8b's ``route`` "cluster" (one card, 2 to 8
+    ranks, block b of every rank one thread-block cluster), in the
+    receiver's shared memory; over one rank they are a copy (``route``
+    "copy", one slice a block); ``scope`` "gpu" when all ranks share a
+    card, else "sys"."""
+    kind: str
+    blocks: int
+    per_block: int
+    slice_bytes: int
+    lag: int
+    slots: int
+    scope: str
+    workspace_bytes: int
+    route: str = "memory"
+
+    @property
+    def sliced(self) -> bool:
+        return (self.kind in ("all_gather", "reduce_scatter") and
+                self.route != "copy")
+
+    def text(self) -> str:
+        if not self.sliced:
+            return (f"{self.blocks} blocks a rank, one range of "
+                    f"{self.per_block} B each, {self.scope} scope")
+        slots = (f", {self.slots} slots a hop in "
+                 f"{'shared' if self.route == 'cluster' else 'global'} "
+                 f"memory" if self.slots else "")
+        return (f"{self.blocks} blocks a rank, S {self.slice_bytes} B, lag "
+                f"{self.lag}{slots}, {self.scope} scope")
+
+
+def cluster_shape(n: int) -> Tuple[int, int, int]:
+    """The cluster K8b's (slice bytes, slots a hop, shared-memory bytes a
+    block) for ``n`` ranks: ``SLOTS`` slices for each of the n - 1 hops
+    that receive, the largest power-of-two slice up to ``SLICE_BYTES``
+    (twice that for two ranks) whose slots fit in ``CLUSTER_SMEM``."""
+    slice_bytes = SLICE_BYTES * (2 if n <= 2 else 1)
+    while slice_bytes > 16 and (n - 1) * SLOTS * slice_bytes > CLUSTER_SMEM:
+        slice_bytes //= 2
+    return slice_bytes, SLOTS, (n - 1) * SLOTS * slice_bytes
+
+
+def _per_block(chunk_bytes: int, blocks: int, slice_bytes: int) -> int:
+    """Bytes a block: whole slices where a block has more than one, else a
+    16-byte multiple."""
+    per_block = -(-chunk_bytes // blocks)
+    per_block = (-(-per_block // slice_bytes) * slice_bytes
+                 if per_block > slice_bytes else -(-per_block // 16) * 16)
+    return max(16, per_block)
+
+
+def ring_plan(kind: str, chunk_bytes: int, n: int, capacity: int,
+              one_card: bool, max_blocks: int = MAX_BLOCKS,
+              cluster_capacity: int = 0,
+              route: Optional[str] = None) -> RingPlan:
+    """The launch plan of ring kernel ``kind`` for ``chunk_bytes`` a rank
+    over ``n`` ranks, when ``capacity`` blocks of it fit on a card at once
+    (``cluster_capacity`` clusters of K8b's cluster kernel), the kernel
+    takes at most ``max_blocks`` blocks a rank, and ``one_card`` says
+    whether every rank is on the same card.
+
+    K8a / K8b on one card: slices of ``SLICE_BYTES`` (twice that where a
+    step has at most two hops, so a step still moves enough bytes), blocks
+    a rank within the capacity, ``max_blocks`` and the L2 budget (ranks on
+    the card x hops x slice x (LAG + 1), or x SLOTS for K8b if more, bytes
+    in flight at most ``L2_BUDGET``), and no more than there are slices.
+    Across cards, slices of ``ACROSS_SLICE_BYTES`` within ``ACROSS_BUDGET``:
+    the link, not the L2, binds there, and a system-scope signal costs
+    more, so a step moves more.  K8b with 2 to 8 ranks on one card and at
+    least ``CLUSTER_MIN_INPUT`` input bytes a rank takes the cluster
+    route (slots in shared memory, :func:`cluster_shape`) where a cluster
+    fits, with up to ``cluster_capacity`` blocks a rank; ``route`` (what
+    :func:`forced_route` sets) makes K8b over two or more ranks take that
+    route whatever the size, and raises where it cannot run.
+
+    K8c / K8d, and K8a / K8b over one rank (a copy, ``route`` "copy"): one
+    whole range a block, ``BLOCK_BYTES`` a block up to the capacity."""
+    if kind not in _KINDS:
+        raise ValueError(f"unknown ring kernel {kind!r}")
+    if not 1 <= n <= MAX_RANKS:
+        raise ValueError(f"the rings take 1 to {MAX_RANKS} ranks, got {n}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown K8b route {route!r}; one of {ROUTES}")
+    ranks_here = n if one_card else 1
+    if capacity < ranks_here:
+        raise RuntimeError(f"{ranks_here} ranks of the ring kernel cannot all "
+                           f"be resident on one card ({capacity} blocks fit)")
+    scope = "gpu" if one_card else "sys"
+    cap_blocks = min(max_blocks, capacity // ranks_here)
+    sliced = kind in ("all_gather", "reduce_scatter")
+    if not sliced or n == 1:  # one whole range a block
+        blocks = max(1, min(math.ceil(chunk_bytes / BLOCK_BYTES), cap_blocks))
+        per_block = max(16, -(-chunk_bytes // blocks // 16) * 16)
+        blocks = max(1, -(-chunk_bytes // per_block))
+        if not sliced:
+            return RingPlan(kind, blocks, per_block, per_block, 0, 0, scope, 0)
+        # K8a / K8b over one rank: the rank's own copy
+        return RingPlan(kind, blocks, per_block,
+                        1 << (per_block - 1).bit_length(), 0, 0, scope, 0,
+                        "copy")
+    adds = kind == "reduce_scatter"
+    hops = n if adds else n - 1
+    can_cluster = (adds and one_card and 2 <= n <= CLUSTER_MAX_RANKS and
+                   cluster_capacity > 0)
+    if adds and route == "cluster" and not can_cluster:
+        raise ValueError(f"the cluster route takes K8b over 2 to "
+                         f"{CLUSTER_MAX_RANKS} ranks on one card where a "
+                         f"cluster fits; got n={n}, one_card={one_card}, "
+                         f"{cluster_capacity} clusters")
+    if can_cluster and (n * chunk_bytes >= CLUSTER_MIN_INPUT
+                        if route is None else route == "cluster"):
+        size, nslots, _ = cluster_shape(n)
+        blocks = max(1, min(max_blocks, cluster_capacity,
+                            math.ceil(chunk_bytes / size)))
+        per_block = _per_block(chunk_bytes, blocks, size)
+        return RingPlan(kind, max(1, -(-chunk_bytes // per_block)), per_block,
+                        size, LAG, nslots, scope, 0, "cluster")
+    slice_bytes = (SLICE_BYTES * (2 if hops <= 2 else 1) if one_card
+                   else ACROSS_SLICE_BYTES)
+    nslots = SLOTS if adds else 0
+    in_flight = ranks_here * hops * slice_bytes * max(LAG + 1, nslots)
+    budget = L2_BUDGET if one_card else ACROSS_BUDGET
+    blocks = max(1, min(cap_blocks, budget // in_flight,
+                        math.ceil(chunk_bytes / slice_bytes)))
+    per_block = _per_block(chunk_bytes, blocks, slice_bytes)
+    blocks = max(1, -(-chunk_bytes // per_block))
+    work = blocks * (n - 1) * nslots * slice_bytes if adds else 0
+    return RingPlan(kind, blocks, per_block, slice_bytes, LAG, nslots, scope,
+                    work)
+
+
+@contextlib.contextmanager
+def forced_route(route: str):
+    """Within the block every K8b launch over two or more ranks takes
+    ``route`` ("memory" or "cluster") instead of the one :func:`ring_plan`
+    picks, and raises where ``route`` cannot run (the cluster route across
+    cards, or over more than ``CLUSTER_MAX_RANKS`` ranks).  The other ring
+    kernels have one route each and are not affected."""
+    global _forced_route
+    if route not in ROUTES:
+        raise ValueError(f"unknown K8b route {route!r}; one of {ROUTES}")
+    outer, _forced_route = _forced_route, route
+    try:
+        yield
+    finally:
+        _forced_route = outer
+
+
 # ------------------------------------------------------------------ CUDA
 @lru_cache(maxsize=None)
-def _capacity(kind: int, dtype: int, device: int) -> int:
-    cap = bindings.entry("ring", "ring_capacity")(kind, dtype, device)
+def _capacity(kind: int, dtype: int, scope: int, device: int) -> int:
+    cap = bindings.entry("ring", "ring_capacity")(kind, dtype, scope, device)
     if cap < 0:
         raise RuntimeError(f"ring_capacity failed with CUDA error {-cap}")
+    return cap
+
+
+@lru_cache(maxsize=None)
+def _cluster_capacity(dtype: int, n: int, smem: int, device: int) -> int:
+    cap = bindings.entry("ring", "ring_cluster_capacity")(dtype, n, smem,
+                                                           device)
+    if cap < 0:
+        raise RuntimeError(f"ring_cluster_capacity failed with CUDA error "
+                           f"{-cap}")
     return cap
 
 
@@ -142,10 +344,11 @@ def _enable_peer_access(device: int, peer: int) -> None:
 
 
 class _Workspace:
-    """Per-rank flag words and the reduce-scatter's two comm slots of one
-    set of ranks, the error word, and (across cards) one event per card
-    that every rank's start waits on.  The gathers need no slots: they
-    write straight into the neighbour's output."""
+    """Per-rank flag words and the reduce-scatter's slots (``ring_plan``'s
+    workspace bytes, the largest asked for so far) of one set of ranks,
+    the error word, and (across cards) one event per card that every
+    rank's start waits on.  The gathers need no slots: they write straight
+    into the neighbour's output."""
 
     def __init__(self, devices: Tuple[torch.device, ...]):
         words = bindings.entry("ring", "ring_flag_words")()
@@ -153,8 +356,9 @@ class _Workspace:
         self.flags = [torch.zeros(words, dtype=torch.int64, device=d)
                       for d in devices]
         self.err = torch.zeros(1, dtype=torch.int32, device=devices[0])
-        self.slots: List[torch.Tensor] = []
-        self.slot_bytes = 0
+        self.slots = [torch.empty(256, dtype=torch.uint8, device=d)
+                      for d in devices]
+        self.slot_bytes = 256
         self.queued = [torch.cuda.Event() for _ in devices]
         self.streams: List[torch.cuda.Stream] = []
 
@@ -163,7 +367,7 @@ class _Workspace:
             return
         self.sync()  # no launch may still use the old slots
         size = -(-nbytes // 256) * 256
-        self.slots = [torch.empty(2 * size, dtype=torch.uint8, device=d)
+        self.slots = [torch.empty(size, dtype=torch.uint8, device=d)
                       for d in self.devices]
         self.slot_bytes = size
 
@@ -232,39 +436,63 @@ def _check_shards(shards: Sequence[torch.Tensor], adds: bool) -> None:
                         f"{x0.dtype}")
 
 
+def launch_plan(kind: str, shards: Sequence[torch.Tensor],
+                chunk: int) -> RingPlan:
+    """:func:`ring_plan` for ``shards`` (CUDA) and ``chunk`` bytes a rank,
+    with the capacity of the kernel on their cards and the route
+    :func:`forced_route` sets, if any."""
+    n = len(shards)
+    one_card = len({x.device for x in shards}) == 1
+    code = _KINDS[kind]
+    dtype = ADD_DTYPES.get(shards[0].dtype, 0)
+    scope = _SCOPES["gpu" if one_card else "sys"]
+    cap = min(_capacity(code, dtype, scope, d.index)
+              for d in {x.device for x in shards})
+    clusters = 0
+    if (kind == "reduce_scatter" and one_card and
+            2 <= n <= CLUSTER_MAX_RANKS):
+        clusters = _cluster_capacity(dtype, n, cluster_shape(n)[2],
+                                     shards[0].device.index)
+    return ring_plan(kind, chunk, n, cap, one_card,
+                     bindings.entry("ring", "ring_max_blocks")(), clusters,
+                     _forced_route if kind == "reduce_scatter" else None)
+
+
+def _count(kind: str, plan: RingPlan) -> None:
+    """One launch of ``kind``; K8a / K8b also count it by route."""
+    launch_counts[_COUNTS[kind]] += 1
+    if kind in ("all_gather", "reduce_scatter"):
+        launch_counts[f"{_COUNTS[kind]}_{plan.route}"] += 1
+
+
 def _launch(kind: str, shards: Sequence[torch.Tensor],
             outs: Sequence[torch.Tensor], chunk: int, shift: int, fault: int,
             timeout_s: float, check: bool) -> None:
     n = len(shards)
     ws = _workspace(shards)
-    if kind == "reduce_scatter":
-        ws.ensure_slots(chunk)
+    one_card = len(set(ws.devices)) == 1
+    dtype = ADD_DTYPES.get(shards[0].dtype, 0)
+    plan = launch_plan(kind, shards, chunk)
+    code = _ROUTE_KINDS.get(plan.route, _KINDS[kind])
+    scope = _SCOPES[plan.scope]
+    ws.ensure_slots(plan.workspace_bytes)
     if chunk == 0:
         return
-    one_card = len(set(ws.devices)) == 1
-    ranks_here = n if one_card else 1
-    code = _KINDS[kind]
-    dtype = ADD_DTYPES.get(shards[0].dtype, 0)
-    cap = min(_capacity(code, dtype, d.index) for d in set(ws.devices))
-    if cap < ranks_here:
-        raise RuntimeError(f"{ranks_here} ranks of the ring kernel cannot all "
-                           f"be resident on one card ({cap} blocks fit)")
-    max_blocks = bindings.entry("ring", "ring_max_blocks")()
-    blocks = max(1, min(math.ceil(chunk / BLOCK_BYTES), max_blocks,
-                        cap // ranks_here))
-    per_block = -(-chunk // blocks // 16) * 16
-    blocks = -(-chunk // per_block)
+    vec = int(chunk % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for ts in (shards, outs) for t in ts))
     table = [(ctypes.c_longlong * n)(*[t.data_ptr() for t in ts])
              for ts in (shards, outs, ws.slots, ws.flags)]
     fn = bindings.entry("ring", "ring_launch")
-    args = (chunk, per_block, blocks, ws.slot_bytes, shift, fault,
-            int(timeout_s * 1e9), ws.err.data_ptr())
+    args = (chunk, plan.per_block, plan.blocks,
+            plan.slice_bytes.bit_length() - 1 if plan.sliced else 0,
+            plan.lag, plan.slots, vec, shift, fault, int(timeout_s * 1e9),
+            ws.err.data_ptr())
     if one_card:
         d = ws.devices[0]
-        rc = fn(code, dtype, n, 0, n, d.index, *table, *args,
+        rc = fn(code, dtype, scope, n, 0, n, d.index, *table, *args,
                 torch.cuda.current_stream(d).cuda_stream)
         bindings.check(rc, f"ring {kind}")
-        launch_counts[_COUNTS[kind]] += 1
+        _count(kind, plan)
     else:
         streams = [torch.cuda.current_stream(d) for d in ws.devices]
         if streams != ws.streams:  # the last call may run on other streams
@@ -280,10 +508,10 @@ def _launch(kind: str, shards: Sequence[torch.Tensor],
                 if p != r:
                     s.wait_event(ev)
         for r, (d, s) in enumerate(zip(ws.devices, streams)):
-            rc = fn(code, dtype, n, r, 1, d.index, *table, *args,
+            rc = fn(code, dtype, scope, n, r, 1, d.index, *table, *args,
                     s.cuda_stream)
             bindings.check(rc, f"ring {kind} on {d}")
-            launch_counts[_COUNTS[kind]] += 1
+            _count(kind, plan)
     if check:
         ws.raise_if_failed()
 
@@ -307,7 +535,8 @@ def ring_reduce_scatter_cuda(shards: Sequence[torch.Tensor], *,
                              fault: int = 0, timeout_s: float = TIMEOUT_S,
                              check: bool = True) -> List[torch.Tensor]:
     """Launch K8b; returns one (c, ...) tensor per rank (the shards are
-    (n c, ...))."""
+    (n c, ...)), on the route :func:`ring_plan` picks (or
+    :func:`forced_route` sets)."""
     shards = list(shards)
     _check_shards(shards, adds=True)
     n = len(shards)

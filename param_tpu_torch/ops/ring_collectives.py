@@ -56,8 +56,12 @@ def ring_all_reduce(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     if _on_card(shards):
         sums = ring.ring_reduce_scatter_cuda(shards, check=False)
         # rank d holds the sum of chunk (d + 1) % n: the gather's shift of
-        # one puts chunk j at index j (the reference's roll by one)
-        gathered = ring.ring_all_gather_cuda(sums, shift=1)
+        # one puts chunk j at index j (the reference's roll by one); under
+        # a CUDA-graph capture the check is ring.check_errors's, after a
+        # replay
+        gathered = ring.ring_all_gather_cuda(
+            sums, shift=1,
+            check=not torch.cuda.is_current_stream_capturing())
     else:
         gathered = ring.ring_all_gather_plain(
             ring.ring_reduce_scatter_plain(shards), shift=1)

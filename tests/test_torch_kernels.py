@@ -33,6 +33,7 @@ product of the upcast operands: atol 1e-4, rtol 1e-3 (one bf16 rounding of
 P may flip where a logit sums in another order).
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -62,9 +63,13 @@ from param_tpu_torch.kernels.int4_gemm import (
     int4_schedule, mma_schedule, stream_tile, takes,
 )
 from param_tpu_torch.kernels.ring import (
-    check_errors, ring_all_gather_bidir_cuda, ring_all_gather_bidir_plain,
+    ACROSS_BUDGET, ACROSS_SLICE_BYTES, CLUSTER_MIN_INPUT, CLUSTER_SMEM,
+    L2_BUDGET, LAG, MAX_BLOCKS, SLICE_BYTES, SLOTS, check_errors,
+    cluster_shape, forced_route,
+    ring_all_gather_bidir_cuda, ring_all_gather_bidir_plain,
     ring_all_gather_cuda, ring_all_gather_plain, ring_loopback_cuda,
-    ring_loopback_plain, ring_reduce_scatter_cuda, ring_reduce_scatter_plain,
+    ring_loopback_plain, ring_plan, ring_reduce_scatter_cuda,
+    ring_reduce_scatter_plain,
 )
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
@@ -1185,11 +1190,13 @@ def test_ring_kernel_matches_plain(cuda_device, kind, dtype, n):
 def test_ring_all_reduce_matches_plain_and_sum(cuda_device, n):
     from param_tpu_torch.ops.ring_collectives import ring_all_reduce
 
-    xs = _ring_shards(n, (n * 1024, 4), torch.float32, cuda_device, seed=3)
-    got = ring_all_reduce(xs)
-    want = ring_all_reduce([x.cpu() for x in xs])
-    _assert_ring_bitwise([g.cpu() for g in got], want)
-    torch.testing.assert_close(got[0], sum(xs), rtol=1e-5, atol=1e-5)
+    # 16 KiB a rank, and n x 4 MiB a rank: K8b's cluster route for n >= 2
+    for rows in (n * 1024, n * 262144):
+        xs = _ring_shards(n, (rows, 4), torch.float32, cuda_device, seed=3)
+        got = ring_all_reduce(xs)
+        want = ring_all_reduce([x.cpu() for x in xs])
+        _assert_ring_bitwise([g.cpu() for g in got], want)
+        torch.testing.assert_close(got[0], sum(xs), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -1210,6 +1217,264 @@ def test_ring_kernels_repeat_and_replay_from_a_graph(cuda_device):
         graph.replay()
         check_errors(xs)
         _assert_ring_bitwise(outs, ring_reduce_scatter_plain(xs))
+    # K8a with the all-reduce's shift of one, and ring_all_reduce (K8b then
+    # K8a) as a whole, captured and replayed
+    from param_tpu_torch.ops.ring_collectives import ring_all_reduce
+
+    # and K8b on its cluster route
+    ring_all_gather_cuda(xs, shift=1, check=False)
+    ring_all_reduce(xs)
+    with forced_route("cluster"):
+        ring_reduce_scatter_cuda(xs, check=False)
+    check_errors(xs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gathered = ring_all_gather_cuda(xs, shift=1, check=False)
+        reduced = ring_all_reduce(xs)
+        with forced_route("cluster"):
+            clustered = ring_reduce_scatter_cuda(xs, check=False)
+    for step in range(3):
+        for x in xs:
+            x.mul_(-0.5).add_(0.25)
+        graph.replay()
+        check_errors(xs)
+        _assert_ring_bitwise(gathered, ring_all_gather_plain(xs, shift=1))
+        _assert_ring_bitwise([r.cpu() for r in reduced],
+                             ring_all_reduce([x.cpu() for x in xs]))
+        _assert_ring_bitwise(clustered, ring_reduce_scatter_plain(xs))
+
+
+# K8a / K8b's plan: pure, so checked on the CPU
+_SLICED = ("all_gather", "reduce_scatter")
+
+
+def _plan_slices(plan, chunk):
+    """(offset, bytes) of every slice of ``plan``, block by block, as the
+    kernels walk them: block b over [b per_block, (b + 1) per_block), cut
+    into slices of slice_bytes, the last one ragged."""
+    out = []
+    for b in range(plan.blocks):
+        lo = b * plan.per_block
+        hi = min(lo + plan.per_block, chunk)
+        out.append([(o, min(plan.slice_bytes, hi - o))
+                    for o in range(lo, hi, plan.slice_bytes)])
+    return out
+
+
+@pytest.mark.parametrize("kind", _SLICED)
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("chunk", [2, 16, 4096, 4098, 3 * SLICE_BYTES + 48,
+                                   (1 << 20) + 6, 64 << 20])
+@pytest.mark.parametrize("clusters", [0, 45])
+def test_ring_plan_slices_tile_the_chunk(kind, n, chunk, clusters):
+    """The slices cover the chunk once, in order, each a 16-byte multiple
+    but the chunk's last, none longer than the plan's slice (on K8b's
+    cluster route too, where ``clusters`` of it fit)."""
+    plan = ring_plan(kind, chunk, n, 264, one_card=True,
+                     cluster_capacity=clusters)
+    assert plan.per_block % 16 == 0 and plan.per_block > 0
+    assert plan.slice_bytes & (plan.slice_bytes - 1) == 0
+    pos = 0
+    slices = [s for blk in _plan_slices(plan, chunk) for s in blk]
+    assert len(_plan_slices(plan, chunk)) == plan.blocks
+    for i, (off, size) in enumerate(slices):
+        assert off == pos and 0 < size <= plan.slice_bytes
+        assert off % 16 == 0
+        assert size % 16 == 0 or i == len(slices) - 1
+        pos += size
+    assert pos == chunk
+    # only the last block may be short: every other one is whole slices
+    for blk in _plan_slices(plan, chunk)[:-1]:
+        assert sum(size for _, size in blk) == plan.per_block
+
+
+@pytest.mark.parametrize("kind", _SLICED)
+@pytest.mark.parametrize("one_card", [True, False])
+@pytest.mark.parametrize("capacity,max_blocks", [(16, 256), (264, 256),
+                                                 (528, 256), (4096, 8)])
+def test_ring_plan_respects_capacity_and_max_blocks(kind, one_card, capacity,
+                                                    max_blocks):
+    for n in (1, 2, 4, 8, 16):
+        ranks_here = n if one_card else 1
+        for chunk in (4096, 1 << 20, 64 << 20):
+            plan = ring_plan(kind, chunk, n, capacity, one_card, max_blocks)
+            assert 1 <= plan.blocks <= max_blocks
+            assert plan.blocks * ranks_here <= capacity
+    with pytest.raises(RuntimeError, match="resident"):
+        ring_plan(kind, 1 << 20, 8, 7, one_card=True)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+@pytest.mark.parametrize("one_card", [True, False])
+def test_ring_plan_workspace_does_not_grow_with_the_chunk(n, one_card):
+    """K8b's slots a rank on the memory route: blocks x (n - 1) x slots x
+    S, within the budget whatever the chunk (on one card the L2 budget
+    over its n ranks, across cards ACROSS_BUDGET), and the same from 256
+    MiB to 1 GiB a chunk; the gathers need none."""
+    sizes = [ring_plan("reduce_scatter", c << 20, n, 528, one_card)
+             .workspace_bytes for c in (4, 64, 256, 1024)]
+    assert len(set(sizes[2:])) == 1
+    assert 0 < max(sizes) <= (L2_BUDGET // n if one_card else ACROSS_BUDGET)
+    plan = ring_plan("reduce_scatter", 64 << 20, n, 528, one_card)
+    assert plan.workspace_bytes == (plan.blocks * (n - 1) * plan.slots *
+                                    plan.slice_bytes)
+    assert plan.slots > plan.lag
+    assert ring_plan("all_gather", 64 << 20, n, 528,
+                     one_card).workspace_bytes == 0
+
+
+@pytest.mark.parametrize("kind", ["all_gather", "reduce_scatter", "bidir",
+                                  "loopback"])
+def test_ring_plan_scope_follows_where_the_ranks_are(kind):
+    assert ring_plan(kind, 1 << 20, 4, 528, one_card=True).scope == "gpu"
+    assert ring_plan(kind, 1 << 20, 4, 528, one_card=False).scope == "sys"
+    assert ring_plan(kind, 1 << 20, 1, 528, one_card=True).scope == "gpu"
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_ring_plan_cluster_route(n):
+    """K8b with 2 to 8 ranks on one card takes the cluster route where a
+    cluster fits: its slots are in shared memory (no workspace, the slots
+    within CLUSTER_SMEM), more slots than the lag, up to one block a
+    cluster that fits; the memory route everywhere else."""
+    plan = ring_plan("reduce_scatter", 64 << 20, n, 264, True,
+                     cluster_capacity=45)
+    size, slots, smem = cluster_shape(n)
+    assert plan.route == "cluster" and plan.workspace_bytes == 0
+    assert (plan.slice_bytes, plan.slots) == (size, slots)
+    assert smem == (n - 1) * slots * size <= CLUSTER_SMEM
+    assert plan.slots > plan.lag and plan.blocks <= 45
+    # from CLUSTER_MIN_INPUT input bytes a rank, or when forced
+    chunk = -(-CLUSTER_MIN_INPUT // n)
+    for size, route in ((chunk, "cluster"), (chunk - 16, "memory")):
+        assert ring_plan("reduce_scatter", size, n, 264, True,
+                         cluster_capacity=45).route == route
+    assert ring_plan("reduce_scatter", 4096, n, 264, True,
+                     cluster_capacity=45, route="cluster").route == "cluster"
+    for kind, card, clusters in (("all_gather", True, 45),
+                                 ("reduce_scatter", False, 45),
+                                 ("reduce_scatter", True, 0)):
+        assert ring_plan(kind, 64 << 20, n, 264, card,
+                         cluster_capacity=clusters).route == "memory"
+    for card, clusters in ((False, 45), (True, 0)):
+        with pytest.raises(ValueError, match="cluster route"):
+            ring_plan("reduce_scatter", 64 << 20, n, 264, card,
+                      cluster_capacity=clusters, route="cluster")
+    assert ring_plan("reduce_scatter", 64 << 20, n, 264, True,
+                     cluster_capacity=45, route="memory").route == "memory"
+
+
+@pytest.mark.parametrize("n", [1, 9, 16])
+def test_ring_plan_cluster_route_only_for_2_to_8_ranks(n):
+    plan = ring_plan("reduce_scatter", 64 << 20, n, 528, True,
+                     cluster_capacity=45)
+    assert plan.route == ("copy" if n == 1 else "memory")
+    assert plan.workspace_bytes == plan.blocks * (n - 1) * plan.slots * \
+        plan.slice_bytes
+
+
+def test_ring_plan_options_and_what_it_refuses():
+    """The slices, lag and slots are the module's constants; the plan
+    refuses what the kernels cannot take."""
+    for one_card, size in ((True, SLICE_BYTES), (False, ACROSS_SLICE_BYTES)):
+        plan = ring_plan("reduce_scatter", 64 << 20, 4, 528, one_card)
+        assert (plan.slice_bytes, plan.lag, plan.slots) == (size, LAG, SLOTS)
+        assert ring_plan("all_gather", 64 << 20, 4, 528,
+                         one_card).slots == 0
+    assert SLOTS > LAG
+    with pytest.raises(ValueError, match="ranks"):
+        ring_plan("all_gather", 1 << 20, 17, 528, True)
+    with pytest.raises(ValueError, match="unknown ring kernel"):
+        ring_plan("all_to_all", 1 << 20, 4, 528, True)
+    with pytest.raises(ValueError, match="unknown K8b route"):
+        ring_plan("reduce_scatter", 1 << 20, 4, 528, True, route="copy")
+    with pytest.raises(ValueError, match="cluster route"):
+        ring_plan("reduce_scatter", 1 << 20, 9, 528, True,
+                  cluster_capacity=45, route="cluster")
+    # K8c / K8d: one whole range a block, 64 KiB a block up to the capacity
+    plan = ring_plan("bidir", 1 << 20, 8, 528, True)
+    assert plan.blocks == 16 and plan.slice_bytes == plan.per_block
+    assert ring_plan("loopback", 64 << 20, 1, 528, True).blocks == MAX_BLOCKS
+
+
+def test_forced_route_nests_and_restores():
+    from param_tpu_torch.kernels import ring
+
+    assert ring._forced_route is None
+    with forced_route("cluster"):
+        assert ring._forced_route == "cluster"
+        with forced_route("memory"):
+            assert ring._forced_route == "memory"
+        assert ring._forced_route == "cluster"
+    assert ring._forced_route is None
+    with pytest.raises(RuntimeError), forced_route("memory"):
+        raise RuntimeError("left through an exception")
+    assert ring._forced_route is None
+
+
+@pytest.mark.parametrize("route", ["copy", "global", "", None])
+def test_forced_route_refuses_unknown_routes(route):
+    with pytest.raises(ValueError, match="unknown K8b route"):
+        with forced_route(route):
+            pass
+
+
+def _slice_cases(kind, n):
+    """(shard shape, forced K8b route) crossing slice boundaries around the
+    default slice (8 KiB; 16 KiB where a step has at most two hops): a
+    chunk under one slice, an odd 2-byte count, several slices plus a
+    ragged one, and a chunk of many slices a block plus a ragged one; K8b
+    over 2 to 8 ranks on each of its routes, the rest on the plan's."""
+    cases = [(n * 100,), (n * 4097,), (n * (3 * SLICE_BYTES // 4 + 20),),
+             (n * (5 * SLICE_BYTES + 12),), (n * 300007,)]
+    if kind == "reduce_scatter" and 2 <= n <= 8:
+        return [(shape, route) for shape in cases for route in
+                ("memory", "cluster")]
+    return [(shape, None) for shape in cases]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _SLICED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_ring_sliced_kernels_match_plain_across_slice_boundaries(
+        cuda_device, kind, dtype, n):
+    cuda_fn, plain_fn = _RING_KERNELS[kind]
+    for shape, route in _slice_cases(kind, n):
+        if kind == "all_gather":
+            shape = (shape[0] // n,)
+        xs = _ring_shards(n, shape, dtype, cuda_device, seed=n + shape[0])
+        counter = f"ring_{kind}_{route or ('copy' if n == 1 else 'memory')}"
+        before = kernels.launch_counts[counter]
+        with (forced_route(route) if route else contextlib.nullcontext()):
+            got = cuda_fn(xs)
+        _assert_ring_bitwise(got, plain_fn(xs))
+        assert kernels.launch_counts[counter] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _SLICED)
+@pytest.mark.parametrize("cluster", [False, True])
+def test_ring_sliced_planted_fault_raises_in_time(cuda_device, kind,
+                                                  cluster):
+    """A planted fault (rank 0's first hop to right + 1) stops the launch
+    within its bounded wait and raises; the next call is right (K8b on
+    both its routes)."""
+    import time
+
+    cuda_fn, plain_fn = _RING_KERNELS[kind]
+    route = (("cluster" if cluster else "memory")
+             if kind == "reduce_scatter" else None)
+    xs = _ring_shards(4, (4 << 16,), torch.float32, cuda_device)
+    want = plain_fn(xs)
+    torch.cuda.synchronize()
+    with (forced_route(route) if route else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="bounded wait ran out"):
+            cuda_fn(xs, fault=1, timeout_s=0.05)
+        assert time.perf_counter() - t0 < 2.0
+        _assert_ring_bitwise(cuda_fn(xs), want)
 
 
 @pytest.mark.cuda
