@@ -66,20 +66,25 @@ Phases (any failure exits non-zero):
  11. K6 (flash-attention forward) against its plain version (f32
      attention on upcast inputs) with the logsumexp: llama2 (1, 32, 2048,
      128) causal, gpt2 (8, 12, 1024, 64), GQA 32 / 8 heads, a window of
-     512, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64) and a ragged
-     length 1000; library call F.scaled_dot_product_attention (enable_gqa
-     for GQA, the boolean mask for the window and the rectangular case).
-     Each row names the path it took (from the launch counters), which
-     must be the one ``flash_schedule`` gives and, for 16-bit inputs at
-     D 64 / 128, wgmma.  Every element is held to its own bound
-     (``flash_fwd_tolerance``), and that bound must flag a planted fault
-     (a dropped diagonal kv entry).
+     512, S_q 128 < S_k 2048 causal, f32 (the tf32x3 path) at llama2 (1,
+     32, 2048, 128) causal, gpt2 (8, 12, 1024, 64) and (1, 4, 512, 64)
+     causal, and a ragged length 1000; library call
+     F.scaled_dot_product_attention (enable_gqa for GQA, the boolean mask
+     for the window and the rectangular case).  Each row names the path it
+     took (from the launch counters), which must be the one
+     ``flash_schedule`` gives and, for 16-bit inputs at D 64 / 128, wgmma.
+     Every element is held to its own bound (``flash_fwd_tolerance``), and
+     that bound must flag a planted fault (a dropped diagonal kv entry) on
+     the bf16 and the f32 llama2 rows.  f32 rows are bounded at the
+     split-TF32 rate (TF32 / 3, 165 TF/s).
  12. Transformer parity: a small block (emb 512, 8 heads; f32, f32 GQA and
      bf16) through block_apply (flash), prefill, four windowed decode_steps
      and an int4 decode_step on the card against the same on the CPU.
  13. The serving CLIs in-process at llama2 width with launch counts:
      ``attention --dataset llama2 --paths xla,flash,dpa`` and
-     ``transformer --dataset llama2 --fwd-only`` (K6), ``decode --dataset
+     ``transformer --dataset llama2 --fwd-only`` (K6), ``attention
+     --dtype float32 --paths flash,dpa`` at llama2 and gpt2 (K6 on the
+     tf32x3 path), ``decode --dataset
      llama3-gqa``, ``serve --dataset llama2`` in bf16 and int4 (K5, exactly
      4 launches per decode step, all on the stream path); K5 alone (as in
      phase 9) at the serve path's QKV (M, 4096) @ (4096, 12288) and output
@@ -93,12 +98,13 @@ Phases (any failure exits non-zero):
      (q / k / v strided head views of one fused projection, dO a
      transposed-head view), the other ATTN_LLAMA2 shapes (1, 32, 4096,
      128) and (4, 32, 2048, 128) causal, gpt2 (8, 12, 1024, 64), GQA 32 /
-     8 heads, S_q 128 < S_k 2048 causal, f32 (1, 4, 512, 64), a ragged
+     8 heads, S_q 128 < S_k 2048 causal, f32 at llama2 (1, 32, 2048, 128)
+     causal, gpt2 (8, 12, 1024, 64) and (1, 4, 512, 64) causal, a ragged
      length 1000 and head dim 32; each row's path as in phase 11; every
      element of dq, dk and dv within its own bound
      (``flash_bwd_tolerance``), which must flag a planted fault (a dropped
-     diagonal kv entry) in each; the llama2 row run twice must give
-     bitwise-equal gradients; library call
+     diagonal kv entry) in each on the bf16 and f32 llama2 rows; those two
+     rows run twice must give bitwise-equal gradients; library call
      aten._scaled_dot_product_flash_attention_backward on SDPA's own
      forward residuals where it computes the same function, and for GQA
      and f32 SDPA's backward through autograd (enable_gqa for GQA), timed
@@ -110,8 +116,10 @@ Phases (any failure exits non-zero):
      per step.
  16. The training CLIs in-process at llama2 width with launch counts:
      ``attention --dataset llama2 --grad --paths xla,flash,dpa`` (one K7
-     per K6) and ``transformer --dataset llama2 --paths flash,xla`` (K6 and
-     K7 exactly once per flash train step); host-clock time against the
+     per K6), ``transformer --dataset llama2 --paths flash,xla`` (K6 and
+     K7 exactly once per flash train step) and ``attention --dataset llama2
+     --dtype float32 --grad --paths flash,dpa`` (K6 and K7 on the tf32x3
+     path); host-clock time against the
      card's kernel time for the llama2 train step on flash and xla, with
      the shares of K6, K7 and the cuBLAS GEMMs.
  17. K8a-d (ring all-gather, ring reduce-scatter, both-direction ring
@@ -168,9 +176,10 @@ kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
 issued eagerly from Python), the plain version issued eagerly.  Bounds: bytes over
 3.35 TB/s, or operations over the H100's peak for the type (989 TF/s bf16,
-67 TF/s f32).
+67 TF/s f32, 165 TF/s for f32-accurate attention on the tensor cores).
 Then a ``{"kernels": [...]}`` line (K6 and K7 by the path the main path
-took; every main-path launch of theirs must have been on wgmma; K8a, K8b
+took; every launch of theirs in the 16-bit runs of phases 13 and 16 must
+have been on wgmma, and in the f32 runs on tf32x3; K8a, K8b
 and their one-rank copy by route, each with its own launches), and last
 the ``{"ok": true, ...}`` line.
 ``--out PATH`` also writes the full results as JSON to PATH.
@@ -461,7 +470,7 @@ def main(out_path=None) -> int:
     flash_res = {}
     for lib in ("flash_fwd", "flash_bwd"):
         for mangled, res in resources[lib].items():
-            m = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|tc|f32)",
+            m = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|tc|tf32x3)",
                           mangled)
             dims = re.search(r"Li(\d+)E", mangled)
             dt = ("bf16" if "bfloat16" in mangled else
@@ -1194,7 +1203,8 @@ def main(out_path=None) -> int:
                       lib, iters)
         flops = 4 * b * h * d * kept_pairs(sq, sk, causal, window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32)
+        b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32,
+                              split_tf32=True)
         shape = (f"q ({b}, {h}, {sq}, {d}) k/v ({b}, {hkv}, {sk}, {d}) "
                  f"{str(dt)[6:]}{' causal' if causal else ''}"
                  f"{f' window {window}' if window else ''}")
@@ -1226,6 +1236,10 @@ def main(out_path=None) -> int:
     k6_case("gqa_causal", 1, 32, 8, 2048, 2048, 128, True, None, bf16, 20)
     k6_case("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, bf16, 20)
     k6_case("rect_causal", 1, 32, 32, 128, 2048, 128, True, None, bf16, 20)
+    # f32 (the tf32x3 path) at the attention CLIs' widths, and small
+    k6_case("f32_llama2_causal", 1, 32, 32, 2048, 2048, 128, True, None, f32,
+            10, fault=True)
+    k6_case("f32_gpt2", 8, 12, 12, 1024, 1024, 64, False, None, f32, 10)
     k6_case("f32", 1, 4, 4, 512, 512, 64, True, None, f32, 20)
     k6_case("ragged_1000", 1, 4, 4, 1000, 1000, 128, True, None, bf16, 20)
     result["phases"]["k6"] = k6
@@ -1316,6 +1330,15 @@ def main(out_path=None) -> int:
             "transformer llama2 fwd", compute_cli.main,
             ["transformer", "--dataset", "llama2", "--fwd-only", "--paths",
              "flash,xla"], 2, ["flash_fwd"], 13),
+        # f32 attention (K6's tf32x3 path) at both datasets' widths
+        "attention_llama2_f32": drive(
+            "attention llama2 f32", compute_cli.main,
+            ["attention", "--dataset", "llama2", "--dtype", "float32",
+             "--paths", "flash,dpa"], 6, ["flash_fwd_tf32x3"], 13),
+        "attention_gpt2_f32": drive(
+            "attention gpt2 f32", compute_cli.main,
+            ["attention", "--dataset", "gpt2", "--dtype", "float32",
+             "--paths", "flash,dpa"], 6, ["flash_fwd_tf32x3"], 13),
         "decode_llama3_gqa": drive(
             "decode llama3-gqa", compute_cli.main,
             ["decode", "--dataset", "llama3-gqa"], 3, [], 13),
@@ -1553,7 +1576,8 @@ def main(out_path=None) -> int:
         flops = 10 * b * h * d * kept_pairs(sq, sk, causal, None)
         nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + o.numel()
                    + do.numel()) * q.element_size() + lse.numel() * 4)
-        b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32)
+        b_ms, b_by = bound_ms(nbytes, flops, fp32=dt == torch.float32,
+                              split_tf32=True)
         shape = (f"q ({b}, {h}, {sq}, {d}) k/v ({b}, {hkv}, {sk}, {d}) "
                  f"{str(dt)[6:]}{' causal' if causal else ''}"
                  f"{' strided (fused qkv, transposed dO)' if fused else ''}")
@@ -1599,6 +1623,10 @@ def main(out_path=None) -> int:
     k7_case("rect_causal", 1, 32, 32, 128, 2048, 128, True, bf16, 20,
             no_library="SDPA's causal mask aligns top-left, the reference's "
                        "bottom-right for S_q < S_k")
+    k7_case("f32_llama2_causal", 1, 32, 32, 2048, 2048, 128, True, f32, 10,
+            fault=True, repeat=True, sdpa_autograd=True)
+    k7_case("f32_gpt2", 8, 12, 12, 1024, 1024, 64, False, f32, 10,
+            sdpa_autograd=True)
     k7_case("f32", 1, 4, 4, 512, 512, 64, True, f32, 20, sdpa_autograd=True)
     k7_case("ragged_1000", 1, 4, 4, 1000, 1000, 128, True, bf16, 20)
     k7_case("d32", 4, 16, 16, 1024, 1024, 32, True, bf16, 20)
@@ -1675,6 +1703,12 @@ def main(out_path=None) -> int:
             "transformer llama2 train", compute_cli.main,
             ["transformer", "--dataset", "llama2", "--paths", "flash,xla"], 2,
             ["flash_fwd", "flash_bwd"], 16),
+        # f32 (K6 and K7 on their tf32x3 path)
+        "attention_llama2_f32_grad": drive(
+            "attention llama2 f32 grad", compute_cli.main,
+            ["attention", "--dataset", "llama2", "--dtype", "float32",
+             "--grad", "--paths", "flash,dpa"], 6,
+            ["flash_fwd_tf32x3", "flash_bwd_tf32x3"], 16),
     }
     # 8 steps x (1 untimed + 5 timed windows) on the flash path
     tl = train_runs["transformer_llama2_train"]["launches"]
@@ -2104,15 +2138,15 @@ def main(out_path=None) -> int:
     def cli_launches(run, key):
         return cli_runs[run]["launches"].get(key, 0)
 
-    def main_path_flash(runs, kernel):
+    def main_path_flash(runs, kernel, path="wgmma"):
         """Launches of ``kernel`` in the main path's runs, all of which
-        must have taken the wgmma path."""
+        must have taken ``path``."""
         total = sum(r["launches"].get(kernel, 0) for r in runs)
-        wgmma = sum(r["launches"].get(f"{kernel}_wgmma", 0) for r in runs)
-        if wgmma != total:
-            fail(f"{kernel}: {total - wgmma} of {total} launches on the main "
-                 f"path did not take the wgmma path")
-        return wgmma
+        on_path = sum(r["launches"].get(f"{kernel}_{path}", 0) for r in runs)
+        if on_path != total:
+            fail(f"{kernel}: {total - on_path} of {total} launches on the "
+                 f"main path did not take the {path} path")
+        return on_path
 
     k6_launches = main_path_flash([serve_runs["attention_llama2"],
                                    serve_runs["transformer_llama2"]],
@@ -2120,6 +2154,11 @@ def main(out_path=None) -> int:
     k7_launches = main_path_flash([train_runs["attention_llama2_grad"],
                                    train_runs["transformer_llama2_train"]],
                                   "flash_bwd")
+    f32_runs = [serve_runs["attention_llama2_f32"],
+                serve_runs["attention_gpt2_f32"],
+                train_runs["attention_llama2_f32_grad"]]
+    k6_f32_launches = main_path_flash(f32_runs, "flash_fwd", "tf32x3")
+    k7_f32_launches = main_path_flash(f32_runs, "flash_bwd", "tf32x3")
     src = "param_tpu_torch/kernels/csrc/"
     report = {"kernels": [
         entry("emb_gather (K1)", src + "emb_gather.cu",
@@ -2153,6 +2192,12 @@ def main(out_path=None) -> int:
         entry("flash attention backward (K7), wgmma path",
               src + "flash_bwd.cu", "param_tpu/ops/attention.py:809, :841",
               k7_launches, k7["llama2_causal"]),
+        entry("flash attention forward f32 (K6), tf32x3 path",
+              src + "flash_fwd.cu", "param_tpu/ops/attention.py:251",
+              k6_f32_launches, k6["f32_llama2_causal"]),
+        entry("flash attention backward f32 (K7), tf32x3 path",
+              src + "flash_bwd.cu", "param_tpu/ops/attention.py:809, :841",
+              k7_f32_launches, k7["f32_llama2_causal"]),
         entry("ring all-gather (K8a), memory route", src + "ring.cu",
               "param_tpu/ops/ring_collectives.py:55",
               ring_launches["ring_all_gather_memory"],

@@ -51,11 +51,11 @@ launch_counts = {
     "flash_fwd": 0,
     "flash_fwd_wgmma": 0,
     "flash_fwd_mma_sync": 0,
-    "flash_fwd_simt": 0,
+    "flash_fwd_tf32x3": 0,
     "flash_bwd": 0,
     "flash_bwd_wgmma": 0,
     "flash_bwd_mma_sync": 0,
-    "flash_bwd_simt": 0,
+    "flash_bwd_tf32x3": 0,
     "ring_all_gather": 0,
     "ring_all_gather_memory": 0,
     "ring_all_gather_copy": 0,

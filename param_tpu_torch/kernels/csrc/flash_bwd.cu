@@ -35,7 +35,8 @@
 //
 // What bounds it on an H100: operations for the shapes of the main path
 // (five products, 10 D per kept (row, column) pair per head, over 989 TF/s
-// in bf16 and f16 or 67 TF/s in f32); bytes (Q, K, V, O, dO and lse read
+// in bf16 and f16 or, in f32, 165 TF/s: TF32's 495 over the three
+// products of each f32-accurate one); bytes (Q, K, V, O, dO and lse read
 // once, dQ, dK, dV written once, over 3.35 TB/s) only for short sequences.
 //
 // Three paths, chosen by the wrapper before the launch
@@ -92,8 +93,26 @@
 //   are the A fragments of P^T dO and dS^T Q; Q and dO are the B operands
 //   through ldmatrix .trans.
 //
-// simt (f32): plain CUDA-core kernels in full f32 (no TF32), 4 threads per
-// row, 32-row tiles, each thread owning D/4 output columns.
+// tf32x3 (f32): the five products on the tensor cores as split-TF32 products
+// (tf32x3.cuh: each operand split in registers into two TF32 halves, three
+// mma.sync m16n8k8 .tf32 a product, f32 accuracy); P, dS and D in f32 on the
+// CUDA cores (exp2f).  Blocks of 4 warps, 16 rows a warp: 64 rows a block where
+// that gives every SM a block; for smaller grids 32 or 16 rows, the walk split
+// 2 or 4 ways across the warps and their partial sums added in a fixed order at
+// the end.  Tiles are staged in shared memory as swizzled f32 rows by cp.async
+// copies (16 bytes when every view's base and strides are 16-byte aligned, else
+// 4 bytes).
+// - dq: Q and dO loaded once; K and V tiles (64 rows, 32 at D = 128) in one
+//   buffer each (a split), V_{j+1} copied while S = Q K_j^T and dQ += dS K_j
+//   are computed and K_{j+1} while dP = dO V_{j+1}^T is.  S and dP read K and V
+//   rows in the permuted order of tf32x3.cuh, so each n8 tile of dS is the A
+//   fragment of dS K where it lies; K is read as stored (column fragments) for
+//   dS K.
+// - dkv: K and V loaded once; the Q and dO tiles (64 rows, 32 at D = 128) of
+//   every query head of the GQA group, with their lse and D, stream through one
+//   buffer each (a split), Q_{u+1} copied while dV += P^T dO_u is computed and
+//   dO_{u+1} while S^T = K Q_{u+1}^T is.  S^T and dP^T give P^T and dS^T as the
+//   A fragments of dV += P^T dO and dK += dS^T Q, dO and Q read as stored.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -103,6 +122,7 @@
 
 #include "hopper.cuh"
 #include "mma.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -156,22 +176,6 @@ __device__ __forceinline__ bool tile_needs_mask(const Params& p, int q0,
 
 __device__ __forceinline__ bool keep(const Params& p, int r, int c) {
   return r < p.Sq && c < p.Sk && (!p.causal || c <= r + (p.Sk - p.Sq));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
 }
 
 using hopper::pack2;
@@ -442,8 +446,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_tc(const Params p) {
     if (tid < QB) {
       const bool ok = q0 + tid < p.Sq;
       const long long at = ok ? bh * p.Sq + q0 + tid : 0;
-      cp_async4(lse_buf + stage * QB + tid, p.lse + at, ok);
-      cp_async4(dl_buf + stage * QB + tid, p.delta + at, ok);
+      tf32x3::cp_async4(lse_buf + stage * QB + tid, p.lse + at, ok);
+      tf32x3::cp_async4(dl_buf + stage * QB + tid, p.delta + at, ok);
     }
   };
   if (steps > 0) issue(0, 0);
@@ -978,173 +982,465 @@ int launch(const Params& p, cudaStream_t s) {
 
 }  // namespace wg
 
-// ---------------------------------------------------------------- f32 path
-constexpr int FB = 32, FTHREADS = 128;  // 32-row tiles, 4 threads per row
+// ------------------------------------------------------------- f32 path
+namespace x3 {
 
-// rows [r0, r0 + FB) of a (rows, D) f32 slice into a (FB, D + 1) tile
-template <int D>
-__device__ __forceinline__ void load_f32(float* dst, const float* src,
-                                         long long row_stride, int r0,
-                                         int n_rows, int tid) {
-  for (int i = tid; i < FB * D; i += FTHREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] =
-        r0 + r < n_rows ? src[(long long)(r0 + r) * row_stride + c] : 0.f;
-  }
-}
+using namespace tf32x3;
 
-template <int D>
-__global__ void __launch_bounds__(FTHREADS) flash_bwd_dq_f32(const Params p) {
-  constexpr int RS = D + 1, PS = FB + 1, DO = D / 4;
-  extern __shared__ __align__(16) float fsm[];
-  float* const qs = fsm;            // FB x RS
-  float* const dos = qs + FB * RS;  // FB x RS
-  float* const ks = dos + FB * RS;  // FB x RS
-  float* const vs = ks + FB * RS;   // FB x RS
-  float* const dss = vs + FB * RS;  // FB x PS
+// dq kernel: a block of 4 warps owns 16 R q rows of one (batch, head) and
+// walks their BN-row K and V tiles, split S = 4 / R ways (tf32x3.cuh):
+// split s takes tiles s, s + S, ...  Shared memory holds the Q and dO
+// tiles, one K and one V tile a split (swizzled f32 rows) and D of the
+// rows; after the walk, the splits' partial dQ go through it to be added.
+template <int D, int BN>
+__global__ void __launch_bounds__(128) flash_bwd_dq_tf32x3(const Params p,
+                                                           int vec16, int R) {
+  extern __shared__ __align__(16) float xsm[];
+  const int S = kWarps / R, bm = 16 * R;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int sp = warp / R, rg = warp % R;  // this warp's split, row group
+  const int gtid = tid % (32 * R), gthreads = 32 * R;  // within the split
+  float* const qs = xsm;                             // bm x D
+  float* const dos = qs + bm * D;                    // bm x D
+  float* const ks = dos + bm * D + sp * 2 * BN * D;  // BN x D
+  float* const vs = ks + BN * D;                     // BN x D
+  float* const dl_s = dos + bm * D + S * 2 * BN * D;  // bm
 
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FB;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // a 1-D grid, q tiles last first across all (batch, head) pairs: the
+  // longest causal rows start first
+  const int nbh = p.B * p.H;
+  const int bh = blockIdx.x % nbh, b = bh / p.H, h = bh % p.H;
+  const int q0 = ((p.Sq + bm - 1) / bm - 1 - blockIdx.x / nbh) * bm;
   const int hk = h / (p.H / p.Hkv);
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const float* og = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const float* dog =
-      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int n = kv_end(p, q0, bm, BN);
 
-  load_f32<D>(qs, qg, p.q_ss, q0, p.Sq, tid);
-  load_f32<D>(dos, dog, p.do_ss, q0, p.Sq, tid);
+  load_f32_tile<D>(
+      qs, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+      q0, bm, p.Sq, vec16, tid, blockDim.x);
+  load_f32_tile<D>(
+      dos, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
+      p.do_ss, q0, bm, p.Sq, vec16, tid, blockDim.x);
+  cp_async_commit();
+  if (sp < n)
+    load_f32_tile<D>(vs, vg, p.v_ss, sp * BN, BN, p.Sk, vec16, gtid, gthreads);
+  cp_async_commit();
+  if (sp < n)
+    load_f32_tile<D>(ks, kg, p.k_ss, sp * BN, BN, p.Sk, vec16, gtid, gthreads);
+  cp_async_commit();
+  cp_async_wait2();  // Q and dO have landed
   __syncthreads();
-  const int qrow = q0 + row;
-  float dl = 0.f;
-  if (qrow < p.Sq)
-    for (int d = sub; d < D; d += 4)
-      dl += dos[row * RS + d] * og[(long long)qrow * p.o_ss + d];
-  dl = quad_sum(dl);
-  if (qrow < p.Sq && sub == 0) p.delta[(long long)bh * p.Sq + qrow] = dl;
-  const float lse2 =
-      qrow < p.Sq ? p.lse[(long long)bh * p.Sq + qrow] * kLog2e : 0.f;
 
-  float dq[DO];
+  // D = rowsum(dO * O), a row a warp at a time, O read once from device
+  // memory
+  for (int r = warp; r < bm; r += kWarps) {
+    const int row = q0 + r;
+    float acc = 0.f;
+    if (row < p.Sq) {
+      const float* orow = og + (long long)row * p.o_ss;
 #pragma unroll
-  for (int i = 0; i < DO; ++i) dq[i] = 0.f;
-  const int j1 = kv_end(p, q0, FB, FB);
-  for (int j = 0; j < j1; ++j) {
-    const int c0 = j * FB;
-    __syncthreads();  // the previous step is done with ks, vs and dss
-    load_f32<D>(ks, kg, p.k_ss, c0, p.Sk, tid);
-    load_f32<D>(vs, vg, p.v_ss, c0, p.Sk, tid);
-    __syncthreads();
-    const bool masked = tile_needs_mask(p, q0, c0, FB, FB);
-#pragma unroll
-    for (int i = 0; i < FB / 4; ++i) {
-      const int c = sub + 4 * i;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qs[row * RS + d], ks[c * RS + d], s);
-        dp = fmaf(dos[row * RS + d], vs[c * RS + d], dp);
-      }
-      float pv = exp2f(s * p.scale_log2 - lse2);
-      if (masked && !keep(p, qrow, c0 + c)) pv = 0.f;
-      dss[row * PS + c] = pv * (dp - dl) * p.scale;
+      for (int c = lane; c < D; c += 32)
+        acc = fmaf(orow[c], dos[at<D>(r, c)], acc);
     }
-    __syncwarp();  // the 4 threads of a row share one warp
-    for (int c = 0; c < FB; ++c) {
-      const float dsc = dss[row * PS + c];
 #pragma unroll
-      for (int i = 0; i < DO; ++i)
-        dq[i] = fmaf(dsc, ks[c * RS + sub + 4 * i], dq[i]);
+    for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      dl_s[r] = acc;
+      if (row < p.Sq) p.delta[(long long)bh * p.Sq + row] = acc;
     }
   }
-  if (qrow < p.Sq) {
-    float* dqg = static_cast<float*>(p.dq) + ((long long)bh * p.Sq + qrow) * D;
+  __syncthreads();
+  const int row0 = q0 + rg * 16 + g;  // this lane's rows: row0, row0 + 8
+  float dl[2], lse2[2];
 #pragma unroll
-    for (int i = 0; i < DO; ++i) dqg[sub + 4 * i] = dq[i];
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    dl[r] = dl_s[rg * 16 + g + 8 * r];
+    lse2[r] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] * kLog2e : 0.f;
+  }
+
+  // this lane's fragment offsets: Q and dO rows (A), K and V rows in the
+  // order pi (B of S and dP), K columns (B of dS K)
+  const float* qa = qs + (rg * 16 + g) * D;
+  const float* da = dos + (rg * 16 + g) * D;
+  const int xa = row_x(g, t);
+  const float* kb = ks + pi(g) * D;
+  const float* vb = vs + pi(g) * D;
+  const int xp = row_x(pi(g), t);
+  const float* kc0 = ks + t * D;
+  const float* kc1 = ks + (t + 4) * D;
+  const int xc0 = col_x(t, g), xc1 = col_x(t + 4, g);
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+
+  for (int j = sp; j < n; j += S) {
+    const int c0 = j * BN;
+    cp_async_wait1();  // V_j has landed (K_j may still be in flight)
+    split_sync(sp, R);
+    // dP = dO V_j^T and then S = Q K_j^T; element e of n8 tile i: row
+    // row0 + 8 (e / 2), column c0 + 8 i + t + 4 (e % 2)
+    float dp[BN / 8][4], s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[i][e] = s[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float a[4] = {da[col(8 * kk, xa)], da[8 * D + col(8 * kk, xa)],
+                          da[col(8 * kk + 4, xa)],
+                          da[8 * D + col(8 * kk + 4, xa)]};
+      uint32_t ah[4], al[4];
+      split(a, ah, al);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const float bf[2] = {vb[8 * i * D + col(8 * kk, xp)],
+                             vb[8 * i * D + col(8 * kk + 4, xp)]};
+        mma3(dp[i], ah, al, bf);
+      }
+    }
+    split_sync(sp, R);  // the split's warps are done with V_j
+    if (j + S < n)
+      load_f32_tile<D>(vs, vg, p.v_ss, c0 + S * BN, BN, p.Sk, vec16, gtid,
+                       gthreads);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    cp_async_wait1();   // K_j has landed
+    split_sync(sp, R);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float a[4] = {qa[col(8 * kk, xa)], qa[8 * D + col(8 * kk, xa)],
+                          qa[col(8 * kk + 4, xa)],
+                          qa[8 * D + col(8 * kk + 4, xa)]};
+      uint32_t ah[4], al[4];
+      split(a, ah, al);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const float bf[2] = {kb[8 * i * D + col(8 * kk, xp)],
+                             kb[8 * i * D + col(8 * kk + 4, xp)]};
+        mma3(s[i], ah, al, bf);
+      }
+    }
+
+    // dS = P (dP - D) scale, in place of S
+    const bool masked = tile_needs_mask(p, q0, c0, bm, BN);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float pv = exp2f(s[i][e] * p.scale_log2 - lse2[r]);
+        if (masked && !keep(p, row0 + 8 * r, c0 + 8 * i + t + 4 * (e % 2)))
+          pv = 0.f;
+        s[i][e] = pv * (dp[i][e] - dl[r]) * p.scale;
+      }
+    // dQ += dS K_j: dS's n8 tile i is the A fragment of k8 step i
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      uint32_t ah[4], al[4];
+      acc_to_a(s[i], ah, al);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const float bf[2] = {kc0[8 * i * D + col(8 * nd, xc0)],
+                             kc1[8 * i * D + col(8 * nd, xc1)]};
+        mma3(dq[nd], ah, al, bf);
+      }
+    }
+    split_sync(sp, R);  // the split's warps are done with K_j
+    if (j + S < n)
+      load_f32_tile<D>(ks, kg, p.k_ss, c0 + S * BN, BN, p.Sk, vec16, gtid,
+                       gthreads);
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+
+  float* dqg = static_cast<float*>(p.dq) + (long long)bh * p.Sq * D;
+  if (S == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<float2*>(dqg + (long long)row * D + 8 * nd +
+                                   2 * t) =
+            make_float2(dq[nd][2 * r], dq[nd][2 * r + 1]);
+    }
+    return;
+  }
+  // S splits: each split's dQ through the (now free) K / V tiles, added in
+  // split order
+  __syncthreads();
+  float* const part = dos + bm * D;  // S x bm x D
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<float2*>(part + (sp * bm + rg * 16 + g + 8 * r) * D +
+                                 8 * nd + 2 * t) =
+          make_float2(dq[nd][2 * r], dq[nd][2 * r + 1]);
+  __syncthreads();
+  for (int i = tid; i < bm * D; i += blockDim.x) {
+    if (q0 + i / D >= p.Sq) continue;
+    float acc = part[i];
+    for (int k = 1; k < S; ++k) acc += part[k * bm * D + i];
+    dqg[(long long)q0 * D + i] = acc;
+  }
+}
+
+// dkv kernel: a block of 4 warps owns 16 R kv rows of one (batch, kv head)
+// and walks the BQ-row Q and dO tiles (with their lse and D) of every
+// query head of its GQA group, split S = 4 / R ways: split s takes steps
+// s, s + S, ...  Shared memory holds the K and V tiles, one Q and one dO
+// tile a split and their lse and D; after the walk, the splits' partial
+// dK and dV go through it to be added.
+template <int D, int BQ>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_tf32x3(const Params p,
+                                                            int vec16, int R) {
+  extern __shared__ __align__(16) float xsm[];
+  const int S = kWarps / R, bk = 16 * R;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int sp = warp / R, rg = warp % R;  // this warp's split, row group
+  const int gtid = tid % (32 * R), gthreads = 32 * R;  // within the split
+  constexpr int STAGE = 2 * BQ * D + 2 * BQ;  // a split's Q, dO, lse, D
+  float* const ks = xsm;                               // bk x D
+  float* const vs = ks + bk * D;                       // bk x D
+  float* const qs = vs + bk * D + sp * STAGE;          // BQ x D
+  float* const dos = qs + BQ * D;                      // BQ x D
+  float* const lse_s = dos + BQ * D;                   // BQ
+  float* const dl_s = lse_s + BQ;                      // BQ
+
+  // a 1-D grid, kv tiles in order across all (batch, kv head) pairs: the
+  // longest causal columns start first
+  const int nbk = p.B * p.Hkv;
+  const int bkv = blockIdx.x % nbk, b = bkv / p.Hkv, hk = bkv % p.Hkv;
+  const int c0 = blockIdx.x / nbk * bk;
+  const int group = p.H / p.Hkv;
+  const int i0 = first_q_tile(p, c0, BQ);
+  const int per_head = (p.Sq + BQ - 1) / BQ - i0;
+  const int steps = group * per_head;
+  // step u: query head hk * group + u / per_head, q tile i0 + u % per_head
+  auto head_of = [&](int u) { return hk * group + u / per_head; };
+  auto q0_of = [&](int u) { return (i0 + u % per_head) * BQ; };
+  auto issue_q = [&](int u) {
+    const int h = head_of(u), q0 = q0_of(u);
+    load_f32_tile<D>(
+        qs, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+        q0, BQ, p.Sq, vec16, gtid, gthreads);
+    load_vec(lse_s, p.lse + ((long long)b * p.H + h) * p.Sq + q0, BQ,
+             p.Sq - q0, gtid, gthreads);
+  };
+  auto issue_do = [&](int u) {
+    const int h = head_of(u), q0 = q0_of(u);
+    load_f32_tile<D>(
+        dos, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
+        p.do_ss, q0, BQ, p.Sq, vec16, gtid, gthreads);
+    load_vec(dl_s, p.delta + ((long long)b * p.H + h) * p.Sq + q0, BQ,
+             p.Sq - q0, gtid, gthreads);
+  };
+
+  load_f32_tile<D>(
+      ks, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss,
+      c0, bk, p.Sk, vec16, tid, blockDim.x);
+  load_f32_tile<D>(
+      vs, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss,
+      c0, bk, p.Sk, vec16, tid, blockDim.x);
+  cp_async_commit();
+  if (sp < steps) issue_q(sp);
+  cp_async_commit();
+  if (sp < steps) issue_do(sp);
+  cp_async_commit();
+  cp_async_wait2();  // K and V have landed
+  __syncthreads();
+
+  // this lane's fragment offsets: K and V rows (A), Q and dO rows in the
+  // order pi (B of S^T and dP^T), Q and dO columns (B of dS^T Q, P^T dO)
+  const float* ka = ks + (rg * 16 + g) * D;
+  const float* va = vs + (rg * 16 + g) * D;
+  const int xa = row_x(g, t);
+  const float* qb = qs + pi(g) * D;
+  const float* db = dos + pi(g) * D;
+  const int xp = row_x(pi(g), t);
+  const int xc0 = col_x(t, g), xc1 = col_x(t + 4, g);
+  const int col0 = c0 + rg * 16 + g;  // this lane's kv rows: col0, col0 + 8
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int u = sp; u < steps; u += S) {
+    const int q0 = q0_of(u);
+    cp_async_wait1();  // this step's Q and lse have landed
+    split_sync(sp, R);
+    // S^T = K Q^T and then dP^T = V dO^T: rows are kv rows, columns q rows;
+    // element e of n8 tile i: kv row col0 + 8 (e / 2), q row q0 + 8 i + t +
+    // 4 (e % 2)
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float a[4] = {ka[col(8 * kk, xa)], ka[8 * D + col(8 * kk, xa)],
+                          ka[col(8 * kk + 4, xa)],
+                          ka[8 * D + col(8 * kk + 4, xa)]};
+      uint32_t ah[4], al[4];
+      split(a, ah, al);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float bf[2] = {qb[8 * i * D + col(8 * kk, xp)],
+                             qb[8 * i * D + col(8 * kk + 4, xp)]};
+        mma3(st[i], ah, al, bf);
+      }
+    }
+    cp_async_wait_all();  // this step's dO and D have landed
+    split_sync(sp, R);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float a[4] = {va[col(8 * kk, xa)], va[8 * D + col(8 * kk, xa)],
+                          va[col(8 * kk + 4, xa)],
+                          va[8 * D + col(8 * kk + 4, xa)]};
+      uint32_t ah[4], al[4];
+      split(a, ah, al);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float bf[2] = {db[8 * i * D + col(8 * kk, xp)],
+                             db[8 * i * D + col(8 * kk + 4, xp)]};
+        mma3(dpt[i], ah, al, bf);
+      }
+    }
+
+    // P^T in place of S^T, dS^T in place of dP^T
+    const bool masked = tile_needs_mask(p, q0, c0, BQ, bk);
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * i + t + 4 * (e % 2);  // q row within the tile
+        float pv = exp2f(st[i][e] * p.scale_log2 - lse_s[qc] * kLog2e);
+        if (masked && !keep(p, q0 + qc, col0 + 8 * (e / 2))) pv = 0.f;
+        st[i][e] = pv;
+        dpt[i][e] = pv * (dpt[i][e] - dl_s[qc]) * p.scale;
+      }
+    // dK += dS^T Q: dS^T's n8 tile i is the A fragment of k8 step i
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      uint32_t ah[4], al[4];
+      acc_to_a(dpt[i], ah, al);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const float bf[2] = {qs[(8 * i + t) * D + col(8 * nd, xc0)],
+                             qs[(8 * i + t + 4) * D + col(8 * nd, xc1)]};
+        mma3(dk[nd], ah, al, bf);
+      }
+    }
+    split_sync(sp, R);  // the split's warps are done with Q and lse
+    if (u + S < steps) issue_q(u + S);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    // dV += P^T dO
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      uint32_t ah[4], al[4];
+      acc_to_a(st[i], ah, al);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const float bf[2] = {dos[(8 * i + t) * D + col(8 * nd, xc0)],
+                             dos[(8 * i + t + 4) * D + col(8 * nd, xc1)]};
+        mma3(dv[nd], ah, al, bf);
+      }
+    }
+    split_sync(sp, R);  // the split's warps are done with dO and D
+    if (u + S < steps) issue_do(u + S);
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+
+  const long long out = (long long)bkv * p.Sk * D;
+  float* dkg = static_cast<float*>(p.dk) + out;
+  float* dvg = static_cast<float*>(p.dv) + out;
+  if (S == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = col0 + 8 * r;
+      if (row >= p.Sk) continue;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const long long e = (long long)row * D + 8 * nd + 2 * t;
+        *reinterpret_cast<float2*>(dkg + e) =
+            make_float2(dk[nd][2 * r], dk[nd][2 * r + 1]);
+        *reinterpret_cast<float2*>(dvg + e) =
+            make_float2(dv[nd][2 * r], dv[nd][2 * r + 1]);
+      }
+    }
+    return;
+  }
+  // S splits: each split's dK and dV through the (now free) q-side tiles,
+  // added in split order
+  __syncthreads();
+  float* const part = vs + bk * D;  // S x (dK, dV) x bk x D
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int e = (rg * 16 + g + 8 * r) * D + 8 * nd + 2 * t;
+      *reinterpret_cast<float2*>(part + 2 * sp * bk * D + e) =
+          make_float2(dk[nd][2 * r], dk[nd][2 * r + 1]);
+      *reinterpret_cast<float2*>(part + (2 * sp + 1) * bk * D + e) =
+          make_float2(dv[nd][2 * r], dv[nd][2 * r + 1]);
+    }
+  __syncthreads();
+  for (int i = tid; i < bk * D; i += blockDim.x) {
+    if (c0 + i / D >= p.Sk) continue;
+    float ak = part[i], av = part[bk * D + i];
+    for (int k = 1; k < S; ++k) {
+      ak += part[2 * k * bk * D + i];
+      av += part[(2 * k + 1) * bk * D + i];
+    }
+    dkg[(long long)c0 * D + i] = ak;
+    dvg[(long long)c0 * D + i] = av;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(FTHREADS)
-    flash_bwd_dkv_f32(const Params p) {
-  constexpr int RS = D + 1, PS = FB + 1, DO = D / 4;
-  extern __shared__ __align__(16) float fsm[];
-  float* const ks = fsm;            // FB x RS
-  float* const vs = ks + FB * RS;   // FB x RS
-  float* const qs = vs + FB * RS;   // FB x RS
-  float* const dos = qs + FB * RS;  // FB x RS
-  float* const ps = dos + FB * RS;  // FB x PS: P^T
-  float* const dss = ps + FB * PS;  // FB x PS: dS^T
-  float* const lse_s = dss + FB * PS;  // FB
-  float* const dl_s = lse_s + FB;      // FB
-
-  const int tid = threadIdx.x, kr = tid / 4, sub = tid % 4;
-  const int c0 = blockIdx.x * FB, col = c0 + kr;
-  const int bk = blockIdx.y, b = bk / p.Hkv, hk = bk % p.Hkv;
-  const int group = p.H / p.Hkv;
-  load_f32<D>(ks, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
-              p.k_ss, c0, p.Sk, tid);
-  load_f32<D>(vs, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh,
-              p.v_ss, c0, p.Sk, tid);
-
-  float dk[DO], dv[DO];
-#pragma unroll
-  for (int i = 0; i < DO; ++i) dk[i] = dv[i] = 0.f;
-  const int n_qt = (p.Sq + FB - 1) / FB;
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const long long bh = (long long)b * p.H + h;
-    for (int qt = first_q_tile(p, c0, FB); qt < n_qt; ++qt) {
-      const int q0 = qt * FB;
-      __syncthreads();  // the previous step is done with qs, dos, ps, dss
-      load_f32<D>(qs, static_cast<const float*>(p.q) + b * p.q_sb +
-                          h * p.q_sh, p.q_ss, q0, p.Sq, tid);
-      load_f32<D>(dos, static_cast<const float*>(p.dout) + b * p.do_sb +
-                           h * p.do_sh, p.do_ss, q0, p.Sq, tid);
-      if (tid < FB) {
-        const bool ok = q0 + tid < p.Sq;
-        lse_s[tid] = ok ? p.lse[bh * p.Sq + q0 + tid] * kLog2e : 0.f;
-        dl_s[tid] = ok ? p.delta[bh * p.Sq + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      const bool masked = tile_needs_mask(p, q0, c0, FB, FB);
-#pragma unroll
-      for (int i = 0; i < FB / 4; ++i) {
-        const int r = sub + 4 * i;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(ks[kr * RS + d], qs[r * RS + d], s);
-          dp = fmaf(vs[kr * RS + d], dos[r * RS + d], dp);
-        }
-        float pv = exp2f(s * p.scale_log2 - lse_s[r]);
-        if (masked && !keep(p, q0 + r, col)) pv = 0.f;
-        ps[kr * PS + r] = pv;
-        dss[kr * PS + r] = pv * (dp - dl_s[r]) * p.scale;
-      }
-      __syncwarp();  // the 4 threads of a kv row share one warp
-      for (int r = 0; r < FB; ++r) {
-        const float pr = ps[kr * PS + r], dr = dss[kr * PS + r];
-#pragma unroll
-        for (int i = 0; i < DO; ++i) {
-          dv[i] = fmaf(pr, dos[r * RS + sub + 4 * i], dv[i]);
-          dk[i] = fmaf(dr, qs[r * RS + sub + 4 * i], dk[i]);
-        }
-      }
-    }
-  }
-  if (col < p.Sk) {
-    const long long at = ((long long)bk * p.Sk + col) * D;
-    float* dkg = static_cast<float*>(p.dk) + at;
-    float* dvg = static_cast<float*>(p.dv) + at;
-#pragma unroll
-    for (int i = 0; i < DO; ++i) {
-      dkg[sub + 4 * i] = dk[i];
-      dvg[sub + 4 * i] = dv[i];
-    }
-  }
+int launch(const Params& p, cudaStream_t s) {
+  constexpr int BN = D == 128 ? 32 : 64;  // kv rows a dq step
+  constexpr int BQ = D == 128 ? 32 : 64;  // q rows a dkv step
+  const int vec16 = aligned16(p.q, p.q_sb, p.q_sh, p.q_ss) &&
+                    aligned16(p.k, p.k_sb, p.k_sh, p.k_ss) &&
+                    aligned16(p.v, p.v_sb, p.v_sh, p.v_ss) &&
+                    aligned16(p.o, p.o_sb, p.o_sh, p.o_ss) &&
+                    aligned16(p.dout, p.do_sb, p.do_sh, p.do_ss);
+  const auto dq_kernel = flash_bwd_dq_tf32x3<D, BN>;
+  const auto dkv_kernel = flash_bwd_dkv_tf32x3<D, BQ>;
+  // shared memory: the tiles (the splits' partial results fit in theirs)
+  int R = row_groups(p.Sq, (long long)p.B * p.H), S = kWarps / R;
+  int smem = ((2 * 16 * R + S * 2 * BN) * D + 16 * R) * (int)sizeof(float);
+  cudaError_t e = hopper::allow_smem(reinterpret_cast<const void*>(dq_kernel),
+                                     smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq_kernel<<<(unsigned)((p.Sq + 16 * R - 1) / (16 * R)) * p.B * p.H,
+              32 * kWarps, smem, s>>>(p, vec16, R);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  R = row_groups(p.Sk, (long long)p.B * p.Hkv), S = kWarps / R;
+  smem = (2 * 16 * R * D + S * (2 * BQ * D + 2 * BQ)) * (int)sizeof(float);
+  e = hopper::allow_smem(reinterpret_cast<const void*>(dkv_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dkv_kernel<<<(unsigned)((p.Sk + 16 * R - 1) / (16 * R)) * p.B * p.Hkv,
+               32 * kWarps, smem, s>>>(p, vec16, R);
+  return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace x3
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
@@ -1172,19 +1468,6 @@ int launch_tc(const Params& p, cudaStream_t s) {
                 s);
 }
 
-template <int D>
-int launch_f32(const Params& p, cudaStream_t s) {
-  const int smem_dq = (4 * FB * (D + 1) + FB * (FB + 1)) * sizeof(float);
-  int rc = launch(flash_bwd_dq_f32<D>, dim3((p.Sq + FB - 1) / FB, p.B * p.H),
-                  FTHREADS, smem_dq, p, s);
-  if (rc != 0) return rc;
-  const int smem_dkv =
-      (4 * FB * (D + 1) + 2 * FB * (FB + 1) + 2 * FB) * sizeof(float);
-  return launch(flash_bwd_dkv_f32<D>,
-                dim3((p.Sk + FB - 1) / FB, p.B * p.Hkv), FTHREADS, smem_dkv,
-                p, s);
-}
-
 // path 1 (mma_sync) at D 32, 64, 128; path 2 (wgmma) at D 64, 128
 template <typename T>
 int launch_16(int path, int D, const Params& p, cudaStream_t s) {
@@ -1207,14 +1490,14 @@ int launch_16(int path, int D, const Params& p, cudaStream_t s) {
 
 extern "C" {
 
-// Path codes shared with kernels/flash_fwd.py: 0 simt (f32), 1 mma_sync and
-// 2 wgmma (bf16/f16); dtype 0 f32, 1 bf16, 2 f16; D 32, 64 or 128 (wgmma:
+// Path codes shared with kernels/flash_fwd.py: 0 tf32x3 (f32), 1 mma_sync
+// and 2 wgmma (bf16/f16); dtype 0 f32, 1 bf16, 2 f16; D 32, 64 or 128 (wgmma:
 // 64, 128).  q, o and dout (B, H, S_q, D), k and v (B, H_kv, S_k, D), with
 // their batch, head and sequence element strides in `strides` (15 values:
 // q, k, v, o, dout; last dim contiguous; for bf16/f16 every stride a
 // multiple of 8 and the bases 16-byte aligned); lse (B, H, S_q) f32; dq
 // (B, H, S_q, D), dk and dv (B, H_kv, S_k, D) contiguous in the inputs'
-// dtype.  Scratch: simt and mma_sync take delta (B, H, S_q) f32; wgmma
+// dtype.  Scratch: tf32x3 and mma_sync take delta (B, H, S_q) f32; wgmma
 // takes delta of 2 (B H) sq_pad f32 (lse log2(e), then D), sq_pad = S_q
 // rounded up to 128.  Launches the dq kernel, then the dkv kernel, on
 // `stream`; returns the first CUDA error, or -1 / -2 when a TMA descriptor
@@ -1237,9 +1520,9 @@ int flash_bwd_launch(int path, int dtype, int D, const void* q,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && path == 0) {
     switch (D) {
-      case 32: return launch_f32<32>(p, s);
-      case 64: return launch_f32<64>(p, s);
-      case 128: return launch_f32<128>(p, s);
+      case 32: return x3::launch<32>(p, s);
+      case 64: return x3::launch<64>(p, s);
+      case 128: return x3::launch<128>(p, s);
     }
   } else if (dtype == 1) {
     return launch_16<__nv_bfloat16>(path, D, p, s);

@@ -22,8 +22,9 @@
 //
 // What bounds it on an H100: operations for the shapes of the main path
 // (4 S_q S_k D per head, less the masked area, over 989 TF/s in bf16 and
-// f16, or 67 TF/s in f32 outside the tensor cores); bytes (Q, K, V read
-// once and O written once, over 3.35 TB/s) only for short sequences.
+// f16, or in f32 over 165 TF/s, the 495 TF/s TF32 rate over the three
+// products of each f32-accurate one); bytes (Q, K, V read once and O
+// written once, over 3.35 TB/s) only for short sequences.
 //
 // Three paths, chosen by the wrapper before the launch
 // (kernels/flash_fwd.py::flash_schedule):
@@ -70,12 +71,23 @@
 // product once packed to bf16/f16.  O is written through shared memory in
 // 16-byte chunks.
 //
-// simt (f32): a plain CUDA-core kernel in full f32 (no TF32): 32 q rows and
-// kv tiles of 32 rows per block of 128 threads; 4 threads share a q row,
-// each computes 8 of its scores and owns D/4 of its output columns.
+// tf32x3 (f32): S = Q K^T and O += P V on the tensor cores as split-TF32
+// products (tf32x3.cuh: each operand split in registers into two TF32 halves,
+// three mma.sync m16n8k8 .tf32 a product, f32 accuracy), the softmax, the
+// rescaling and the lse in f32 on the CUDA cores as on the other paths (exp2f).
+// A block of 4 warps owns 64 q rows, 16 a warp, where that gives every SM a
+// block; for smaller grids 32 or 16 rows, the kv walk split 2 or 4 ways across
+// the warps and the splits' (m, l, O) merged in a fixed order at the end.  kv
+// tiles of 64 rows (32 at D = 128).  Q, K and V tiles are staged in shared
+// memory as swizzled f32 rows by cp.async copies (16 bytes when every view's
+// base and strides are 16-byte aligned, else 4 bytes), V_j copied while S = Q
+// K_j^T is computed and K_{j+1} while P V_j is.  S reads K's rows in the
+// permuted order of tf32x3.cuh, so each n8 tile of P is the A fragment of P V
+// where it lies; V is read as stored (column fragments, no transpose).  O is
+// written from the registers.
 //
 // Every path issues q tiles last first, so the longest causal rows start
-// first (wgmma: across all heads, from a 1-D grid).
+// first (wgmma and tf32x3: across all heads, from a 1-D grid).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -85,6 +97,7 @@
 
 #include "hopper.cuh"
 #include "mma.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -104,10 +117,6 @@ struct Params {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // kv tiles [j0, j1) of width bn that rows [q0, q0 + bm) attend.
 __device__ __forceinline__ void kv_range(const Params& p, int q0, int bm,
@@ -631,95 +640,243 @@ int launch(const Params& p, cudaStream_t s) {
 
 }  // namespace wg
 
-// ---------------------------------------------------------------- f32 path
-constexpr int FBM = 32, FBN = 32, FTHREADS = 128;
+// ------------------------------------------------------------- f32 path
+namespace x3 {
 
-template <int D>
-__global__ void __launch_bounds__(FTHREADS) flash_fwd_f32(const Params p) {
-  constexpr int QS = D + 1, PS = FBN + 1, DO = D / 4;
-  extern __shared__ __align__(16) float fsm[];
-  float* const qs = fsm;           // FBM x QS
-  float* const ks = qs + FBM * QS;  // FBN x QS
-  float* const vs = ks + FBN * QS;  // FBN x D
-  float* const ps = vs + FBN * D;   // FBM x PS
+using tf32x3::kWarps;
 
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FBM;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+// A block of 4 warps owns 16 R q rows of one (batch, head) and walks their
+// kv tiles of BN rows, split S = 4 / R ways (tf32x3.cuh): split s takes
+// tiles j0 + s, j0 + s + S, ...  Shared memory holds the Q tile and one K
+// and one V tile a split (swizzled f32 rows); after the walk, the splits'
+// partial (m, l, O) go through it to be merged.
+template <int D, int BN>
+__global__ void __launch_bounds__(128) flash_fwd_tf32x3(const Params p,
+                                                        int vec16, int R) {
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float xsm[];
+  const int S = kWarps / R, bm = 16 * R;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int sp = warp / R, rg = warp % R;  // this warp's split, row group
+  const int gtid = tid % (32 * R), gthreads = 32 * R;  // within the split
+  float* const qs = xsm;                           // bm x D
+  float* const ks = qs + bm * D + sp * 2 * BN * D;  // BN x D
+  float* const vs = ks + BN * D;                    // BN x D
+
+  // a 1-D grid, q tiles last first across all (batch, head) pairs: with
+  // causal the blocks start longest first and the card ends on short ones
+  const int nbh = p.B * p.H;
+  const int bh = blockIdx.x % nbh, b = bh / p.H, h = bh % p.H;
+  const int q0 = ((p.Sq + bm - 1) / bm - 1 - blockIdx.x / nbh) * bm;
   const int hk = h / (p.H / p.Hkv);
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  for (int i = tid; i < FBM * D; i += FTHREADS) {
-    const int r = i / D, c = i % D;
-    qs[r * QS + c] = q0 + r < p.Sq ? qg[(long long)(q0 + r) * p.q_ss + c] : 0.f;
-  }
-  float o[DO];
-#pragma unroll
-  for (int i = 0; i < DO; ++i) o[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const int qrow = q0 + row;
-
   int j0, j1;
-  kv_range(p, q0, FBM, FBN, j0, j1);
-  for (int j = j0; j < j1; ++j) {
-    const int c0 = j * FBN;
-    __syncthreads();  // the previous step is done with ks, vs and ps
-    for (int i = tid; i < FBN * D; i += FTHREADS) {
-      const int r = i / D, c = i % D;
-      const bool ok = c0 + r < p.Sk;
-      ks[r * QS + c] = ok ? kg[(long long)(c0 + r) * p.k_ss + c] : 0.f;
-      vs[r * D + c] = ok ? vg[(long long)(c0 + r) * p.v_ss + c] : 0.f;
-    }
-    __syncthreads();
+  kv_range(p, q0, bm, BN, j0, j1);
+  load_f32_tile<D>(qs, qg, p.q_ss, q0, bm, p.Sq, vec16, tid, blockDim.x);
+  cp_async_commit();
+  if (j0 + sp < j1)
+    load_f32_tile<D>(ks, kg, p.k_ss, (j0 + sp) * BN, BN, p.Sk, vec16, gtid,
+                     gthreads);
+  cp_async_commit();
+  cp_async_wait1();  // Q has landed
+  __syncthreads();
 
-    const bool masked = tile_needs_mask(p, q0, c0, FBM, FBN);
-    float s[FBN / 4], mx = -INFINITY;
+  // this lane's fragment offsets: Q rows (A), K rows in the order pi (B of
+  // S), V columns (B of P V)
+  const float* qa = qs + (rg * 16 + g) * D;
+  const int xa = row_x(g, t);
+  const float* kb = ks + pi(g) * D;
+  const int xk = row_x(pi(g), t);
+  const float* vb0 = vs + t * D;
+  const float* vb1 = vs + (t + 4) * D;
+  const int xv0 = col_x(t, g), xv1 = col_x(t + 4, g);
+
+  float o[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < FBN / 4; ++i) {
-      const int c = sub + 4 * i;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d)
-        acc = fmaf(qs[row * QS + d], ks[c * QS + d], acc);
-      float x = acc * p.scale_log2;
-      if (masked && !keep(p, qrow, c0 + c)) x = -INFINITY;
-      s[i] = x;
-      mx = fmaxf(mx, x);
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + rg * 16 + g;  // this lane's rows: row0, row0 + 8
+
+  for (int j = j0 + sp; j < j1; j += S) {
+    const int c0 = j * BN;
+    // V_j lands while S is computed; the V tile was released by the barrier
+    // that ended the previous step
+    load_f32_tile<D>(vs, vg, p.v_ss, c0, BN, p.Sk, vec16, gtid, gthreads);
+    cp_async_commit();
+    cp_async_wait1();  // K_j has landed
+    split_sync(sp, R);
+
+    // S = Q K_j^T; element e of n8 tile i: row row0 + 8 (e / 2), column
+    // c0 + 8 i + t + 4 (e % 2)
+    float s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float a[4] = {qa[col(8 * kk, xa)], qa[8 * D + col(8 * kk, xa)],
+                          qa[col(8 * kk + 4, xa)],
+                          qa[8 * D + col(8 * kk + 4, xa)]};
+      uint32_t ah[4], al[4];
+      split(a, ah, al);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const float bf[2] = {kb[8 * i * D + col(8 * kk, xk)],
+                             kb[8 * i * D + col(8 * kk + 4, xk)]};
+        mma3(s[i], ah, al, bf);
+      }
     }
-    const float m_new = fmaxf(m, quad_max(mx));
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = exp2f(m - m_use);
-    m = m_new;
-    float sum = 0.f;
+    split_sync(sp, R);  // the split's warps are done with K_j
+    if (j + S < j1)
+      load_f32_tile<D>(ks, kg, p.k_ss, c0 + S * BN, BN, p.Sk, vec16, gtid,
+                       gthreads);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+
+    const bool masked = tile_needs_mask(p, q0, c0, bm, BN);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < FBN / 4; ++i) {
-      const float pv = exp2f(s[i] - m_use);
-      sum += pv;
-      ps[row * PS + sub + 4 * i] = pv;
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[i][e] * p.scale_log2;
+        if (masked &&
+            !keep(p, row0 + (e / 2) * 8, c0 + 8 * i + t + 4 * (e % 2)))
+          x = -INFINITY;
+        s[i][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      // a row with nothing unmasked yet keeps m = -inf: p = 0, alpha = 0
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - m_use[r]);
+      m[r] = m_new;
     }
-    l = l * alpha + quad_sum(sum);
-    __syncwarp();  // the 4 threads of a row share one warp
 #pragma unroll
-    for (int i = 0; i < DO; ++i) o[i] *= alpha;
-    for (int c = 0; c < FBN; ++c) {
-      const float pc = ps[row * PS + c];
+    for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
-      for (int i = 0; i < DO; ++i)
-        o[i] = fmaf(pc, vs[c * D + sub + 4 * i], o[i]);
+      for (int e = 0; e < 4; ++e) {
+        s[i][e] = exp2f(s[i][e] - m_use[e / 2]);
+        sum[e / 2] += s[i][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
+
+    cp_async_wait1();  // V_j has landed
+    split_sync(sp, R);
+    // O += P V_j: P's n8 tile i is the A fragment of k8 step i
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      uint32_t ah[4], al[4];
+      acc_to_a(s[i], ah, al);
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        const float bf[2] = {vb0[8 * i * D + col(8 * nd, xv0)],
+                             vb1[8 * i * D + col(8 * nd, xv1)]};
+        mma3(o[nd], ah, al, bf);
+      }
+    }
+    split_sync(sp, R);  // the split's warps are done with V_j
+  }
+  cp_async_wait_all();
+
+  float* og = static_cast<float*>(p.o) + (long long)bh * p.Sq * D;
+  float* lse = p.lse == nullptr ? nullptr : p.lse + (long long)bh * p.Sq;
+  if (S == 1) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<float2*>(og + (long long)row * D + 8 * nd + 2 * t) =
+            make_float2(o[nd][2 * r] * inv[r], o[nd][2 * r + 1] * inv[r]);
+      if (lse != nullptr && t == 0) lse[row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+    return;
+  }
+  // S splits: each split's (m, l, unnormalised O) through the (now free)
+  // K / V tiles, then O = sum_s 2^(m_s - M) O_s / L in split order
+  __syncthreads();
+  float* const po = qs + bm * D;         // S x bm x D
+  float* const pm = po + S * bm * D;     // S x bm
+  float* const pl = pm + S * bm;         // S x bm
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = rg * 16 + g + 8 * r;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<float2*>(po + (sp * bm + rr) * D + 8 * nd + 2 * t) =
+          make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+    if (t == 0) {
+      pm[sp * bm + rr] = m[r];
+      pl[sp * bm + rr] = l[r];
     }
   }
-
-  if (qrow < p.Sq) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* og = static_cast<float*>(p.o) + ((long long)bh * p.Sq + qrow) * D;
-#pragma unroll
-    for (int i = 0; i < DO; ++i) og[sub + 4 * i] = o[i] * inv;
-    if (p.lse != nullptr && sub == 0)
-      p.lse[(long long)bh * p.Sq + qrow] = (m + log2f(l)) * kLn2;
+  __syncthreads();
+  for (int i = tid; i < bm * D; i += blockDim.x) {
+    const int rr = i / D, row = q0 + rr;
+    if (row >= p.Sq) continue;
+    float mm = -INFINITY;
+    for (int k = 0; k < S; ++k) mm = fmaxf(mm, pm[k * bm + rr]);
+    const float m_use = mm == -INFINITY ? 0.f : mm;
+    float ll = 0.f, acc = 0.f;
+    for (int k = 0; k < S; ++k) {
+      const float w = exp2f(pm[k * bm + rr] - m_use);
+      ll += w * pl[k * bm + rr];
+      acc += w * po[k * bm * D + i];
+    }
+    og[(long long)row * D + i % D] = ll > 0.f ? acc / ll : 0.f;
+    if (lse != nullptr && i % D == 0) lse[row] = (mm + log2f(ll)) * kLn2;
   }
 }
+
+template <int D, int BN>
+int launch_bn(const Params& p, int R, cudaStream_t s) {
+  const int S = kWarps / R, bm = 16 * R;
+  // the tiles, and after the walk (S > 1) the splits' partial results
+  const int floats = bm * D + S * 2 * BN * D;
+  const int merge = bm * D + S * bm * (D + 2);
+  const int smem = (floats > merge ? floats : merge) * (int)sizeof(float);
+  const cudaError_t e = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_fwd_tf32x3<D, BN>), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec16 = tf32x3::aligned16(p.q, p.q_sb, p.q_sh, p.q_ss) &&
+                    tf32x3::aligned16(p.k, p.k_sb, p.k_sh, p.k_ss) &&
+                    tf32x3::aligned16(p.v, p.v_sb, p.v_sh, p.v_ss);
+  const unsigned grid = (unsigned)((p.Sq + bm - 1) / bm) * p.B * p.H;
+  flash_fwd_tf32x3<D, BN><<<grid, 32 * kWarps, smem, s>>>(p, vec16, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kv tiles of 64 rows, 32 at D = 128 (at llama2 width on the H100 they ran
+// 17% faster than 64-row tiles; PERF.md)
+template <int D>
+int launch(const Params& p, cudaStream_t s) {
+  return launch_bn<D, D == 128 ? 32 : 64>(
+      p, tf32x3::row_groups(p.Sq, (long long)p.B * p.H), s);
+}
+
+}  // namespace x3
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, int smem, const Params& p,
@@ -737,14 +894,6 @@ int launch_tc(const Params& p, cudaStream_t s) {
   const dim3 grid((p.Sq + BM - 1) / BM, p.B * p.H);
   const int smem = (BM + 2 * BN) * (D + PAD) * sizeof(T);
   return launch(flash_fwd_tc<T, D>, grid, THREADS, smem, p, s);
-}
-
-template <int D>
-int launch_f32(const Params& p, cudaStream_t s) {
-  const dim3 grid((p.Sq + FBM - 1) / FBM, p.B * p.H);
-  const int smem =
-      ((FBM + FBN) * (D + 1) + FBN * D + FBM * (FBN + 1)) * sizeof(float);
-  return launch(flash_fwd_f32<D>, grid, FTHREADS, smem, p, s);
 }
 
 // path 1 (mma_sync) at D 32, 64, 128; path 2 (wgmma) at D 64, 128
@@ -769,9 +918,9 @@ int launch_16(int path, int D, const Params& p, cudaStream_t s) {
 
 extern "C" {
 
-// Path codes shared with kernels/flash_fwd.py: 0 simt (f32, CUDA cores), 1
-// mma_sync and 2 wgmma (bf16/f16, tensor cores); dtype 0 f32, 1 bf16, 2
-// f16; D 32, 64 or 128 (wgmma: 64, 128).  q (B, H, S_q, D), k and v (B,
+// Path codes shared with kernels/flash_fwd.py: 0 tf32x3 (f32), 1 mma_sync
+// and 2 wgmma (bf16/f16); dtype 0 f32, 1 bf16, 2 f16; D 32, 64 or 128
+// (wgmma: 64, 128).  q (B, H, S_q, D), k and v (B,
 // H_kv, S_k, D) with the given element strides (last dim contiguous; for
 // bf16/f16 every stride a multiple of 8 and the bases 16-byte aligned);
 // o (B, H, S_q, D) contiguous in q's dtype; lse (B, H, S_q) f32 or null.
@@ -790,9 +939,9 @@ int flash_fwd_launch(int path, int dtype, int D, const void* q,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && path == 0) {
     switch (D) {
-      case 32: return launch_f32<32>(p, s);
-      case 64: return launch_f32<64>(p, s);
-      case 128: return launch_f32<128>(p, s);
+      case 32: return x3::launch<32>(p, s);
+      case 64: return x3::launch<64>(p, s);
+      case 128: return x3::launch<128>(p, s);
     }
   } else if (dtype == 1) {
     return launch_16<__nv_bfloat16>(path, D, p, s);

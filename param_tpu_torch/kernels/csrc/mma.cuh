@@ -1,6 +1,7 @@
-// Tensor-core and async-copy building blocks shared by K3/K4 (gemm.cu)
-// and K5 (int4_gemm.cu): mma.sync m16n8k16 with f32 accumulators for bf16
-// and f16 operands, ldmatrix, and 16-byte cp.async with zero fill.
+// Tensor-core and async-copy building blocks shared by K3/K4 (gemm.cu),
+// K5 (int4_gemm.cu) and K6/K7 (flash_fwd.cu, flash_bwd.cu): mma.sync
+// m16n8k16 with f32 accumulators for bf16 and f16 operands, ldmatrix, and
+// 16-byte cp.async with zero fill.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,14 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait2() {
+  asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

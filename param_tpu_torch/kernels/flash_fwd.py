@@ -15,8 +15,12 @@ the launch by :func:`flash_schedule`: ``wgmma`` (TMA loads into mbarrier
 rings, a producer warp and two consumer warpgroups on ``wgmma``) for bf16
 / f16 at D 64 and 128 when every view is one a TMA tensor map can describe
 (:func:`tma_takes`); ``mma_sync`` for the other 16-bit shapes (D = 32);
-``simt`` for f32.  Launch counters: ``flash_fwd`` / ``flash_bwd`` per call
-and ``flash_fwd_<path>`` / ``flash_bwd_<path>`` for the path taken.
+``tf32x3`` for f32: every product on the tensor cores as three TF32
+products of the operands split into two TF32 halves (``csrc/tf32x3.cuh``),
+as accurate as f32; it reads any view :func:`kernel_takes`, with 16-byte
+copies where every base and stride is 16-byte aligned and 4-byte ones
+otherwise.  Launch counters: ``flash_fwd`` / ``flash_bwd`` per call and
+``flash_fwd_<path>`` / ``flash_bwd_<path>`` for the path taken.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from param_tpu_torch.kernels import bindings, launch_counts
 HEAD_DIMS = (32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 # path -> its code in csrc/flash_fwd.cu and csrc/flash_bwd.cu
-PATHS = {"simt": 0, "mma_sync": 1, "wgmma": 2}
+PATHS = {"tf32x3": 0, "mma_sync": 1, "wgmma": 2}
 _MAX_ROWS = 65535  # B * H: the grid's y dimension
 
 
@@ -143,10 +147,11 @@ def _path(views) -> str:
 
 def flash_schedule(dtype: torch.dtype, d: int, aligned: bool) -> str:
     """The path of K6 / K7 for inputs of ``dtype`` and head dim ``d``:
-    ``simt`` for f32; ``wgmma`` for 16-bit inputs at D 64 or 128 when
-    ``aligned`` (every view :func:`tma_takes`); else ``mma_sync``."""
+    ``tf32x3`` for f32 (whatever the alignment); ``wgmma`` for 16-bit
+    inputs at D 64 or 128 when ``aligned`` (every view :func:`tma_takes`);
+    else ``mma_sync``."""
     if dtype == torch.float32:
-        return "simt"
+        return "tf32x3"
     if aligned and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "mma_sync"

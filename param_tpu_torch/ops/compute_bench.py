@@ -40,7 +40,9 @@ from param_tpu_torch.ops.matmul import (
 )
 from param_tpu_torch.ops.mlp import init_mlp, make_optimizer, mlp_flops, \
     mlp_forward
-from param_tpu_torch.utils.chip import detect_chip, matmul_roofline_tflops
+from param_tpu_torch.utils.chip import (
+    attention_roofline_tflops, detect_chip, matmul_roofline_tflops,
+)
 from param_tpu_torch.utils.device import resolve_device
 from param_tpu_torch.utils.dtypes import dtype_from_name, dtype_size
 from param_tpu_torch.utils.logger import ComputePerfMetrics, emit_metrics
@@ -229,7 +231,7 @@ def bench_attention(shapes: List[tuple], dtype: str = "bfloat16",
     7/2 of the forward's (2 products forward, 5 backward)."""
     dev = resolve_device(device)
     dt = dtype_from_name(dtype)
-    peak = matmul_roofline_tflops(detect_chip(dev), dtype)
+    peak = attention_roofline_tflops(detect_chip(dev), dtype)
     results = []
     for b, h, s, d in shapes:
         gen = torch.Generator(device=dev).manual_seed(0)

@@ -2,10 +2,17 @@
 roofline fractions (torch counterpart of ``param_tpu/utils/chip.py``).
 
 NVIDIA H100 SXM data sheet, dense rates, at the full 700 W power limit: bf16
-and fp16 989 TF/s, int8 1979 TOP/s, f32 67 TF/s outside the tensor cores
-(the port keeps TF32 off), HBM 3.35 TB/s.  A card capped below that runs
-slower under load; the bound stays the published one and the card's limit
-is reported beside every measured time.
+and fp16 989 TF/s, int8 1979 TOP/s, TF32 495 TF/s, f32 67 TF/s outside the
+tensor cores, HBM 3.35 TB/s.  A card capped below that runs slower under
+load; the bound stays the published one and the card's limit is reported
+beside every measured time.
+
+The port never computes an f32 product as one TF32 product (about 3
+decimal digits).  Its f32 attention kernels (K6, K7) take each product as
+three TF32 products of split operands, as accurate as f32, so the least
+time the card could take for f32-accurate attention is at TF32 / 3, 165
+TF/s (``split_tf32``); the f32 GEMM (K3) and the other f32 rows keep the
+67 TF/s of the CUDA cores.
 """
 
 from __future__ import annotations
@@ -23,16 +30,24 @@ class ChipSpec:
     fp32_flops: float  # outside the tensor cores
     hbm_bytes: float
     int8_ops: float
+    tf32_flops: float  # dense, on the tensor cores
+
+    @property
+    def split_tf32_flops(self) -> float:
+        """f32-accurate products on the tensor cores: three TF32 products
+        each."""
+        return self.tf32_flops / 3
 
     @property
     def hbm_gbs(self) -> float:
         return self.hbm_bytes_per_s / 1e9
 
 
-H100 = ChipSpec("H100 SXM", 3.35e12, 989e12, 67e12, 80e9, 1979e12)
+H100 = ChipSpec("H100 SXM", 3.35e12, 989e12, 67e12, 80e9, 1979e12, 495e12)
 # placeholder rates for CPU runs (the reference's "cpu" entry): they keep the
-# benches' roofline column defined and are no measurement of any CPU
-CPU = ChipSpec("cpu", 50e9, 1e12, 0.5e12, 64e9, 1e12)
+# benches' roofline column defined and are no measurement of any CPU; its
+# split-TF32 rate is its f32 one, so CPU runs print the reference's column
+CPU = ChipSpec("cpu", 50e9, 1e12, 0.5e12, 64e9, 1e12, 1.5e12)
 
 
 def detect_chip(device="cuda") -> ChipSpec:
@@ -59,12 +74,25 @@ def matmul_roofline_tflops(spec: ChipSpec, dtype_name: str) -> float:
     return spec.fp32_flops / 1e12
 
 
+def attention_roofline_tflops(spec: ChipSpec, dtype_name: str) -> float:
+    """Peak TF/s of attention in ``dtype_name``: as
+    :func:`matmul_roofline_tflops`, but f32 at the split-TF32 rate of K6 /
+    K7."""
+    if any(t in dtype_name for t in ("float16", "int8")):  # also bfloat16
+        return matmul_roofline_tflops(spec, dtype_name)
+    return spec.split_tf32_flops / 1e12
+
+
 def bound_ms(nbytes: float, flops: float = 0.0, fp32: bool = True,
-             spec: ChipSpec = H100):
+             spec: ChipSpec = H100, split_tf32: bool = False):
     """Least time in ms the card could take for work that moves ``nbytes``
-    and does ``flops``; returns ``(ms, "bytes" | "operations")``."""
+    and does ``flops`` (16-bit, or f32: on the CUDA cores, or with
+    ``split_tf32`` f32-accurate on the tensor cores); returns ``(ms,
+    "bytes" | "operations")``."""
     t_bytes = nbytes / spec.hbm_bytes_per_s
-    t_ops = flops / (spec.fp32_flops if fp32 else spec.bf16_flops)
+    rate = (spec.bf16_flops if not fp32 else
+            spec.split_tf32_flops if split_tf32 else spec.fp32_flops)
+    t_ops = flops / rate
     if t_ops > t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"

@@ -340,6 +340,25 @@ def test_chip_specs():
     assert (by, ms) == ("bytes", pytest.approx(1.0))
 
 
+def test_f32_attention_is_bounded_at_the_split_tf32_rate():
+    """K6 / K7 take f32 products as three TF32 ones: f32 attention's peak is
+    TF32 / 3 on the H100 (495 / 3 TF/s), the f32 GEMM's stays the CUDA
+    cores' 67; on the CPU placeholder the two agree, as in the reference."""
+    h = chip.H100
+    assert h.tf32_flops == 495e12
+    assert chip.attention_roofline_tflops(h, "float32") == 165.0
+    assert chip.attention_roofline_tflops(h, "bfloat16") == 989.0
+    assert chip.attention_roofline_tflops(h, "float16") == 989.0
+    assert chip.matmul_roofline_tflops(h, "float32") == 67.0
+    assert chip.attention_roofline_tflops(chip.CPU, "float32") == \
+        chip.matmul_roofline_tflops(chip.CPU, "float32")
+    # llama2 width causal: 34.38 GF forward at 165 TF/s
+    flops = 4 * 32 * 128 * (2048 * 2049 // 2)
+    ms, by = chip.bound_ms(134e6, flops, split_tf32=True)
+    assert by == "operations" and ms == pytest.approx(0.2083, abs=1e-4)
+    assert chip.bound_ms(134e6, flops)[0] == pytest.approx(0.5131, abs=1e-4)
+
+
 def test_timer_median_of_windows():
     calls = []
     samples = timer.time_samples(lambda: calls.append(1), 4, "cpu", reps=3)

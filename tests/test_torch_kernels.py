@@ -730,9 +730,17 @@ _SCHEDULE_CASES = (
        ("head dim 32", lambda: _dense_heads(4, 16, 16, 1024, 32,
                                             torch.bfloat16), "mma_sync"),
        ("f32", lambda: _dense_heads(1, 4, 4, 512, 64, torch.float32),
-        "simt"),
+        "tf32x3"),
        ("f32 head dim 128", lambda: _dense_heads(1, 4, 4, 512, 128,
-                                                 torch.float32), "simt"),
+                                                 torch.float32), "tf32x3"),
+       ("f32 llama2 (1, 32, 2048, 128)", lambda: _dense_heads(
+           1, 32, 32, 2048, 128, torch.float32), "tf32x3"),
+       ("f32 gpt2 (8, 12, 1024, 64)", lambda: _dense_heads(
+           8, 12, 12, 1024, 64, torch.float32), "tf32x3"),
+       ("f32 fused projection, row stride not 16-byte aligned",
+        lambda: _fused_heads(torch.empty((2, 130, 12 * 64 + 1),
+                                         dtype=torch.float32)[..., :-1],
+                             8, 2, 64), "tf32x3"),
        ("expanded batch (zero stride)",
         lambda: tuple(t.expand(2, -1, -1, -1) for t in _dense_heads(
             1, 4, 4, 64, 64, torch.bfloat16)), "mma_sync")])
@@ -793,8 +801,135 @@ _K6_CASES = [
 def _flash_path(dtype, d):
     """The path K6 / K7 must take for dense inputs."""
     if dtype == torch.float32:
-        return "simt"
+        return "tf32x3"
     return "wgmma" if d in (64, 128) else "mma_sync"
+
+
+# ---------------------------------------- the tf32x3 path's arithmetic
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the bits: cvt.rna.tf32.f32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32x3(a, b):
+    """a @ b as the tf32x3 path takes it: each operand split into hi =
+    tf32(x) and lo = tf32(x - hi), three TF32 products summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b as one TF32 product: what the tf32x3 path must not be."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _k6_split(q, k, v, causal, window, mm, bn=64):
+    """K6's f32 recurrence on the CPU with its products taken by ``mm``:
+    kv tiles of ``bn`` columns, scores times scale log2(e), the online
+    softmax in exp2, O / l and the natural-log lse at the end."""
+    b, h, sq, d = q.shape
+    sk, group = k.shape[2], h // k.shape[1]
+    kf, vf = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    keep = attention_keep_mask(sq, sk, causal, window, "cpu")
+    m = torch.full((b, h, sq), -math.inf)
+    l, o = torch.zeros((b, h, sq)), torch.zeros((b, h, sq, d))
+    for c0 in range(0, sk, bn):
+        s = mm(q, kf[:, :, c0:c0 + bn].transpose(-1, -2)) * sl2
+        if keep is not None:
+            s = s.masked_fill(~keep[:, c0:c0 + bn], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + mm(p, vf[:, :, c0:c0 + bn])
+        m = m_new
+    return o / l[..., None], (m + torch.log2(l)) * math.log(2)
+
+
+def _k7_split(q, k, v, o, lse, do, causal, mm):
+    """K7's five f32 products on the CPU taken by ``mm``; P, D and dS in
+    f32 as the kernel forms them."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    kf, vf = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    scale = 1.0 / math.sqrt(d)
+    s = mm(q, kf.transpose(-1, -2))
+    p = torch.exp2(s * scale * math.log2(math.e)
+                   - lse[..., None] * math.log2(math.e))
+    keep = attention_keep_mask(sq, sk, causal, None, "cpu")
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = mm(do, vf.transpose(-1, -2))
+    ds = p * (dp - (do * o).sum(-1, keepdim=True)) * scale
+
+    def gsum(t):
+        return t.reshape(b, hkv, group, sk, d).sum(2)
+
+    return (mm(ds, kf), gsum(mm(ds.transpose(-1, -2), q)),
+            gsum(mm(p.transpose(-1, -2), do)))
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = torch.tensor([1.0, -1.0])
+    ulp = 2.0 ** -10
+    x = torch.cat([one * (1 + ulp / 2), one * (1 + ulp / 2 - 2.0 ** -23),
+                   one * (1 + 3 * ulp / 2)])
+    want = torch.cat([one * (1 + ulp), one, one * (1 + 2 * ulp)])
+    assert torch.equal(_tf32(x), want)
+    # hi + lo recovers x to about 2^-22 relative
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096, dtype=np.float32))
+    hi = _tf32(x)
+    err = (hi + _tf32(x - hi) - x).abs() / x.abs()
+    assert err.max().item() <= 2.0 ** -21 and (hi != x).any()
+
+
+# (B, H, H_kv, S_q, S_k, D, causal, window): a few heads, S <= 256
+_SPLIT_CASES = [
+    (1, 4, 4, 256, 256, 128, True, None),
+    (2, 2, 2, 192, 192, 64, False, None),
+    (1, 4, 2, 256, 256, 64, True, None),
+    (1, 2, 1, 100, 256, 128, True, None),
+    (2, 4, 4, 128, 128, 32, True, None),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", _SPLIT_CASES + [
+    (1, 2, 2, 256, 256, 64, True, 96)])
+def test_tf32x3_split_holds_k6_bounds_one_tf32_product_does_not(
+        b, h, hkv, sq, sk, d, causal, window):
+    """K6's f32 arithmetic with split-TF32 products stays within the f32
+    bounds (2e-5 on O, 1e-4 on the lse) of the plain version; the same
+    recurrence with single TF32 products does not."""
+    q, k, v = _attn(b, h, hkv, sq, sk, d, seed=sq + d)
+    want, want_lse = flash_fwd_plain(q, k, v, causal, None, window, True)
+    tol = flash_fwd_tolerance(q, k, v, want, causal, None, window)
+    got, lse = _k6_split(q, k, v, causal, window, _mm_tf32x3)
+    assert ((got - want).abs() <= tol).all(), ((got - want).abs() / tol).max()
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    one, _ = _k6_split(q, k, v, causal, window, _mm_tf32)
+    assert ((one - want).abs() > tol).any()
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", _SPLIT_CASES)
+def test_tf32x3_split_holds_k7_bounds_one_tf32_product_does_not(
+        b, h, hkv, sq, sk, d, causal, window):
+    """K7's five products split-TF32 stay within the f32 bounds
+    (``flash_bwd_tolerance``) of the plain version on dq, dk and dv; single
+    TF32 products miss them on each."""
+    ins = _bwd_inputs(b, h, hkv, sq, sk, d, causal, seed=sq + d)
+    want = flash_bwd_plain(*ins, causal)
+    tols = flash_bwd_tolerance(*ins, want, causal)
+    for got, w, tol in zip(_k7_split(*ins, causal, _mm_tf32x3), want, tols):
+        assert ((got - w).abs() <= tol).all(), ((got - w).abs() / tol).max()
+    for got, w, tol in zip(_k7_split(*ins, causal, _mm_tf32), want, tols):
+        assert ((got - w).abs() > tol).any()
 
 
 @pytest.mark.cuda
@@ -837,12 +972,14 @@ def _fused_random(b, s, h, hkv, d, dtype, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d,hkv", [(64, 4), (128, 4), (128, 2), (32, 4)])
 def test_flash_fwd_kernel_takes_strided_heads(cuda_device, dtype, d, hkv):
     """Heads split out of a fused (B, S, (H + 2 H_kv) D) projection, as the
     transformer block passes them, with no copy, on the path the schedule
-    gives dense inputs (wgmma at D 64 and 128, mma_sync at 32)."""
+    gives dense inputs (f32: tf32x3; 16-bit: wgmma at D 64 and 128,
+    mma_sync at 32)."""
     b, s, h = 2, 130, 4
     q, k, v, _ = _fused_random(b, s, h, hkv, d, dtype, cuda_device, seed=5)
     assert not q.is_contiguous()
@@ -870,6 +1007,14 @@ def test_flash_fwd_kernel_raises_on_what_it_does_not_take(cuda_device):
         flash_fwd_cuda(q, q, q, window=4)
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd_cuda(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    x = torch.ones((1, 2, 16, 96), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd_cuda(x, x, x)
+    x = torch.ones((1, 2, 64, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_fwd_cuda(x, x.half(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_cuda(x.transpose(2, 3), x, x)
 
 
 @pytest.mark.cuda
@@ -1047,7 +1192,8 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, dtype, b, h, hkv, sq, sk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d,hkv", [(64, 4), (128, 4), (128, 2), (32, 4)])
 def test_flash_bwd_kernel_takes_strided_heads(cuda_device, dtype, d, hkv):
     """q, k, v split out of a fused (B, S, (H + 2 H_kv) D) projection and dO
@@ -1070,7 +1216,8 @@ def test_flash_bwd_kernel_takes_strided_heads(cuda_device, dtype, d, hkv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
     (1, 4, 4, 256, 256, 128, True), (1, 4, 2, 200, 300, 64, True),
     (2, 3, 3, 192, 192, 64, False)])
@@ -1088,6 +1235,40 @@ def test_flash_bwd_is_the_same_from_run_to_run(cuda_device, dtype, b, h, hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_f32_reads_views_16_byte_copies_cannot(cuda_device, d):
+    """f32 heads of a fused projection whose rows are one element wider
+    than (H + 2 H_kv) D: no row stride is 16-byte aligned, so K6 and K7
+    copy with 4-byte cp.async, on the tf32x3 path, and agree with the
+    plain versions within the f32 bounds."""
+    b, s, h, hkv = 2, 130, 4, 2
+    rng = np.random.default_rng(d)
+    y = torch.from_numpy(rng.standard_normal(
+        (b, s, (h + 2 * hkv) * d + 1), dtype=np.float32)).to(cuda_device)
+    q, k, v = _fused_heads(y[..., 1:], h, hkv, d)
+    g = torch.from_numpy(rng.standard_normal((b, s, h * d + 1),
+                                             dtype=np.float32))
+    do = g.to(cuda_device)[..., 1:].reshape(b, s, h, d).transpose(1, 2)
+    assert q.stride(2) % 4 and q.data_ptr() % 16 and do.data_ptr() % 16
+    fwd = kernels.launch_counts["flash_fwd_tf32x3"]
+    bwd = kernels.launch_counts["flash_bwd_tf32x3"]
+    o, lse = flash_fwd_cuda(q, k, v, True, return_lse=True)
+    got = flash_bwd_cuda(q, k, v, o, lse, do, True)
+    dense = [t.contiguous() for t in (q, k, v)]
+    want_o, want_lse = flash_fwd_plain(*dense, True, return_lse=True)
+    ins = dense + [o, lse, do.contiguous()]
+    want = flash_bwd_plain(*ins, True)
+    tols = flash_bwd_tolerance(*ins, want, True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_fwd_tf32x3"] == fwd + 1
+    assert kernels.launch_counts["flash_bwd_tf32x3"] == bwd + 1
+    assert (o - want_o).abs().max().item() <= 2e-5
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for x, w, tol in zip(got, want, tols):
+        assert ((x - w).abs() <= tol).all(), ((x - w).abs() / tol).max()
+
+
+@pytest.mark.cuda
 def test_flash_bwd_kernel_raises_on_what_it_does_not_take(cuda_device):
     ins = _bwd_inputs(1, 2, 2, 64, 64, 64, True, torch.bfloat16,
                       device=cuda_device)
@@ -1099,6 +1280,18 @@ def test_flash_bwd_kernel_raises_on_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_bwd_cuda(q, k, v, o, lse, do.transpose(2, 3))
     x = torch.ones((1, 2, 16, 96), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_bwd_cuda(x, x, x, x, torch.zeros((1, 2, 16),
+                                               device=cuda_device), x)
+    q, k, v, o, lse, do = _bwd_inputs(1, 2, 2, 64, 64, 64, True,
+                                      device=cuda_device)
+    with pytest.raises(TypeError, match="lse"):
+        flash_bwd_cuda(q, k, v, o, lse.double(), do)
+    with pytest.raises(TypeError):
+        flash_bwd_cuda(q, k, v, o, lse, do.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd_cuda(q, k, v, o.transpose(2, 3), lse, do)
+    x = x.float()
     with pytest.raises(ValueError, match="head dims"):
         flash_bwd_cuda(x, x, x, x, torch.zeros((1, 2, 16),
                                                device=cuda_device), x)
