@@ -133,7 +133,7 @@ Phases (any failure exits non-zero):
      per-rank payloads of 4 KiB, 1 MiB and 64 MiB in f32 and 1 MiB in
      bf16, every byte equal; a planted fault (rank 0 sends its first hop
      to right + 1) must raise from the bounded wait, and the next call
-     must be right again (K8b on both its routes).  Each K8a / K8b row
+     must be right again (K8b on both its routes).  Each K8a-d row
      prints its plan (blocks a rank, slice bytes, lag, slots and where
      they are, scope); each K8b row over 2 to 8 ranks is also held and
      timed on its other route (cluster or memory, through
@@ -142,8 +142,10 @@ Phases (any failure exits non-zero):
      Library yardsticks, on a
      stack X of the shards made before the timed window: K8a and K8c
      ``X.expand(n, n, L).contiguous()`` (``X.clone()`` over one rank,
-     where that is a view), K8b ``X.view(n, n, c).sum(0)``; K8d has none
-     (``Tensor.clone`` is its plain version).
+     where that is a view), K8b ``X.view(n, n, c).sum(0)``, K8d
+     ``X.clone()``.  K8d's n = 1, 64 MiB row also times, in the same
+     call, the kernel K8a-c take over one rank (the same copy without
+     the handshake).
      With two or more cards the rings also run with one rank per card,
      timed beside NCCL's all-gather and reduce-scatter at the same per-rank
      shape (``torch.cuda.nccl``), and once behind a peer card still busy
@@ -1831,19 +1833,18 @@ def main(out_path=None) -> int:
         gather (shift 0) as one expand of the stack, the reduce-scatter's
         chunk sums as one sum over the ranks (rank r's result is row
         (r + 1) % n; the sums may differ from the ring's in the last bit,
-        so this row compares time only); None for the loopback, whose
-        plain version is the copy itself.  Over one rank the gather is a
-        copy, and ``expand().contiguous()`` of the stack a view, so the
-        call there is ``X.clone()``."""
+        so this row compares time only); the loopback's copies as one
+        ``X.clone()``.  Over one rank the gather is a copy, and
+        ``expand().contiguous()`` of the stack a view, so the call there
+        is ``X.clone()``."""
         n = len(xs)
         x = torch.stack(xs)
-        if coll in ("all_gather", "bidir") and n == 1:
+        if coll == "loopback" or (coll in ("all_gather", "bidir") and
+                                  n == 1):
             return lambda: x.clone()
         if coll in ("all_gather", "bidir"):
             return lambda: x.expand(n, n, x.shape[1]).contiguous()
-        if coll == "reduce_scatter":
-            return lambda: x.view(n, n, -1).sum(0)
-        return None
+        return lambda: x.view(n, n, -1).sum(0)
 
     def k8_case(coll, n, nbytes, dt):
         cuda_fn, plain_fn, _ = ring_kernels[coll]
@@ -1852,7 +1853,9 @@ def main(out_path=None) -> int:
                          plain_fn(xs))
         plan = k8.launch_plan(coll, xs, nbytes // n
                               if coll == "reduce_scatter" else nbytes)
-        iters = 50 if nbytes <= MIB else 3
+        # a window of about 1 GiB of input or more: 3 calls of a 64 MiB
+        # copy are 0.15 ms, too short to read
+        iters = 50 if nbytes <= MIB else max(3, (1 << 30) // (n * nbytes))
         rec = timings(lambda: cuda_fn(xs, check=False),
                       lambda: plain_fn(xs), ring_library(coll, xs), iters)
         k8.check_errors(xs)  # no wait ran out while timing
@@ -1874,13 +1877,23 @@ def main(out_path=None) -> int:
         k8_rows[f"{coll} n={n} {size} {str(dt)[6:]}"] = rec
         lib = {"all_gather": "X.expand(n, n, L).contiguous()",
                "bidir": "X.expand(n, n, L).contiguous()",
-               "reduce_scatter": "X.view(n, n, c).sum(0)"}.get(coll, "")
+               "reduce_scatter": "X.view(n, n, c).sum(0)",
+               "loopback": "X.clone()"}[coll]
         if n == 1 and coll in ("all_gather", "bidir"):
             lib = "X.clone()"
+        copy = ""
+        if coll == "loopback" and n == 1 and nbytes == 64 * MIB:
+            # the same copy without the handshake: the kernel K8a-c take
+            # over one rank, timed in this call
+            rec["t_copy_kernel"] = timed(
+                lambda: k8.ring_all_gather_cuda(xs, check=False), iters)
+            k8.check_errors(xs)
+            copy = (f" | ring_copy_kernel (K8a over one rank) "
+                    f"{fmt(rec['t_copy_kernel'])}")
         say(f"phase 17 K8 {coll}: {rec['shape']}: every byte equal | plan "
-            f"{plan.text()} | {timing_text(rec, lib)} ({rec['gbps']:.0f} "
-            f"GB/s of HBM: inputs read + outputs written) bound "
-            f"{b_ms:.4f} ms ({b_by}) | {smi}")
+            f"{plan.text()} | {timing_text(rec, lib)}{copy} "
+            f"({rec['gbps']:.0f} GB/s of HBM: inputs read + outputs "
+            f"written) bound {b_ms:.4f} ms ({b_by}) | {smi}")
         if coll == "reduce_scatter" and 2 <= n <= 8:
             # K8b's other route, held and timed too, with its own plain and
             # library times on the same inputs
@@ -2210,14 +2223,15 @@ def main(out_path=None) -> int:
               "param_tpu/ops/ring_collectives.py:112",
               ring_launches["ring_reduce_scatter_memory"],
               k8_rows["reduce_scatter n=8 64 MiB float32"]["memory_route"]),
-        entry("ring copy, one rank (K8a / K8b at n = 1)", src + "ring.cu",
-              "param_tpu/ops/ring_collectives.py:55, :112",
+        entry("ring copy, one rank (K8a-c at n = 1)", src + "ring.cu",
+              "param_tpu/ops/ring_collectives.py:55, :112, :181",
               ring_launches["ring_all_gather_copy"]
-              + ring_launches["ring_reduce_scatter_copy"],
+              + ring_launches["ring_reduce_scatter_copy"]
+              + ring_launches["ring_bidir_all_gather_copy"],
               k8_rows["all_gather n=1 64 MiB float32"]),
-        entry("both-direction ring all-gather (K8c)", src + "ring.cu",
-              "param_tpu/ops/ring_collectives.py:181",
-              ring_launches["ring_bidir_all_gather"],
+        entry("both-direction ring all-gather (K8c), memory route",
+              src + "ring.cu", "param_tpu/ops/ring_collectives.py:181",
+              ring_launches["ring_bidir_all_gather_memory"],
               k8_rows["bidir n=8 64 MiB float32"]),
         entry("loopback remote copy (K8d)", src + "ring.cu",
               "param_tpu/ops/ring_collectives.py:261",

@@ -64,6 +64,8 @@ launch_counts = {
     "ring_reduce_scatter_cluster": 0,
     "ring_reduce_scatter_copy": 0,
     "ring_bidir_all_gather": 0,
+    "ring_bidir_all_gather_memory": 0,
+    "ring_bidir_all_gather_copy": 0,
     "ring_loopback": 0,
     "desc_fetch": 0,
     "coalesced_bag": 0,

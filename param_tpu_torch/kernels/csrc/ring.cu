@@ -21,18 +21,18 @@
 // (grid.y = 1, rank0 = that card's rank), peers reached through peer
 // pointers.  The kernel body reads only a table of per-rank pointers.
 //
-// What bounds it on an H100: bytes.  K8a must read each input once and
-// write n outputs of n chunks each (n + n^2 chunks of HBM traffic); K8b
-// must read each input once and write its chunk of the sum.  There is no
-// arithmetic but K8b's one add per element and hop.  What a ring adds on
-// top is the forwarded bytes: a rank reads back every chunk it passes on
-// (K8a) or every partial sum it adds to (K8b).  A whole-range hop (a whole
-// chunk a hop) reads them back from HBM on one card, because the n ranks
-// write n whole chunks between a chunk's arrival and its forward, far
-// more than the 50 MB L2; and it pays a signal, a fence and a poll per
-// hop.
+// What bounds it on an H100: bytes.  K8a and K8c must read each input
+// once and write n outputs of n chunks each (n + n^2 chunks of HBM
+// traffic); K8b must read each input once and write its chunk of the sum;
+// K8d must read each input once and write it once.  There is no arithmetic
+// but K8b's one add per element and hop.  What a ring adds on top is the
+// forwarded bytes: a rank reads back every chunk it passes on (K8a, K8c)
+// or every partial sum it adds to (K8b).  A whole-range hop (a whole chunk
+// a hop) reads them back from HBM on one card, because the n ranks write n
+// whole chunks between a chunk's arrival and its forward, far more than
+// the 50 MB L2; and it pays a signal, a fence and a poll per hop.
 //
-// K8a and K8b: slice-pipelined hops (as NCCL's slice pipeline).
+// K8a, K8b and K8c: slice-pipelined hops (as NCCL's slice pipeline).
 // - Each rank's chunk is cut into ``blocks`` byte ranges of ``per_block``
 //   bytes; block b of rank r talks only to block b of its neighbours.  Each
 //   range is cut into slices of S = 2^slice_log2 bytes (the last one
@@ -44,20 +44,28 @@
 //   L2 by ``kernels/ring.ring_plan``, which picks blocks, S, lag and slots.
 // - A step waits once for all its hops and signals once for all of them,
 //   so a signal's cost is paid once a step, not once a hop: lane j of warp
-//   0 plans hop j, waits for what it reads, and after the whole block has
+//   0 plans a hop, waits for what it reads, and after the whole block has
 //   copied, releases what it wrote.  Waits poll without sleeping and read
 //   the error word and the clock only now and then.
-// - Memory route (K8a; K8b across cards, or over more than 8 ranks): each
-//   (rank, block, hop) has an arrival counter ``ready``, bumped by the
-//   sender with a release store to ``epoch << 32 | slices sent``.  K8a
-//   writes straight into the receiver's output (each chunk has its own
-//   place there); hop 0 reads the rank's input and also writes its own
-//   copy.  K8b's partial sums go into a ring of D = ``slots`` slices per
-//   (rank, block, hop) of the receiver's global workspace; the receiver
-//   adds its own share and sends the sum on (the last hop writes the
-//   output), then bumps the sender's ``freed`` counter; a sender writes
-//   slot s % D only once freed covers slice s - D.  The workspace is
-//   blocks x (n - 1) x D x S bytes a rank, whatever the chunk.
+// - K8c runs both directions in the same steps: n / 2 clockwise hops (to
+//   the right) and (n - 1) / 2 counter-clockwise (to the left), n - 1 hops
+//   a step as K8a, but a slice's longest chain is n / 2 hops, so the
+//   pipeline fills in half the steps.  Hop 0 of both directions reads the
+//   same input slice: one job writes it to the right neighbour, the left
+//   one and the rank's own row, so the input is read once.  Each direction
+//   has its own ready counters (ready[dir][hop]).
+// - Memory route (K8a, K8c; K8b across cards, or over more than 8 ranks):
+//   each (rank, block, direction, hop) has an arrival counter ``ready``,
+//   bumped by the sender with a release store to ``epoch << 32 | slices
+//   sent``.  K8a and K8c write straight into the receiver's output (each
+//   chunk has its own place there); hop 0 reads the rank's input and also
+//   writes its own copy.  K8b's partial sums go into a ring of D =
+//   ``slots`` slices per (rank, block, hop) of the receiver's global
+//   workspace; the receiver adds its own share and sends the sum on (the
+//   last hop writes the output), then bumps the sender's ``freed``
+//   counter; a sender writes slot s % D only once freed covers slice s -
+//   D.  The workspace is blocks x (n - 1) x D x S bytes a rank, whatever
+//   the chunk.
 // - Cluster route (K8b with 2 to 8 ranks on one card): block b of every
 //   rank is one thread-block cluster, so the slots are in the receiver's
 //   shared memory: a partial goes from the sender's registers straight
@@ -79,9 +87,16 @@
 // - Scope (template): when every rank is on one card, GPU-scope acquire /
 //   release; across cards, system scope.
 //
-// K8c and K8d keep whole-range hops (one range a block), with the same
-// counters, waits and scopes; K8a and K8b over one rank are a copy, one
-// range a block.
+// K8d, and K8a-c over one rank (a copy): the chunk in 10 KiB tiles,
+// copied through shared memory by Hopper's bulk-copy engine
+// (cp.async.bulk), one thread a block issuing every copy, a ring of slots
+// keeping loads in flight; after each block's first tiles the rest are
+// dealt out by a per-rank ticket counter, so the blocks end together (with
+// a fixed share each, the slowest block's tail cost the copy 3-4% against
+// cudaMemcpy).  K8d's neighbour barrier overlaps its first loads, which
+// read only the rank's own input; it stores nothing before the barrier.
+// Both are bound by their bytes: the input read once, the output written
+// once; K8d also by its handshake, a few round trips to L2 a block.
 //
 // Safety, in every kernel:
 // - Global counters are tags ``epoch << 32 | count``; each (rank, block)
@@ -96,10 +111,12 @@
 //   instead of hanging it (on the cluster route a stopped block still
 //   meets its peers at the final cluster barrier).  The wrapper reads the
 //   word and raises.
-// - Co-residency: on the memory route a block spins on a counter that
-//   another block sets, so all blocks of a launch must be resident at
-//   once.  ring_capacity() gives the number that fit; the wrapper keeps
-//   the grid within it.
+// - Co-residency: on the memory route and in K8d a block spins on a
+//   counter that another block sets, so all blocks of a launch must be
+//   resident at once.  ring_capacity() gives the number that fit; the
+//   wrapper keeps the grid within it.
+// - A block's flag words lie together, in lines of their own, so no two
+//   blocks' signals and polls contend for a line.
 // - ``fault`` 1 plants a fault for the checks: in K8a-c rank 0 sends its
 //   first clockwise hop to right + 1 instead of right.
 
@@ -109,20 +126,24 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kClusterThreads = 256;  // K8b's cluster route: three an SM
 constexpr int kMaxRanks = 16;
-constexpr int kMaxBlocks = 256;  // per rank; sizes the flag arrays
+constexpr int kMaxBlocks = 1024;  // per rank; sizes the flag arrays
 constexpr unsigned kPollsPerCheck = 16;  // a wait reads the error word and
                                          // the clock once in so many polls
 
 // flag words of one rank (u64 each), kMaxBlocks of each:
-//   epoch, loopback count, barrier, freed[hop] (K8b), ready[dir][hop]
+//   epoch, loopback count, barrier, freed[hop] (K8b), ready[dir][hop], and
+//   the copy's ticket counter (block 0's word is the rank's)
 constexpr int kEpoch = 0, kLoops = 1, kBarrier = 2, kFreed = 3,
-              kReady = kFreed + kMaxRanks;
-constexpr int kFlagArrays = kReady + 2 * kMaxRanks;
+              kReady = kFreed + kMaxRanks, kTicket = kReady + 2 * kMaxRanks;
+constexpr int kFlagStride = 64;  // words a block: kTicket + 1, in whole lines
+static_assert(kTicket < kFlagStride, "a block's flag words overflow");
 
 enum {
   kAllGather = 0,
@@ -149,9 +170,12 @@ struct Args {
   unsigned int* err;
 };
 
+// Block b's words of every array lie together, kFlagStride words (whole
+// 128-byte lines) a block, so the blocks' signals and polls never share a
+// line (on one card they had contended there).
 __device__ __forceinline__ unsigned long long* flag(const Table& t, int rank,
                                                     int array, int b) {
-  return t.flags[rank] + (long long)array * kMaxBlocks + b;
+  return t.flags[rank] + (long long)b * kFlagStride + array;
 }
 
 // One ready word per hop: a hop whose counter never came cannot be passed
@@ -192,6 +216,14 @@ __device__ __forceinline__ void fence() {
     asm volatile("fence.acq_rel.sys;" ::: "memory");
   else
     asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ unsigned int ld_volatile(const unsigned int* p) {
@@ -243,34 +275,6 @@ __device__ bool thread_wait(const unsigned long long* p,
   }
   *seen = v;
   return true;
-}
-
-// Thread 0 waits until *p >= want; the whole block learns whether it got
-// there.  Returns false when the launch is to stop.
-template <int S>
-__device__ bool block_wait(const unsigned long long* p,
-                           unsigned long long want, const Args& a,
-                           unsigned int code) {
-  __shared__ int ok;
-  if (threadIdx.x == 0) {
-    unsigned long long seen = 0;
-    ok = thread_wait<S>(p, want, &seen, a, code) ? 1 : 0;
-  }
-  __syncthreads();
-  const bool got = ok != 0;
-  __syncthreads();  // every thread has read ``ok`` before the next wait
-  return got;
-}
-
-// After the block's writes: make them visible at the scope, then set *p.
-template <int S>
-__device__ __forceinline__ void block_signal(unsigned long long* p,
-                                             unsigned long long v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    fence<S>();
-    st_release<S>(p, v);
-  }
 }
 
 // dst[0:n) = src[0:n) by threads 0 .. bd - 1, in the widest words the
@@ -417,17 +421,24 @@ struct Block {
   unsigned long long epoch;
 };
 
-// This block's byte range and call number; false if its range is empty
-// (then no rank's block b has anything to move).
-template <int S>
-__device__ bool block_setup(const Table& t, const Args& a, int rank0,
-                            Block* blk) {
-  __shared__ unsigned long long epoch;
+// This block's rank and byte range; false if its range is empty (then no
+// rank's block b has anything to move).
+__device__ __forceinline__ bool block_range(const Args& a, int rank0,
+                                            Block* blk) {
   blk->rank = rank0 + blockIdx.y;
   blk->b = blockIdx.x;
   blk->lo = (long long)blockIdx.x * a.per_block;
   if (blk->lo >= a.chunk) return false;
   blk->nb = min(a.per_block, a.chunk - blk->lo);
+  return true;
+}
+
+// block_range, and the block's call number.
+template <int S>
+__device__ bool block_setup(const Table& t, const Args& a, int rank0,
+                            Block* blk) {
+  __shared__ unsigned long long epoch;
+  if (!block_range(a, rank0, blk)) return false;
   if (threadIdx.x == 0)
     epoch = ld_acquire<S>(flag(t, blk->rank, kEpoch, blk->b)) + 1;
   __syncthreads();
@@ -435,23 +446,21 @@ __device__ bool block_setup(const Table& t, const Args& a, int rank0,
   return true;
 }
 
-__device__ void block_finish(const Table& t, const Block& blk) {
-  __syncthreads();
-  if (threadIdx.x == 0) *flag(t, blk.rank, kEpoch, blk.b) = blk.epoch;
-}
-
-// ------------------------------------------------ K8a, K8b: sliced steps
+// ------------------------------------------- K8a, K8b, K8c: sliced steps
 // One hop's work in one step: dst[0:len) = (a ? a + b : b), and also
-// dst2 = b (K8a's hop 0 keeps its own chunk).  ``b_in``: b is the rank's
-// input (streamed); ``last``: no one reads dst again in this launch.
+// dst2 = b (a gather's hop 0 keeps its own chunk) and dst3 = b (K8c's hop
+// 0 also sends the same slice the other way round).  ``b_in``: b is the
+// rank's input (streamed); ``last`` / ``last3``: no one reads dst / dst3
+// again in this launch.
 struct Job {
   char* dst;   // global: the receiver's output, or (K8b) its slot
-  char* dst2;  // global: K8a's hop 0 keeps its own chunk here
+  char* dst2;  // global: a gather's hop 0 keeps its own chunk here
+  char* dst3;  // global: K8c's hop 0, the left neighbour's output
   char* peer;  // K8b's cluster route: the receiver's slot (shared memory)
   const char* a;
   const char* b;
   int len;
-  int b_in, last;
+  int b_in, last, last3;
 };
 
 // One job of the cluster route element by element: b is the rank's
@@ -472,11 +481,13 @@ __device__ void cluster_elems(const Job& jb) {
 // The step's jobs by the block (kN threads).  ``kSmem`` (K8b's cluster
 // route): a and peer are slots in shared memory of this block or a
 // cluster peer, reached by generic addresses; else everything is global,
-// and what other blocks wrote is read through L2.
+// and what other blocks wrote is read through L2.  ``k3``: jobs may have
+// a third destination (K8c), so K8a and K8b compile without its test.
 // Vector path: item k is vector k & (2^vlog - 1) of job k >> vlog; each
 // thread loads kU items before it stores any, over all the step's hops at
 // once.
-template <typename T, bool kAdds, bool kSmem, int kN = kThreads>
+template <typename T, bool kAdds, bool kSmem, int kN = kThreads,
+          bool k3 = false>
 __device__ void run_jobs(const Job* jobs, int nj, int slice_log2, bool vec) {
   if (!vec) {
     for (int j = 0; j < nj; ++j) {
@@ -491,6 +502,7 @@ __device__ void run_jobs(const Job* jobs, int nj, int slice_log2, bool vec) {
         copy_bytes(jb.dst, jb.b, jb.len, kN);
       }
       if (jb.dst2) copy_bytes(jb.dst2, jb.b, jb.len, kN);
+      if (k3 && jb.dst3) copy_bytes(jb.dst3, jb.b, jb.len, kN);
     }
     return;
   }
@@ -528,6 +540,11 @@ __device__ void run_jobs(const Job* jobs, int nj, int slice_log2, bool vec) {
         else __stcg(d, v);
       }
       if (jb.dst2) __stcs(reinterpret_cast<int4*>(jb.dst2) + e, v);
+      if (k3 && jb.dst3) {
+        int4* d = reinterpret_cast<int4*>(jb.dst3) + e;
+        if (jb.last3) __stcs(d, v);
+        else __stcg(d, v);
+      }
       if (kSmem && jb.peer) reinterpret_cast<int4*>(jb.peer)[e] = v;
     }
   }
@@ -566,6 +583,53 @@ __device__ void gather_hop(const Table& t, const Args& a, const Block& blk,
   }
   p->sig[0] = flag(t, to, ready_array(0, i), blk.b);
   p->sig_v = tag(blk.epoch, s + 1);
+}
+
+// K8c's lanes: lane j < n / 2 plans clockwise hop j (to the right,
+// carrying rank r - j's chunk); lane n / 2 + k - 1 counter-clockwise hop
+// k = 1 .. (n - 1) / 2 - 1 (to the left, rank r + k's chunk).  The
+// counter-clockwise hop 0 reads the same input slice as the clockwise one,
+// so lane 0 does both.  n - 1 hops, in n - 2 lanes from n = 3 on.
+__device__ __forceinline__ int bidir_lanes(int n) {
+  const int ccw = (n - 1) / 2;
+  return n / 2 + (ccw > 1 ? ccw - 1 : 0);
+}
+
+// K8c, hop i of direction ``dir`` (0 clockwise, 1 counter-clockwise) of
+// slice s.  The output row of each chunk is its rank (the reference's
+// o_ref[src]); hop i > 0 forwards what arrived at hop i - 1 of the same
+// direction.
+__device__ void bidir_hop(const Table& t, const Args& a, const Block& blk,
+                          int dir, int i, long long s, Plan* p) {
+  const int n = a.n, r = blk.rank;
+  const int left = (r + n - 1) % n, right = (r + 1) % n;
+  const int ccw_hops = (n - 1) / 2;
+  const long long off = s << a.slice_log2;
+  const int c = dir == 0 ? (r - i + n) % n : (r + i) % n;
+  const long long at = (long long)c * a.chunk + blk.lo + off;
+  p->job.len = (int)min((long long)1 << a.slice_log2, blk.nb - off);
+  p->job.a = nullptr;
+  int to = dir == 0 ? right : left;
+  if (a.fault == 1 && r == 0 && dir == 0 && i == 0) to = (right + 1) % n;
+  p->job.dst = t.out[to] + at;
+  p->job.last = i == (dir == 0 ? n / 2 : ccw_hops) - 1;
+  p->sig[0] = flag(t, to, ready_array(dir, i), blk.b);
+  p->sig_v = tag(blk.epoch, s + 1);
+  if (i >= 1) {  // arrived at hop i - 1 of this direction
+    p->job.b = t.out[r] + at;
+    p->job.b_in = 0;
+    p->wait[0] = flag(t, r, ready_array(dir, i - 1), blk.b);
+    p->want[0] = tag(blk.epoch, s + 1);
+    return;
+  }
+  p->job.b = t.x[r] + blk.lo + off;  // read once for all three places
+  p->job.b_in = 1;
+  p->job.dst2 = t.out[r] + at;
+  if (ccw_hops >= 1) {
+    p->job.dst3 = t.out[left] + at;
+    p->job.last3 = ccw_hops == 1;
+    p->sig[1] = flag(t, left, ready_array(1, 0), blk.b);
+  }
 }
 
 __device__ __forceinline__ char* slot_ptr(const Table& t, const Args& a,
@@ -612,53 +676,63 @@ __device__ void reduce_hop(const Table& t, const Args& a, const Block& blk,
 
 // Lane ``lane`` of warp 0 plans its hop of step ``st`` and waits for what
 // the hop reads; false (in every lane) when the launch is to stop.
-template <bool kAdds, int S>
+template <int kKind, int S>
 __device__ bool plan_and_wait(const Table& t, const Args& a, const Block& blk,
-                              int hops, long long slices, long long st,
+                              int lanes, long long slices, long long st,
                               int lane, unsigned long long* seen, Plan* p) {
   p->on = false;
-  p->job.peer = nullptr;
+  p->job.dst2 = p->job.dst3 = p->job.peer = nullptr;
+  p->job.last3 = 0;
   p->wait[0] = p->wait[1] = nullptr;
   p->sig[0] = p->sig[1] = nullptr;
   p->sig_v = 0;
-  const long long s = st - (long long)a.lag * lane;
-  if (lane < hops && s >= 0 && s < slices) {
+  int dir = 0, hop = lane;  // the lane's hop in its direction
+  if (kKind == kBidir && lane >= a.n / 2) {
+    dir = 1;
+    hop = lane - a.n / 2 + 1;
+  }
+  const long long s = st - (long long)a.lag * hop;
+  if (lane < lanes && s >= 0 && s < slices) {
     p->on = true;
-    if constexpr (kAdds) reduce_hop(t, a, blk, lane, s, p);
-    else gather_hop(t, a, blk, lane, s, p);
+    if constexpr (kKind == kReduceScatter) reduce_hop(t, a, blk, hop, s, p);
+    else if constexpr (kKind == kBidir) bidir_hop(t, a, blk, dir, hop, s, p);
+    else gather_hop(t, a, blk, hop, s, p);
   }
   bool ok = true;
   for (int w = 0; w < 2; ++w)
     if (p->wait[w] &&
         !thread_wait<S>(p->wait[w], p->want[w], &seen[w], a,
-                        err_code(kAdds ? kReduceScatter : kAllGather,
-                                 blk.rank, lane,
+                        err_code(kKind, blk.rank, hop,
                                  w == 0 ? kWaitReady : kWaitFreed)))
       ok = false;
   return __all_sync(0xffffffffu, ok);
 }
 
-// K8a (T unused) and K8b: ``hops`` hops a step, hop i on slice st - lag i.
-// Lane i of warp 0 plans hop i of the step and waits for what it reads;
-// the whole block copies; then warp 0 releases every hop's counter.
-template <typename T, bool kAdds, int S>
+// K8a (T unused), K8b and K8c (T unused): ``lanes`` hops a step, a hop i
+// hops from its slice's start on slice st - lag i.  Lane j of warp 0 plans
+// its hop of the step and waits for what it reads; the whole block
+// copies; then warp 0 releases every hop's counter.
+template <typename T, int kKind, int S>
 __device__ void ring_steps(const Table& t, const Args& a, int rank0) {
+  constexpr bool kAdds = kKind == kReduceScatter;
   __shared__ Job jobs[kMaxRanks];
   __shared__ unsigned long long* sig[2][kMaxRanks];
   __shared__ unsigned long long sig_v[kMaxRanks];
   __shared__ int njobs, stop;
   Block blk;
   if (!block_setup<S>(t, a, rank0, &blk)) return;
-  const int hops = kAdds ? a.n : a.n - 1;
+  const int lanes = kAdds ? a.n : kKind == kBidir ? bidir_lanes(a.n) : a.n - 1;
+  // hops of the longest chain a slice makes: K8c's clockwise one
+  const int chain = kKind == kBidir ? a.n / 2 : lanes;
   const long long slices =
       (blk.nb + (1ll << a.slice_log2) - 1) >> a.slice_log2;
-  const long long steps = slices + (long long)a.lag * (hops - 1);
-  const int lane = threadIdx.x;  // in warp 0: lane i plans hop i
+  const long long steps = slices + (long long)a.lag * (chain - 1);
+  const int lane = threadIdx.x;  // in warp 0: lane j plans a hop
   unsigned long long seen[2] = {0, 0};
   for (long long st = 0; st < steps; ++st) {
     if (lane < 32) {
       Plan p;
-      const bool ok = plan_and_wait<kAdds, S>(t, a, blk, hops, slices, st,
+      const bool ok = plan_and_wait<kKind, S>(t, a, blk, lanes, slices, st,
                                               lane, seen, &p);
       const unsigned on = __ballot_sync(0xffffffffu, p.on);
       if (p.on) jobs[__popc(on & ((1u << lane) - 1))] = p.job;
@@ -674,7 +748,8 @@ __device__ void ring_steps(const Table& t, const Args& a, int rank0) {
     }
     __syncthreads();
     if (stop) return;
-    run_jobs<T, kAdds, false>(jobs, njobs, a.slice_log2, a.vec != 0);
+    run_jobs<T, kAdds, false, kThreads, kKind == kBidir>(
+        jobs, njobs, a.slice_log2, a.vec != 0);
     __syncthreads();
     if (lane < kMaxRanks) {  // the step's writes are done: a release store
       // of each hop's counter orders them before it
@@ -685,26 +760,22 @@ __device__ void ring_steps(const Table& t, const Args& a, int rank0) {
   if (lane == 0) *flag(t, blk.rank, kEpoch, blk.b) = blk.epoch;
 }
 
-// K8a and K8b over one rank: the rank's own copy, one range a block.
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-ring_copy_kernel(Table t, Args a, int rank0) {
-  Block blk;
-  if (!block_setup<S>(t, a, rank0, &blk)) return;
-  copy_bytes(t.out[blk.rank] + blk.lo, t.x[blk.rank] + blk.lo, blk.nb);
-  block_finish(t, blk);
-}
-
 template <int S>
 __global__ void __launch_bounds__(kThreads, 2)
 ring_all_gather_kernel(Table t, Args a, int rank0) {
-  ring_steps<float, false, S>(t, a, rank0);
+  ring_steps<float, kAllGather, S>(t, a, rank0);
 }
 
 template <typename T, int S>
 __global__ void __launch_bounds__(kThreads, 2)
 ring_reduce_scatter_kernel(Table t, Args a, int rank0) {
-  ring_steps<T, true, S>(t, a, rank0);
+  ring_steps<T, kReduceScatter, S>(t, a, rank0);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 2)
+ring_bidir_all_gather_kernel(Table t, Args a, int rank0) {
+  ring_steps<float, kBidir, S>(t, a, rank0);
 }
 
 // ------------------------------------------- K8b on one card: a cluster
@@ -878,7 +949,7 @@ ring_reduce_scatter_cluster_kernel(Table t, Args a, int rank0) {
       p.on = false;
       p.job.len = 0;
       p.job.a = nullptr;
-      p.job.dst = p.job.dst2 = p.job.peer = nullptr;
+      p.job.dst = p.job.dst2 = p.job.dst3 = p.job.peer = nullptr;
       p.wait[0] = p.wait[1] = nullptr;
       p.sig[0] = p.sig[1] = nullptr;
       const long long s = st - (long long)a.lag * lane;
@@ -917,64 +988,169 @@ ring_reduce_scatter_cluster_kernel(Table t, Args a, int rank0) {
   cluster_sync();  // no peer still writes to or arrives on this block
 }
 
-// ------------------------------------------------- K8c, K8d: whole ranges
-// One hop of a ring gather in direction ``dir``: the chunk of rank ``c``
-// (this rank's input at hop 0, else what arrived at hop - 1) goes to the
-// same place in ``to``'s output; then ``to`` is told.
-template <int S>
-__device__ void gather_send(const Table& t, const Args& a, const Block& blk,
-                            int dir, int to, int hop, int c) {
-  const long long off = (long long)((c + a.shift) % a.n) * a.chunk + blk.lo;
-  const char* src = hop == 0 ? t.x[blk.rank] + blk.lo : t.out[blk.rank] + off;
-  copy_bytes(t.out[to] + off, src, blk.nb);
-  block_signal<S>(flag(t, to, ready_array(dir, hop), blk.b),
-                  tag(blk.epoch, 1));
+// ----------------------------------------- K8d, and K8a-c over one rank
+// A rank's chunk is cut into tiles of kCopyTile bytes, copied through
+// kCopyStages slots of shared memory by Hopper's bulk-copy engine: thread 0
+// of each block starts every copy, global to shared (cp.async.bulk,
+// counted off one mbarrier a slot) and back (one bulk group a tile), and
+// refills the slot the previous store read while the next store goes out,
+// so no register or instruction of the SM touches the bytes.  The first
+// kCopyStages tiles of block b are b, b + G, ... (G blocks a rank); every
+// later tile comes from the rank's ticket counter, so a block that runs
+// ahead takes more tiles and all blocks end together, as the blocks of a
+// one-shot grid do.  Each block takes tickets until one is past the end;
+// the block that draws the launch's last ticket (the G-th past the end)
+// sets the counter back to 0 for the next launch.  Where a base or the
+// count is not a 16-byte multiple, or (the plain copy only) the chunk is
+// one tile or less, every thread copies words over the block's byte range
+// (copy_bytes): one round trip of plain loads beats the mbarriers' set-up
+// there, but K8d's bulk loads overlap its barrier, so K8d keeps them.
+// What bounds it: bytes, each read once and written once.
+constexpr int kCopyStages = 4;
+constexpr int kCopyTile = 10 * 1024;  // bytes a slot: 40 KiB a block
+
+// One bulk store of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) from shared memory to global memory, as its own bulk group.
+__device__ __forceinline__ void bulk_store(char* dst, const char* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "l"(dst), "r"(hopper::smem_u32(src)), "r"(bytes) : "memory");
 }
 
-// Waits until the chunk of hop ``hop`` in direction ``dir`` has arrived.
-template <int S>
-__device__ __forceinline__ bool gather_wait(const Table& t, const Args& a,
-                                            const Block& blk, int kind,
-                                            int dir, int hop) {
-  return block_wait<S>(flag(t, blk.rank, ready_array(dir, hop), blk.b),
-                       tag(blk.epoch, 1), a,
-                       err_code(kind, blk.rank, hop, kWaitReady));
+// Until at most N of this thread's bulk stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
+// Until every bulk store of this thread is written, ordered before its
+// later generic accesses (the release of a ready flag).
+__device__ __forceinline__ void bulk_wait_written() {
+  asm volatile("cp.async.bulk.wait_group 0;\n"
+               "fence.proxy.async.global;\n" ::: "memory");
+}
+
+// dst[0:nb) = src[0:nb) by G = gridDim.x blocks, tile by tile; thread 0 of
+// each block runs it: start(), then finish() (or drain() when the copy is
+// called off after start).
+struct CopyRing {
+  char* dst;
+  const char* src;
+  long long nb;
+  unsigned long long* ticket;  // the rank's counter
+  char* slot;                  // kCopyStages x kCopyTile bytes, shared
+  uint64_t* full;              // one mbarrier a slot: its tile has landed
+  long long tile[kCopyStages];  // the tile in each slot (>= tiles: none)
+  long long next;               // the next ticket's tile, once it is drawn
+
+  __device__ long long tiles() const {
+    return (nb + kCopyTile - 1) / kCopyTile;
+  }
+  __device__ int bytes(long long k) const {
+    return (int)min((long long)kCopyTile, nb - k * kCopyTile);
+  }
+  // A ticket's tile: those after the first kCopyStages x G.  The last
+  // ticket a launch draws resets the counter (no block draws after it).
+  __device__ long long draw() const {
+    const long long g = gridDim.x, dynamic =
+        max(0ll, tiles() - (long long)kCopyStages * g);
+    const long long t = (long long)atomicAdd(ticket, 1ull);
+    if (t == dynamic + g - 1) *ticket = 0;
+    return (long long)kCopyStages * g + t;
+  }
+  __device__ void load(int s, long long k) const {
+    hopper::mbar_arrive_expect_tx(&full[s], bytes(k));
+    hopper::bulk_load(slot + s * kCopyTile, src + k * kCopyTile, bytes(k),
+                      &full[s]);
+  }
+  // The first loads and the first ticket; they read the source only.
+  __device__ void start() {
+    for (int s = 0; s < kCopyStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+    for (int s = 0; s < kCopyStages; ++s) {
+      tile[s] = blockIdx.x + (long long)s * gridDim.x;
+      if (tile[s] < tiles()) load(s, tile[s]);
+    }
+    next = draw();
+  }
+  // Every store: slot j % kCopyStages holds the block's j-th tile; the
+  // slot store j - 1 read takes the next ticket's tile.  ``written``: wait
+  // until every byte is written (else until the stores have read shared
+  // memory, so the block may end).
+  __device__ void finish(bool written) {
+    const long long nt = tiles();
+    for (int j = 0;; ++j) {
+      const int s = j % kCopyStages;
+      if (tile[s] >= nt) break;  // no tile here, so none after it either
+      hopper::mbar_wait(&full[s], (j / kCopyStages) & 1);
+      bulk_store(dst + tile[s] * kCopyTile, slot + s * kCopyTile,
+                 bytes(tile[s]));
+      if (j >= 1) {
+        const int ps = (j - 1) % kCopyStages;
+        tile[ps] = next;
+        if (next < nt) {
+          bulk_wait_read<1>();
+          load(ps, next);
+          next = draw();
+        }
+      }
+    }
+    while (next < nt) next = draw();  // a block always draws past the end
+    if (written) bulk_wait_written();
+    else bulk_wait_read<0>();
+  }
+  // The loads start() began land before the block lets its shared
+  // memory go (the ticket counter is zeroed with the flags after a fault).
+  __device__ void drain() const {
+    for (int s = 0; s < kCopyStages; ++s)
+      if (tile[s] < tiles()) hopper::mbar_wait(&full[s], 0);
+  }
+};
+
+// K8a-c over one rank: the rank's own copy.
 template <int S>
 __global__ void __launch_bounds__(kThreads)
-ring_bidir_all_gather_kernel(Table t, Args a, int rank0) {
-  Block blk;
-  if (!block_setup<S>(t, a, rank0, &blk)) return;
-  const int n = a.n, r = blk.rank;
-  const int left = (r + n - 1) % n, right = (r + 1) % n;
-  copy_bytes(t.out[r] + ((r + a.shift) % n) * a.chunk + blk.lo,
-             t.x[r] + blk.lo, blk.nb);
-  const int cw_hops = n / 2;         // chunks r-1 .. r-cw_hops, from the left
-  const int ccw_hops = (n - 1) / 2;  // chunks r+1 .. r+ccw_hops, from the right
-  const int hops = cw_hops > ccw_hops ? cw_hops : ccw_hops;
-  for (int i = 0; i < hops; ++i) {
-    const int to = (a.fault == 1 && r == 0 && i == 0) ? (right + 1) % n
-                                                      : right;
-    if (i < cw_hops) gather_send<S>(t, a, blk, 0, to, i, (r - i + n) % n);
-    if (i < ccw_hops) gather_send<S>(t, a, blk, 1, left, i, (r + i) % n);
-    if (i < cw_hops && !gather_wait<S>(t, a, blk, kBidir, 0, i)) return;
-    if (i < ccw_hops && !gather_wait<S>(t, a, blk, kBidir, 1, i)) return;
+ring_copy_kernel(Table t, Args a, int rank0) {
+  __shared__ __align__(128) char slot[kCopyStages * kCopyTile];
+  __shared__ uint64_t full[kCopyStages];
+  const int r = rank0 + blockIdx.y;
+  if (a.vec == 0 || a.chunk <= kCopyTile) {
+    Block blk;
+    if (block_range(a, rank0, &blk))
+      copy_bytes(t.out[r] + blk.lo, t.x[r] + blk.lo, blk.nb);
+  } else if (threadIdx.x == 0) {
+    CopyRing cr{t.out[r], t.x[r], a.chunk, flag(t, r, kTicket, 0), slot,
+                full};
+    cr.start();
+    cr.finish(false);
   }
-  block_finish(t, blk);
 }
 
+// K8d: the neighbour barrier (block b signals block b of both neighbours
+// and waits for both), the copy to the rank's own output, then what the
+// reference's rdma.wait() waits for: a release of the rank's ready flag,
+// and the wait for it.  The first bulk loads read only the rank's own
+// input, so they go out before the barrier and overlap its round trips;
+// no byte is stored before the barrier.
 template <int S>
 __global__ void __launch_bounds__(kThreads)
 ring_loopback_kernel(Table t, Args a, int rank0) {
+  __shared__ __align__(128) char slot[kCopyStages * kCopyTile];
+  __shared__ uint64_t full[kCopyStages];
+  __shared__ int ok;
   Block blk;
-  if (!block_setup<S>(t, a, rank0, &blk)) return;
+  const bool in_range = block_range(a, rank0, &blk);
+  const bool bulk = a.vec != 0;
+  if (!bulk && !in_range) return;  // every block takes part in a bulk copy
   const int n = a.n, r = blk.rank;
   const int left = (r + n - 1) % n, right = (r + 1) % n;
-  // the neighbour barrier: signal both neighbours, wait for both
-  __shared__ unsigned long long loops;
+  if (bulk && threadIdx.x != 0) return;  // thread 0 starts every copy
+  CopyRing cr{t.out[r], t.x[r], a.chunk, flag(t, r, kTicket, 0), slot, full};
+  unsigned long long epoch = 0, loops = 0, seen = 0;
   if (threadIdx.x == 0) {
-    loops = ld_acquire<S>(flag(t, r, kLoops, blk.b)) + 1;
+    if (bulk) cr.start();
     if constexpr (S == kSys) {
       atomicAdd_system(flag(t, left, kBarrier, blk.b), 1ull);
       atomicAdd_system(flag(t, right, kBarrier, blk.b), 1ull);
@@ -982,19 +1158,33 @@ ring_loopback_kernel(Table t, Args a, int rank0) {
       atomicAdd(flag(t, left, kBarrier, blk.b), 1ull);
       atomicAdd(flag(t, right, kBarrier, blk.b), 1ull);
     }
+    // this block's own words, written only by it in earlier launches
+    epoch = ld_relaxed(flag(t, r, kEpoch, blk.b)) + 1;
+    loops = ld_relaxed(flag(t, r, kLoops, blk.b)) + 1;
+    ok = thread_wait<S>(flag(t, r, kBarrier, blk.b), 2 * loops, &seen, a,
+                        err_code(kLoopback, r, 0, kWaitBarrier));
   }
-  __syncthreads();
-  if (!block_wait<S>(flag(t, r, kBarrier, blk.b), 2 * loops, a,
-                     err_code(kLoopback, r, 0, kWaitBarrier)))
+  if (!bulk) {
+    __syncthreads();
+    if (!ok) return;
+    copy_bytes(t.out[r] + blk.lo, t.x[r] + blk.lo, blk.nb);
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    fence<S>();
+  } else if (!ok) {
+    cr.drain();
     return;
-  // the "remote" copy: to this rank's output through the peer table
-  copy_bytes(t.out[r] + blk.lo, t.x[r] + blk.lo, blk.nb);
-  block_signal<S>(flag(t, r, ready_array(0, 0), blk.b), tag(blk.epoch, 1));
-  if (!block_wait<S>(flag(t, r, ready_array(0, 0), blk.b), tag(blk.epoch, 1),
-                     a, err_code(kLoopback, r, 0, kWaitReady)))
+  } else {
+    cr.finish(true);
+  }
+  unsigned long long* ready = flag(t, r, ready_array(0, 0), blk.b);
+  st_release<S>(ready, tag(epoch, 1));
+  seen = 0;
+  if (!thread_wait<S>(ready, tag(epoch, 1), &seen, a,
+                      err_code(kLoopback, r, 0, kWaitReady)))
     return;
-  if (threadIdx.x == 0) *flag(t, r, kLoops, blk.b) = loops;
-  block_finish(t, blk);
+  *flag(t, r, kLoops, blk.b) = loops;
+  *flag(t, r, kEpoch, blk.b) = epoch;
 }
 
 typedef void (*RingKernel)(Table, Args, int);
@@ -1123,11 +1313,12 @@ int ring_launch(int kind, int dtype, int scope, int n, int rank0,
                 void* stream) {
   RingKernel k = pick(kind, dtype, scope);
   const bool sliced = kind == kAllGather || kind == kReduceScatter ||
-                      kind == kReduceScatterCluster;
+                      kind == kBidir || kind == kReduceScatterCluster;
+  const bool adds = kind == kReduceScatter || kind == kReduceScatterCluster;
   if (k == nullptr || n < 1 || n > kMaxRanks || blocks < 1 ||
       blocks > kMaxBlocks ||
       (sliced && (slice_log2 < 4 || slice_log2 > 30 || lag < 1 ||
-                  (kind != kAllGather && n > 1 && nslots <= lag))))
+                  (adds && n > 1 && nslots <= lag))))
     return (int)cudaErrorInvalidValue;
   OnDevice on(device);
   if (on.status != cudaSuccess) return (int)on.status;
@@ -1180,7 +1371,7 @@ int ring_launch(int kind, int dtype, int scope, int n, int rank0,
 }
 
 // Words of one rank's flag block, and the largest block count per rank.
-int ring_flag_words() { return kFlagArrays * kMaxBlocks; }
+int ring_flag_words() { return kFlagStride * kMaxBlocks; }
 int ring_max_blocks() { return kMaxBlocks; }
 
 }  // extern "C"

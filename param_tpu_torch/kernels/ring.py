@@ -22,17 +22,19 @@ the same order, so the kernels match them bit for bit.  Counterparts of
 ``_ring_reduce_scatter_kernel``, ``_bidir_all_gather_kernel`` and
 ``_loopback_kernel``.
 
-K8a and K8b walk slices: :func:`ring_plan` (a pure function of the kind,
-the chunk's bytes, the rank count, the co-resident capacity and whether
-all ranks share a card) picks the route, the blocks a rank, the slice
-bytes S, the ``lag`` in steps between a slice's hops, K8b's slots a hop
-and the signals' scope, so that a forwarded slice is read back from L2
-(K8a), and K8b's partial sums pass through shared memory (one card, 2 to
-8 ranks: the cluster route) or through a global workspace of blocks x (n
-- 1) x slots x S bytes a rank whatever the chunk.  S, the lag and the
+K8a, K8b and K8c walk slices: :func:`ring_plan` (a pure function of the
+kind, the chunk's bytes, the rank count, the co-resident capacity and
+whether all ranks share a card) picks the route, the blocks a rank, the
+slice bytes S, the ``lag`` in steps between a slice's hops, K8b's slots a
+hop and the signals' scope, so that a forwarded slice is read back from L2
+(K8a, K8c), and K8b's partial sums pass through shared memory (one card, 2
+to 8 ranks: the cluster route) or through a global workspace of blocks x
+(n - 1) x slots x S bytes a rank whatever the chunk.  S, the lag and the
 slots are this module's constants; :func:`forced_route` makes K8b take
-one route (tests, and holding the route the plan did not pick).  K8c and
-K8d keep one range a block.
+one route (tests, and holding the route the plan did not pick).  K8c's
+hops are :func:`bidir_lanes`.  K8d, and K8a-c over one rank (a copy),
+copy the chunk in tiles through the card's bulk-copy engine, the tiles
+dealt out to the blocks as they go.
 
 Every wait in the kernels is bounded (``timeout_s``); a wait that runs out
 sets an error word, and the wrapper raises (by default it synchronises and
@@ -55,11 +57,14 @@ import torch
 from param_tpu_torch.kernels import bindings, launch_counts
 
 MAX_RANKS = 16
-MAX_BLOCKS = 256  # per rank: csrc/ring.cu's kMaxBlocks (ring_max_blocks)
-BLOCK_BYTES = 64 * 1024  # K8c / K8d: chunk bytes per block before another
-SLICE_BYTES = 8 * 1024  # K8a / K8b: bytes of one slice of one hop (twice
-# that where a step has at most two hops)
-ACROSS_SLICE_BYTES = 64 * 1024  # K8a / K8b with one rank a card
+MAX_BLOCKS = 1024  # per rank: csrc/ring.cu's kMaxBlocks (ring_max_blocks)
+BLOCK_BYTES = 10 * 1024  # the copy: chunk bytes a block before another
+# (one tile of the bulk copy, csrc/ring.cu's kCopyTile)
+LOOPBACK_BLOCK_BYTES = 4 * BLOCK_BYTES  # K8d: a block's share fits its 4
+# slots, since each block also pays the handshake
+SLICE_BYTES = 8 * 1024  # K8a-c: bytes of one slice of one hop (twice that
+# where a step has at most two jobs)
+ACROSS_SLICE_BYTES = 64 * 1024  # K8a-c with one rank a card
 LAG = 1  # steps between a slice's hop and its next hop
 SLOTS = LAG + 1  # K8b's slots a hop (more than the lag, or the ring would
 # wait on itself)
@@ -77,6 +82,7 @@ ADD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _KINDS = {"all_gather": 0, "reduce_scatter": 1, "bidir": 2, "loopback": 3}
 _ROUTE_KINDS = {"cluster": 4, "copy": 5}  # csrc/ring.cu's kernels for them
+_SLICED = ("all_gather", "reduce_scatter", "bidir")  # over two or more ranks
 _SCOPES = {"gpu": 0, "sys": 1}
 _COUNTS = {"all_gather": "ring_all_gather",
            "reduce_scatter": "ring_reduce_scatter",
@@ -152,6 +158,18 @@ def ring_all_gather_bidir_plain(
     return outs
 
 
+def bidir_lanes(n: int) -> List[Tuple[int, int]]:
+    """K8c's hops over ``n`` ranks as warp 0's lanes plan them: lane j is
+    (direction, hop), direction 0 clockwise (to the right, carrying rank r
+    - hop's chunk), 1 counter-clockwise (to the left, rank r + hop's).
+    There are n // 2 clockwise hops and (n - 1) // 2 counter-clockwise
+    ones, as in the reference; the counter-clockwise hop 0 reads the same
+    input as the clockwise one, so lane 0 runs both (``csrc/ring.cu``'s
+    ``bidir_lanes`` and ``bidir_hop``)."""
+    cw, ccw = n // 2, (n - 1) // 2
+    return [(0, i) for i in range(cw)] + [(1, k) for k in range(1, ccw)]
+
+
 def ring_loopback_plain(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """K8d: each shard copied to itself."""
     return [x.clone() for x in shards]
@@ -184,8 +202,7 @@ class RingPlan:
 
     @property
     def sliced(self) -> bool:
-        return (self.kind in ("all_gather", "reduce_scatter") and
-                self.route != "copy")
+        return self.kind in _SLICED and self.route != "copy"
 
     def text(self) -> str:
         if not self.sliced:
@@ -221,18 +238,20 @@ def _per_block(chunk_bytes: int, blocks: int, slice_bytes: int) -> int:
 def ring_plan(kind: str, chunk_bytes: int, n: int, capacity: int,
               one_card: bool, max_blocks: int = MAX_BLOCKS,
               cluster_capacity: int = 0,
-              route: Optional[str] = None) -> RingPlan:
+              route: Optional[str] = None, sms: int = 0) -> RingPlan:
     """The launch plan of ring kernel ``kind`` for ``chunk_bytes`` a rank
     over ``n`` ranks, when ``capacity`` blocks of it fit on a card at once
     (``cluster_capacity`` clusters of K8b's cluster kernel), the kernel
     takes at most ``max_blocks`` blocks a rank, and ``one_card`` says
     whether every rank is on the same card.
 
-    K8a / K8b on one card: slices of ``SLICE_BYTES`` (twice that where a
-    step has at most two hops, so a step still moves enough bytes), blocks
-    a rank within the capacity, ``max_blocks`` and the L2 budget (ranks on
+    K8a-c on one card: slices of ``SLICE_BYTES`` (twice that where a step
+    has at most two jobs, so a step still moves enough bytes; K8c's hop 0
+    is one job for both directions), blocks a
+    rank within the capacity, ``max_blocks`` and the L2 budget (ranks on
     the card x hops x slice x (LAG + 1), or x SLOTS for K8b if more, bytes
-    in flight at most ``L2_BUDGET``), and no more than there are slices.
+    in flight at most ``L2_BUDGET``; K8c's n - 1 hops a step count as
+    K8a's), and no more than there are slices.
     Across cards, slices of ``ACROSS_SLICE_BYTES`` within ``ACROSS_BUDGET``:
     the link, not the L2, binds there, and a system-scope signal costs
     more, so a step moves more.  K8b with 2 to 8 ranks on one card and at
@@ -242,8 +261,14 @@ def ring_plan(kind: str, chunk_bytes: int, n: int, capacity: int,
     :func:`forced_route` sets) makes K8b over two or more ranks take that
     route whatever the size, and raises where it cannot run.
 
-    K8c / K8d, and K8a / K8b over one rank (a copy, ``route`` "copy"): one
-    whole range a block, ``BLOCK_BYTES`` a block up to the capacity."""
+    K8d, and K8a-c over one rank (a copy, ``route`` "copy"): a block for
+    each ``BLOCK_BYTES`` (K8d: ``LOOPBACK_BLOCK_BYTES``) up to the capacity
+    and ``max_blocks``, so a large chunk fills the card with a whole number
+    of blocks an SM; K8d takes at most ``sms`` blocks a rank (one an SM,
+    where ``sms`` is given), since each block pays the handshake.  The
+    bulk copy deals the tiles out to the blocks as they go; the word copy
+    (bases or a count not 16-byte multiples, or the plain copy of a chunk
+    of one tile or less) takes one range a block."""
     if kind not in _KINDS:
         raise ValueError(f"unknown ring kernel {kind!r}")
     if not 1 <= n <= MAX_RANKS:
@@ -256,14 +281,17 @@ def ring_plan(kind: str, chunk_bytes: int, n: int, capacity: int,
                            f"be resident on one card ({capacity} blocks fit)")
     scope = "gpu" if one_card else "sys"
     cap_blocks = min(max_blocks, capacity // ranks_here)
-    sliced = kind in ("all_gather", "reduce_scatter")
-    if not sliced or n == 1:  # one whole range a block
-        blocks = max(1, min(math.ceil(chunk_bytes / BLOCK_BYTES), cap_blocks))
+    sliced = kind in _SLICED
+    if not sliced or n == 1:  # K8d, and the copy over one rank
+        if kind == "loopback" and sms:
+            cap_blocks = min(cap_blocks, sms)
+        share = LOOPBACK_BLOCK_BYTES if kind == "loopback" else BLOCK_BYTES
+        blocks = max(1, min(math.ceil(chunk_bytes / share), cap_blocks))
         per_block = max(16, -(-chunk_bytes // blocks // 16) * 16)
         blocks = max(1, -(-chunk_bytes // per_block))
         if not sliced:
             return RingPlan(kind, blocks, per_block, per_block, 0, 0, scope, 0)
-        # K8a / K8b over one rank: the rank's own copy
+        # K8a-c over one rank: the rank's own copy
         return RingPlan(kind, blocks, per_block,
                         1 << (per_block - 1).bit_length(), 0, 0, scope, 0,
                         "copy")
@@ -284,7 +312,9 @@ def ring_plan(kind: str, chunk_bytes: int, n: int, capacity: int,
         per_block = _per_block(chunk_bytes, blocks, size)
         return RingPlan(kind, max(1, -(-chunk_bytes // per_block)), per_block,
                         size, LAG, nslots, scope, 0, "cluster")
-    slice_bytes = (SLICE_BYTES * (2 if hops <= 2 else 1) if one_card
+    # jobs a step: K8c's hop 0 is one job for both directions
+    jobs = len(bidir_lanes(n)) if kind == "bidir" else hops
+    slice_bytes = (SLICE_BYTES * (2 if jobs <= 2 else 1) if one_card
                    else ACROSS_SLICE_BYTES)
     nslots = SLOTS if adds else 0
     in_flight = ranks_here * hops * slice_bytes * max(LAG + 1, nslots)
@@ -443,7 +473,9 @@ def launch_plan(kind: str, shards: Sequence[torch.Tensor],
     :func:`forced_route` sets, if any."""
     n = len(shards)
     one_card = len({x.device for x in shards}) == 1
-    code = _KINDS[kind]
+    # the capacity of the kernel that runs: over one rank, the copy
+    code = _ROUTE_KINDS["copy"] if n == 1 and kind in _SLICED else \
+        _KINDS[kind]
     dtype = ADD_DTYPES.get(shards[0].dtype, 0)
     scope = _SCOPES["gpu" if one_card else "sys"]
     cap = min(_capacity(code, dtype, scope, d.index)
@@ -455,13 +487,15 @@ def launch_plan(kind: str, shards: Sequence[torch.Tensor],
                                      shards[0].device.index)
     return ring_plan(kind, chunk, n, cap, one_card,
                      bindings.entry("ring", "ring_max_blocks")(), clusters,
-                     _forced_route if kind == "reduce_scatter" else None)
+                     _forced_route if kind == "reduce_scatter" else None,
+                     min(bindings.sm_count(d.index)
+                         for d in {x.device for x in shards}))
 
 
 def _count(kind: str, plan: RingPlan) -> None:
-    """One launch of ``kind``; K8a / K8b also count it by route."""
+    """One launch of ``kind``; K8a-c also count it by route."""
     launch_counts[_COUNTS[kind]] += 1
-    if kind in ("all_gather", "reduce_scatter"):
+    if kind in _SLICED:
         launch_counts[f"{_COUNTS[kind]}_{plan.route}"] += 1
 
 

@@ -64,8 +64,8 @@ from param_tpu_torch.kernels.int4_gemm import (
 )
 from param_tpu_torch.kernels.ring import (
     ACROSS_BUDGET, ACROSS_SLICE_BYTES, CLUSTER_MIN_INPUT, CLUSTER_SMEM,
-    L2_BUDGET, LAG, MAX_BLOCKS, SLICE_BYTES, SLOTS, check_errors,
-    cluster_shape, forced_route,
+    L2_BUDGET, LAG, LOOPBACK_BLOCK_BYTES, MAX_BLOCKS, SLICE_BYTES, SLOTS,
+    bidir_lanes, check_errors, cluster_shape, forced_route,
     ring_all_gather_bidir_cuda, ring_all_gather_bidir_plain,
     ring_all_gather_cuda, ring_all_gather_plain, ring_loopback_cuda,
     ring_loopback_plain, ring_plan, ring_reduce_scatter_cuda,
@@ -1437,8 +1437,42 @@ def test_ring_kernels_repeat_and_replay_from_a_graph(cuda_device):
         _assert_ring_bitwise(clustered, ring_reduce_scatter_plain(xs))
 
 
-# K8a / K8b's plan: pure, so checked on the CPU
-_SLICED = ("all_gather", "reduce_scatter")
+
+@pytest.mark.cuda
+def test_ring_copies_repeat_and_replay_from_a_graph(cuda_device):
+    """K8d and the one-rank copy hand tiles out from a per-rank ticket
+    counter that the launch's last ticket resets: calls whose block counts
+    differ, calls on both kernels in turn, odd counts (the word copy) and
+    CUDA-graph replays must all stay right."""
+    for n, shape in ((1, (3 << 20,)), (1, (40000,)), (8, (1 << 20,)),
+                     (1, (3 << 20,)), (1, (12345,)), (2, (777777,)),
+                     (1, (3 << 20,))):
+        xs = _ring_shards(n, shape, torch.float32, cuda_device, seed=n)
+        _assert_ring_bitwise(ring_loopback_cuda(xs), ring_loopback_plain(xs))
+        if n == 1:
+            _assert_ring_bitwise(ring_all_gather_cuda(xs),
+                                 ring_all_gather_plain(xs))
+    xs = _ring_shards(1, (3 << 20,), torch.float32, cuda_device)
+    ring_loopback_cuda(xs, check=False)  # warm up outside the capture
+    ring_all_gather_cuda(xs, check=False)
+    check_errors(xs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        looped = ring_loopback_cuda(xs, check=False)
+        copied = ring_all_gather_cuda(xs, check=False)
+    for _ in range(3):
+        xs[0].mul_(-0.5).add_(0.25)
+        graph.replay()
+        check_errors(xs)
+        _assert_ring_bitwise(looped, ring_loopback_plain(xs))
+        _assert_ring_bitwise(copied, ring_all_gather_plain(xs))
+
+
+# K8a-c's plan: pure, so checked on the CPU
+_SLICED = ("all_gather", "reduce_scatter", "bidir")
+_COUNTERS = {"all_gather": "ring_all_gather",
+             "reduce_scatter": "ring_reduce_scatter",
+             "bidir": "ring_bidir_all_gather"}
 
 
 def _plan_slices(plan, chunk):
@@ -1584,10 +1618,98 @@ def test_ring_plan_options_and_what_it_refuses():
     with pytest.raises(ValueError, match="cluster route"):
         ring_plan("reduce_scatter", 1 << 20, 9, 528, True,
                   cluster_capacity=45, route="cluster")
-    # K8c / K8d: one whole range a block, 64 KiB a block up to the capacity
-    plan = ring_plan("bidir", 1 << 20, 8, 528, True)
-    assert plan.blocks == 16 and plan.slice_bytes == plan.per_block
-    assert ring_plan("loopback", 64 << 20, 1, 528, True).blocks == MAX_BLOCKS
+    # K8c: K8a's slices (n - 1 hops a step), on one card and across cards;
+    # over one rank the copy
+    for one_card in (True, False):
+        for n in (2, 3, 8):
+            plan = ring_plan("bidir", 1 << 20, n, 528, one_card)
+            gather = ring_plan("all_gather", 1 << 20, n, 528, one_card)
+            assert plan.sliced and plan.route == "memory"
+            assert (plan.blocks, plan.per_block, plan.slice_bytes, plan.lag,
+                    plan.slots) == (gather.blocks, gather.per_block,
+                                    gather.slice_bytes, gather.lag, 0)
+    assert ring_plan("bidir", 1 << 20, 1, 528, True).route == "copy"
+    # at n = 4 K8c's step is two jobs (hop 0 serves both directions), so
+    # its slice is twice K8a's, whose step is three hops
+    assert ring_plan("bidir", 1 << 20, 4, 528, True).slice_bytes == \
+        2 * ring_plan("all_gather", 1 << 20, 4, 528, True).slice_bytes
+    # K8d: one range a block, LOOPBACK_BLOCK_BYTES a block up to the
+    # capacity
+    assert ring_plan("loopback", 64 << 20, 1, 528, True).blocks == min(
+        528, MAX_BLOCKS)
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_ring_bidir_hops_deliver_every_chunk_once(n):
+    """K8c's lanes (as ``csrc/ring.cu`` plans them) walked on n ranks: every
+    rank gets every other rank's chunk exactly once, clockwise from the
+    left or counter-clockwise from the right, in the reference's order
+    (``_bidir_all_gather_kernel``: step i brings chunk r - i - 1 clockwise
+    and r + i + 1 counter-clockwise); a hop forwards only what arrived at
+    the hop before it in its direction; a step has at most n - 1 hops and
+    a slice's longest chain is n // 2 hops."""
+    cw, ccw = n // 2, (n - 1) // 2
+    lanes = bidir_lanes(n)
+    assert len(lanes) <= 16 and lanes == sorted(set(lanes))
+    got = {r: {} for r in range(n)}  # rank -> (dir, hop) -> (chunk, sender)
+    for step in range(cw):  # hop ``step`` of every lane that has one
+        for r in range(n):
+            for d, hop in lanes:
+                if hop != step:
+                    continue
+                # what the lane sends: its input at hop 0, else what came
+                # in at the hop before it in its direction
+                c = r if hop == 0 else got[r][(d, hop - 1)][0]
+                assert c == ((r - hop) % n if d == 0 else (r + hop) % n)
+                sends = [(d, (r + 1) % n if d == 0 else (r - 1) % n)]
+                if (d, hop) == (0, 0) and ccw >= 1:  # one job, both hops 0
+                    sends.append((1, (r - 1) % n))
+                for d2, to in sends:
+                    assert (d2, hop) not in got[to]
+                    got[to][(d2, hop)] = (c, r)
+    hops_a_step = sum(1 + ((d, h) == (0, 0) and ccw >= 1) for d, h in lanes)
+    assert hops_a_step == n - 1
+    assert max([h + 1 for _, h in lanes], default=0) == cw
+    for r in range(n):
+        assert sorted(got[r]) == ([(0, i) for i in range(cw)] +
+                                  [(1, i) for i in range(ccw)])
+        for (d, i), (c, sender) in got[r].items():
+            assert c == ((r - i - 1) % n if d == 0 else (r + i + 1) % n)
+            assert sender == ((r - 1) % n if d == 0 else (r + 1) % n)
+        chunks = sorted(c for c, _ in got[r].values())
+        assert chunks == sorted(set(range(n)) - {r})
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("one_card", [True, False])
+@pytest.mark.parametrize("capacity", [16, 264, 528, 4096])
+@pytest.mark.parametrize("sms", [0, 132])
+def test_ring_loopback_plan_fills_the_capacity(n, one_card, capacity, sms):
+    """K8d's plan: one range a block, LOOPBACK_BLOCK_BYTES a block, up to
+    the blocks that fit on the card at once (every block spins on the
+    neighbour barrier), ``max_blocks`` and one block an SM a rank (where
+    ``sms`` is given); so a large chunk takes all the blocks it may.  The
+    ranges tile the chunk in 16-byte multiples."""
+    ranks_here = n if one_card else 1
+    if capacity < ranks_here:
+        with pytest.raises(RuntimeError, match="resident"):
+            ring_plan("loopback", 1 << 20, n, capacity, one_card)
+        return
+    for chunk in (16, 4096, 4098, 1 << 20, (1 << 20) + 6, 64 << 20):
+        for max_blocks in (MAX_BLOCKS, 8):
+            plan = ring_plan("loopback", chunk, n, capacity, one_card,
+                             max_blocks, sms=sms)
+            cap = min(max_blocks, capacity // ranks_here, sms or capacity)
+            assert plan.blocks * ranks_here <= capacity
+            assert 1 <= plan.blocks <= min(cap,
+                                           -(-chunk // LOOPBACK_BLOCK_BYTES))
+            assert plan.per_block % 16 == 0 and plan.per_block >= 16
+            assert (plan.blocks - 1) * plan.per_block < chunk
+            assert plan.blocks * plan.per_block >= chunk
+            if chunk >= cap * LOOPBACK_BLOCK_BYTES:
+                assert plan.blocks == cap
+            assert not plan.sliced and plan.route == "memory"
+            assert plan.scope == ("gpu" if one_card else "sys")
 
 
 def test_forced_route_nests_and_restores():
@@ -1635,10 +1757,11 @@ def test_ring_sliced_kernels_match_plain_across_slice_boundaries(
         cuda_device, kind, dtype, n):
     cuda_fn, plain_fn = _RING_KERNELS[kind]
     for shape, route in _slice_cases(kind, n):
-        if kind == "all_gather":
+        if kind in ("all_gather", "bidir"):
             shape = (shape[0] // n,)
         xs = _ring_shards(n, shape, dtype, cuda_device, seed=n + shape[0])
-        counter = f"ring_{kind}_{route or ('copy' if n == 1 else 'memory')}"
+        counter = (f"{_COUNTERS[kind]}_"
+                   f"{route or ('copy' if n == 1 else 'memory')}")
         before = kernels.launch_counts[counter]
         with (forced_route(route) if route else contextlib.nullcontext()):
             got = cuda_fn(xs)
