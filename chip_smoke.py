@@ -172,6 +172,18 @@ Phases (any failure exits non-zero):
      in-process, the launch counts reset before and read after: K1, K9 and
      K10 must each have launched, and the bench's JSON line must hold a
      finite GB/s.
+ 20. The sharded DLRM (``DlrmModel`` over a ``torch.distributed`` group):
+     in a world of one on NCCL at the CLI's full default width, two steps
+     each of dense adagrad, sparse_sgd and sparse_adagrad against the
+     single-device model on the card (rtol 1e-5, atol 1e-6 on losses,
+     parameters and accumulators); ``cli.dlrm.main`` with no flags (the
+     per-region bench) and with ``--optimizer sparse_adagrad``, all 21
+     reference rows finite and positive and a ``QPS:`` line; its
+     ``--print-comms`` pattern.  The launch counts are reset before each
+     sharded run and read after: K1 and K2 must have launched.  With two or
+     more cards, ``cli.dlrm`` under torchrun over all of them:
+     ``--train-batches 5`` for each optimizer (rank 0's first loss equal to
+     phase 6's within rtol 1e-5) and the default bench.
 Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19) use CUDA events after a warm-up and
 report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
@@ -394,6 +406,246 @@ def comms_world(cards: int, smi: str) -> dict:
         say(f"phase 18 torchrun --nproc-per-node {cards} cli.comms "
             f"({label}) | {wall:.1f} s | {smi}\n{out.rstrip()}")
         runs[label] = dict(wall_s=wall, rows=len(rows), output=out)
+    return runs
+
+
+DLRM_OPTS = ("adagrad", "sparse_sgd", "sparse_adagrad")
+_DLRM_ROW = re.compile(r"^\s*(\S+)\s+(\d+)\s+([\d.]+)\s+([\d.]+)\s+([\d.]+)"
+                       r"\s+([\d.]+)\s+([\d.]+)$", re.M)
+
+
+def dlrm_bench_rows(out: str, what: str) -> dict:
+    """The 21 reference rows of a DLRM-RES table and its QPS; fails unless
+    every row is there, finite and positive."""
+    from param_tpu_torch.models.dlrm_bench import REF_ROWS
+
+    rows = {m.group(1): [float(v) for v in m.groups()[1:6]]
+            for m in _DLRM_ROW.finditer(out)}
+    names = [name for name, _, _ in REF_ROWS]
+    qps = re.findall(r"^QPS: (\S+)$", out, re.M)
+    bad = [k for k in names if k not in rows or not all(
+        math.isfinite(v) and v > 0 for v in rows[k][1:])]
+    if "DLRM-RES" not in out or bad or len(qps) != 1 or \
+            not float(qps[0]) > 0:
+        fail(f"phase 20 {what}: rows missing or not finite and positive "
+             f"{bad}, QPS {qps}:\n{out}")
+    return dict(rows={k: rows[k] for k in names}, qps=float(qps[0]))
+
+
+def sharded_dlrm(smi: str, breakdown) -> dict:
+    """Phase 20: the sharded DLRM in a world of one on NCCL, in-process,
+    at the CLI's full default width (8 x 100,000 x 64 f32, batch 2048, nnz
+    10, MLPs 512-256-64 / 512-256-1): two steps each of dense adagrad,
+    sparse_sgd and sparse_adagrad against the single-device model on the
+    card from the same parameters and batches (losses, every parameter and
+    accumulator within rtol 1e-5, atol 1e-6); then ``cli.dlrm.main`` with
+    no flags (the per-region bench, dense adagrad) and with ``--optimizer
+    sparse_adagrad``, every one of the 21 reference rows finite and
+    positive; then ``--print-comms``, the five entries of the step's
+    pattern with the bench's payload bytes.  The launch counts are reset
+    just before each sharded run and read just after: K1 must have
+    launched on the sharded path, K2 in its sparse steps.  ``breakdown``
+    (phase 13's) gives each step's host ms, kernel ms and busy share, the
+    single-device model's beside the sharded one's."""
+    import tempfile
+
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.backend import DistBackend
+    from param_tpu_torch.cli import dlrm as cli
+    from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel
+    from param_tpu_torch.models.dlrm_bench import DlrmCommBench
+    from param_tpu_torch.models.dlrm_data import RandomDataset
+    from param_tpu_torch.ops.mlp import make_optimizer, tree_leaves
+
+    backend = DistBackend("cuda")
+    backend.initialize()  # phase 18's world was shut down: a new one
+    dev = backend.device
+    cfg = DlrmConfig()
+    single = DlrmModel(cfg, device=dev)
+    sharded = DlrmModel(cfg, group=backend.get_default_group(), device=dev)
+    batches = list(RandomDataset(batch=cfg.batch, dense_dim=cfg.dense_dim,
+                                 num_tables=cfg.num_tables, nnz=cfg.nnz,
+                                 num_rows=cfg.rows_per_table, num_batches=2,
+                                 seed=11))
+    launches = {k: 0 for k in kernels.launch_counts}
+
+    def train(model, opt):
+        params = model.init_params(0)
+        acc, losses = None, []
+        if opt == "sparse_sgd":
+            step = model.make_sparse_sgd_step(0.01)
+        elif opt == "sparse_adagrad":
+            step = model.make_sparse_adagrad_step(0.01)
+            acc = model.init_adagrad_state(params)
+        else:
+            optimizer = make_optimizer(opt, 0.01)
+            step = model.make_train_step(optimizer)
+            acc = optimizer.init(params)
+        def again(b):
+            return (step(params, *b) if opt == "sparse_sgd"
+                    else step(params, acc, *b))[-1]
+
+        for b in batches:
+            losses.append(float(again(model.place_batch(b))))
+        leaves = tree_leaves(params) + ([] if acc is None
+                                        else tree_leaves(acc))
+        return losses, [t.detach().clone() for t in leaves], again
+
+    parity = {}
+    for opt in DLRM_OPTS:
+        want_losses, want, single_step = train(single, opt)
+        kernels.reset_launch_counts()
+        got_losses, got, sharded_step = train(sharded, opt)
+        delta = dict(kernels.launch_counts)
+        for k, v in delta.items():
+            launches[k] += v
+        if delta["emb_gather"] <= 0 or (opt.startswith("sparse") and delta[
+                f"sparse_update_{opt[len('sparse_'):]}"] <= 0):
+            fail(f"phase 20 sharded {opt}: K1 / K2 not launched ({delta})")
+        err = max(abs(a - b) for a, b in zip(got_losses, want_losses))
+        if not all(math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-6)
+                   for a, b in zip(got_losses, want_losses)):
+            fail(f"phase 20 sharded {opt}: losses {got_losses} against the "
+                 f"single-device model's {want_losses}")
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            err = max(err, (g - w).abs().max().item())
+            if not torch.allclose(g, w, rtol=1e-5, atol=1e-6):
+                fail(f"phase 20 sharded {opt}: leaf {i} of the parameters "
+                     f"and accumulators differs from the single-device "
+                     f"model's by {(g - w).abs().max().item():.3e}")
+        b1, bn = single.place_batch(batches[0]), sharded.place_batch(
+            batches[0])
+        parity[opt] = dict(
+            losses=got_losses, max_abs_err=err,
+            launches={k: v for k, v in delta.items() if v},
+            single=breakdown(f"single-device step {opt}",
+                             lambda: single_step(b1), grad=True, phase=20),
+            sharded=breakdown(f"sharded step {opt} (world 1)",
+                              lambda: sharded_step(bn), grad=True, phase=20))
+        say(f"phase 20 sharded DLRM (world 1, NCCL) {opt}: 2 steps at full "
+            f"width, losses {got_losses} equal the single-device model's "
+            f"within rtol 1e-5, atol 1e-6; every parameter and accumulator "
+            f"too, max abs err {err:.3e} | launches {parity[opt]['launches']}")
+        del want, got, single_step, sharded_step
+        torch.cuda.empty_cache()
+
+    runs = {}
+    for label, argv, k2 in (("default", [], None),
+                            ("sparse_adagrad",
+                             ["--optimizer", "sparse_adagrad"],
+                             "sparse_update_adagrad")):
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--log", "WARNING"])
+        wall = time.perf_counter() - t0
+        delta = dict(kernels.launch_counts)
+        for k, v in delta.items():
+            launches[k] += v
+        out = buf.getvalue()
+        if rc != 0 or delta["emb_gather"] <= 0 or (k2 and delta[k2] <= 0):
+            fail(f"phase 20 cli.dlrm {' '.join(argv)}: rc {rc}, K1 / K2 not "
+                 f"launched ({delta}):\n{out}")
+        runs[label] = dict(dlrm_bench_rows(out, f"cli.dlrm {label}"),
+                           argv=argv, wall_s=wall, output=out,
+                           launches={k: v for k, v in delta.items() if v})
+        say(f"phase 20 cli.dlrm {' '.join(argv) or '(no flags)'}: per-region "
+            f"bench, world 1 on NCCL, full width | {wall:.1f} s | launches "
+            f"{runs[label]['launches']} | {smi}\n{out.strip()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "comms.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["--print-comms", path, "--log", "WARNING"])
+        with open(path) as f:
+            pattern = json.load(f)
+    mem = DlrmCommBench(sharded, "sparse_sgd").region_memory_bytes()
+    want = [("all_to_all", "idx_xchg"), ("all_to_all", "fwd_a2a"),
+            ("all_reduce", "bwd_top_ar(iso)"), ("all_to_all", "bwd_a2a(iso)"),
+            ("all_reduce", "bwd_bot_ar(iso)")]
+    if rc != 0 or len(pattern) != 5 or any(
+            e["comms"] != c or e["in_msg_size"] * 4 != mem[k]
+            or e["world_size"] != 1 for e, (c, k) in zip(pattern, want)):
+        fail(f"phase 20 --print-comms: rc {rc}, pattern {pattern} against "
+             f"the payload bytes {mem}")
+    say(f"phase 20 cli.dlrm --print-comms: {len(pattern)} entries "
+        f"({', '.join(e['markers'][0] for e in pattern)}) with the bench's "
+        f"payload bytes")
+    backend.shutdown()
+    del single, sharded
+    torch.cuda.empty_cache()
+    return dict(parity=parity, bench=runs, pattern=pattern,
+                launches={k: v for k, v in launches.items() if v})
+
+
+def dlrm_world(cards: int, smi: str, first_losses=None) -> dict:
+    """``cli.dlrm`` under torchrun, one rank per card on NCCL:
+    ``--train-batches 5`` for each optimizer, whose first loss (rank 0's,
+    the global batch's) must equal ``first_losses[opt]`` of a world of one
+    within rtol 1e-5 (and 1e-5, the printed loss's resolution), then the
+    default per-region bench.  Without ``first_losses`` the world of one
+    (the single-device trainer) runs here first."""
+    if first_losses is None:
+        from param_tpu_torch.cli import dlrm as cli
+
+        first_losses = {}
+        for opt in DLRM_OPTS:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["--train-batches", "5", "--optimizer", opt,
+                               "--log", "WARNING"])
+            losses = re.findall(r"loss (\S+)", buf.getvalue())
+            if rc != 0 or not losses:
+                fail(f"phase 20 world of one {opt}:\n{buf.getvalue()}")
+            first_losses[opt] = float(losses[0])
+            say(f"phase 20 world of one {opt}:\n{buf.getvalue().strip()}")
+    runs = {}
+    for label, argv in [(opt, ["--train-batches", "5", "--optimizer", opt])
+                        for opt in DLRM_OPTS] + [("bench", [])]:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(cards), "-m",
+               "param_tpu_torch.cli.dlrm", "--", *argv, "--log", "WARNING"]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True,
+                             env=dict(os.environ, PYTHONPATH=ROOT))
+        try:
+            out = p.communicate(timeout=300)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            p.communicate()
+            fail(f"phase 20 torchrun world of {cards} ({label}) timed out")
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            fail(f"phase 20 torchrun world of {cards} ({label}): rc "
+                 f"{p.returncode}:\n{out[-6000:]}")
+        if label == "bench":
+            rec = dlrm_bench_rows(out, f"torchrun world of {cards} bench")
+            if f"DLRM-RES world={cards} " not in out:
+                fail(f"phase 20 torchrun bench: not a world of {cards}")
+        else:
+            losses = [float(x) for x in re.findall(r"loss (\S+)", out)]
+            e2e = [ln for ln in out.splitlines() if ln.startswith("DLRM-E2E")]
+            if len(losses) != 5 or len(e2e) != 1 or \
+                    f"world={cards}" not in e2e[0]:
+                fail(f"phase 20 torchrun {label}: output:\n{out[-6000:]}")
+            if not math.isclose(losses[0], first_losses[label],
+                                rel_tol=1e-5, abs_tol=1e-5):
+                fail(f"phase 20 torchrun world of {cards} {label}: first "
+                     f"loss {losses[0]} against a world of one's "
+                     f"{first_losses[label]}")
+            fields = dict(re.findall(r"(\w[\w-]*)=(\S+)", e2e[0]))
+            rec = dict(losses=losses, step_ms=float(fields["step_ms"]),
+                       qps=float(fields["QPS"]))
+        rec.update(wall_s=wall, output=out)
+        runs[label] = rec
+        say(f"phase 20 torchrun --nproc-per-node {cards} cli.dlrm "
+            f"{' '.join(argv) or '(no flags)'} | {wall:.1f} s | {smi}\n"
+            f"{out.strip()}")
     return runs
 
 
@@ -2137,6 +2389,18 @@ def main(out_path=None) -> int:
                                         main_launches=main19, bench=bench_rec,
                                         output=out19, wall_s=wall)
 
+    # ---------------------------------------------------------------- 20
+    dlrm20 = sharded_dlrm(smi, breakdown)
+    if cards >= 2:
+        dlrm20["torchrun"] = dlrm_world(
+            cards, smi, {o: result["phases"]["trainer"][o]["losses"][0]
+                         for o in DLRM_OPTS})
+    else:
+        say("phase 20: one card: the sharded DLRM ran as a world of one; "
+            "the all-to-alls and all-reduces between cards are unchecked")
+    result["phases"]["sharded_dlrm"] = dlrm20
+    main20 = dlrm20["launches"]
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2237,6 +2501,15 @@ def main(out_path=None) -> int:
               "param_tpu/ops/ring_collectives.py:261",
               ring_launches["ring_loopback"],
               k8_rows["loopback n=1 64 MiB float32"]),
+        entry("emb_gather, sharded DLRM (K1)", src + "emb_gather.cu",
+              "param_tpu/ops/embedding.py:185", main20["emb_gather"],
+              k1["dlrm_f32"]),
+        entry("sparse_update adagrad, sharded DLRM (K2)",
+              src + "sparse_update.cu", "param_tpu/ops/sparse_update.py:117",
+              main20["sparse_update_adagrad"], k2["adagrad"]),
+        entry("sparse_update sgd, sharded DLRM (K2)", src + "sparse_update.cu",
+              "param_tpu/ops/sparse_update.py:117",
+              main20["sparse_update_sgd"], k2["sgd"]),
         entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
               "param_tpu/ops/embedding.py:185", main19["emb_gather"],
               k1["headline_f32"]),

@@ -1,23 +1,31 @@
-"""CLI for the DLRM trainer on one GPU (port of ``param_tpu/cli/dlrm.py``).
+"""CLI for the DLRM communication-pattern benchmark and trainer (port of
+``param_tpu/cli/dlrm.py``).
 
-Same flags as the reference plus ``--device`` (default ``cuda``).
-``--train-batches N`` trains for N batches on synthetic data and prints the
-loss curve and the held-out AUC.  The per-region comm bench, ``--print-comms``
-and ``--packed-tables`` are not ported (ROADMAP queue 1 item 7).
+Same flags as the reference plus ``--device`` (default ``cuda``).  With no
+``--train-batches`` it runs the per-region bench (``models.dlrm_bench``)
+over the world, table-wise sharded, and prints the reference's 21-row
+``DLRM-RES`` table and ``QPS:``; ``--print-comms PATH`` writes the step's
+comm pattern as JSON and exits.  The world is ``torchrun``'s, or a world of
+one (NCCL on the card, gloo with ``--device cpu``).  ``--train-batches N``
+trains for N batches on synthetic data and prints the loss curve and the
+held-out AUC: under ``torchrun`` with a world above one, the sharded model
+(rank 0 prints); run alone, the single-device trainer.  ``--packed-tables``
+is a TPU layout and is refused.
 
 Run:
+    python -m param_tpu_torch.cli.dlrm
     python -m param_tpu_torch.cli.dlrm --train-batches 100 --optimizer sparse_adagrad
+    torchrun --standalone --nproc-per-node 4 -m param_tpu_torch.cli.dlrm -- \
+        --train-batches 100
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 7: sharded DLRM, " \
-              "dlrm_bench regions)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,13 +46,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--packed-tables", action="store_true",
                     help="TPU lane-packed storage; rejected by the port")
-    # accepted for flag parity with the reference; only its per-region
-    # bench (not ported) reads them
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--regions", default=None)
-    ap.add_argument("--chain", type=int, default=8)
-    ap.add_argument("--max-chain", type=int, default=1024)
-    ap.add_argument("--print-comms", default=None, metavar="PATH")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed windows per region")
+    ap.add_argument("--regions", default=None,
+                    help="comma-separated subset of timer regions to run "
+                         "(default: all)")
+    ap.add_argument("--chain", type=int, default=8,
+                    help="calls per timing window")
+    ap.add_argument("--max-chain", type=int, default=1024,
+                    help="cap on a window's growth (a window under 1 ms "
+                         "doubles)")
+    ap.add_argument("--print-comms", default=None, metavar="PATH",
+                    help="dump the per-step comm pattern as a basic-schema "
+                         "JSON trace to PATH and exit")
     ap.add_argument("--train-batches", type=int, default=0,
                     help="run an end-to-end training loop for N batches on "
                          "synthetic data and report loss curve + held-out AUC")
@@ -52,9 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-distribution", default="uniform",
                     choices=["uniform", "zipf"])
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace the training steps after the first with "
-                         "torch.profiler into DIR and print the top "
-                         "operators by device time")
+                    help="trace the bench, or the training steps after the "
+                         "first, with torch.profiler into DIR and print the "
+                         "top operators by device time (rank 0)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain versions)")
     ap.add_argument("--log", default="INFO")
@@ -68,11 +82,6 @@ def main(argv=None) -> int:
     if ns.packed_tables:
         ap.error("--packed-tables is a TPU lane layout; the port stores "
                  "tables as (T, E, D)")
-    if ns.print_comms:
-        raise NotImplementedError(f"--print-comms {_NOT_PORTED}")
-    if not ns.train_batches:
-        raise NotImplementedError(f"the per-region DLRM bench {_NOT_PORTED}; "
-                                  f"use --train-batches N")
 
     from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel
 
@@ -86,12 +95,52 @@ def main(argv=None) -> int:
         top_mlp=[int(x) for x in ns.arch_mlp_top.split("-")],
         batch=ns.mini_batch_size,
     )
-    model = DlrmModel(cfg, device=ns.device)
-    return train_e2e(model, cfg, ns)
+    if ns.train_batches and not ns.print_comms and \
+            int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return train_e2e(DlrmModel(cfg, device=ns.device), cfg, ns)
+
+    from param_tpu_torch.backend import DistBackend
+
+    backend = DistBackend(ns.device)
+    backend.initialize()
+    try:
+        model = DlrmModel(cfg, group=backend.get_default_group(),
+                          device=backend.device)
+        if ns.print_comms or not ns.train_batches:
+            return run_bench(model, ns)
+        return train_e2e(model, cfg, ns)
+    finally:
+        backend.shutdown()
+
+
+def run_bench(model, ns) -> int:
+    """The per-region bench (or ``--print-comms``) on this rank."""
+    from param_tpu_torch.models.dlrm_bench import DlrmCommBench
+    from param_tpu_torch.ops.mlp import make_optimizer
+    from param_tpu_torch.utils.profiler import profile_to
+
+    opt = (ns.optimizer if ns.optimizer.startswith("sparse")
+           else make_optimizer(ns.optimizer, ns.lr))
+    bench = DlrmCommBench(model, opt, lr=ns.lr)
+    lead = model.rank == 0
+    if ns.print_comms:
+        if lead:
+            bench.dump_comms(ns.print_comms)
+            print(f"wrote comm pattern to {ns.print_comms}")
+        return 0
+    regions = ns.regions.split(",") if ns.regions else None
+    with profile_to(ns.profile if lead else None, model.device):
+        results = bench.run(reps=ns.reps, chain=ns.chain, regions=regions,
+                            max_chain=ns.max_chain)
+    if lead:
+        bench.report(results)
+    return 0
 
 
 def train_e2e(model, cfg, ns) -> int:
-    """End-to-end training with a loss curve and held-out AUC."""
+    """End-to-end training with a loss curve and held-out AUC.  Every rank
+    of a sharded model reads the same global batches and keeps its rows;
+    rank 0 prints the global loss, and the AUC of every rank's logits."""
     import numpy as np
     import torch
 
@@ -119,7 +168,8 @@ def train_e2e(model, cfg, ns) -> int:
         step = model.make_train_step(opt)
         st = opt.init(params)
     dev = model.device
-    prof = make_profiler(dev) if ns.profile else None
+    lead = model.rank == 0
+    prof = make_profiler(dev) if ns.profile and lead else None
     sync(dev)
     t0 = time.perf_counter()
     t_first = None
@@ -131,7 +181,7 @@ def train_e2e(model, cfg, ns) -> int:
             params, st, loss = sparse_step(params, st, *b)
         else:
             params, st, loss = step(params, st, *b)
-        if i % max(1, ns.train_batches // 10) == 0:
+        if i % max(1, ns.train_batches // 10) == 0 and lead:
             print(f"batch {i:5d}  loss {float(loss):.5f}")
         if i == 0:
             sync(dev)
@@ -152,6 +202,9 @@ def train_e2e(model, cfg, ns) -> int:
     labels = batches[-1][2]
     with torch.no_grad():
         logits = model.forward(params, *model.place_batch(batches[-1])[:2])
+        logits = model.gather_rows(logits)
+    if not lead:
+        return 0
     logits = logits.float().cpu().numpy()
     order = np.argsort(logits)
     ranks = np.empty_like(order, dtype=np.float64)
@@ -163,9 +216,10 @@ def train_e2e(model, cfg, ns) -> int:
         if n_pos and n_neg else 0.5
     )
     qps = ns.train_batches * cfg.batch / dt
+    world = f" world={model.n}" if model.group is not None else ""
     print(f"DLRM-E2E batches={ns.train_batches} wall={dt:.1f}s "
           f"QPS={qps:.0f} held-out AUC={auc:.4f} device={dev.type} "
-          f"step_ms={steady_ms:.3f}")
+          f"step_ms={steady_ms:.3f}{world}")
     return 0
 
 

@@ -3,8 +3,10 @@
 The reference's DLRM parameter tree ``{"tables": (T, E, D), "bot": [(W, b),
 ...], "top": [...]}`` (as numpy arrays) has the same layout as the port's, so
 conversion is a copy to torch tensors on ``device``; so are that of an MLP's
-list of (W, b) pairs and a transformer block's dict.  Used by the tests so
-that both packages start from the same numbers.
+list of (W, b) pairs and a transformer block's dict.  A rank of a sharded
+DLRM takes its slice of the full tree (:func:`params_shard_from_jax`,
+:func:`adagrad_state_shard_from_jax`).  Used by the tests so that both
+packages start from the same numbers.
 """
 
 from __future__ import annotations
@@ -40,6 +42,31 @@ def params_from_jax(np_params, device="cuda"):
     """The reference's parameter tree (numpy leaves) as the port's params:
     fresh tensors on ``device`` that require grad."""
     return _convert(np_params, resolve_device(device), True)
+
+
+def _table_shard(np_tree, rank: int, world: int):
+    """``np_tree`` with only rank ``rank``'s tables of ``world``: tables
+    [rank*T/world, (rank+1)*T/world), the rest whole."""
+    tables = np.asarray(np_tree["tables"])
+    if tables.shape[0] % world:
+        raise ValueError(f"{tables.shape[0]} tables do not split over "
+                         f"{world} ranks")
+    t = tables.shape[0] // world
+    return {**np_tree, "tables": tables[rank * t:(rank + 1) * t]}
+
+
+def params_shard_from_jax(np_params, rank: int, world: int, device="cuda"):
+    """Rank ``rank``'s parameters of a DLRM sharded over ``world`` ranks,
+    from the reference's full tree (numpy leaves): its table shard and the
+    whole MLPs, as :func:`params_from_jax` makes them."""
+    return params_from_jax(_table_shard(np_params, rank, world), device)
+
+
+def adagrad_state_shard_from_jax(np_acc, rank: int, world: int,
+                                 device="cuda"):
+    """Rank ``rank``'s part of a full params-shaped accumulator tree (numpy
+    leaves), as :func:`adagrad_state_from_jax` makes it."""
+    return adagrad_state_from_jax(_table_shard(np_acc, rank, world), device)
 
 
 def mlp_params_from_jax(np_params, device="cuda"):

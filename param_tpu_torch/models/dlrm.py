@@ -1,4 +1,5 @@
-"""DLRM on one device: forward, loss, dense and sparse train steps (port of
+"""DLRM: forward, loss, dense and sparse train steps on one device, or
+table-wise sharded over a ``torch.distributed`` group (port of
 ``param_tpu/models/dlrm.py``).
 
 Parameters are a plain dict in the reference's layout::
@@ -8,17 +9,38 @@ Parameters are a plain dict in the reference's layout::
 and every step updates them IN PLACE and returns them (the reference's jitted
 steps return new, donated arrays).
 
-The embedding lookup of all T tables is one K1 launch over the flat
-(T*E, D) view of the stacked tables, with each table's ids offset by t*E.
-The sparse steps take the pooled-embedding gradient from autograd on a
+The embedding lookup of all tables is one K1 launch over the flat (T*E, D)
+view of the stacked tables, with each table's ids offset by t*E.  The
+sparse steps take the pooled-embedding gradient from autograd on a
 detached ``pooled`` tensor (the reference's ``jax.vjp`` of the dense half),
 segment-sum duplicate rows (:func:`dedup_row_updates`) and apply one K2
 launch to the flat table view.
 
-With one device every all-to-all of the reference's sharded step is the
-identity, so this module has no collectives; a world size above 1 raises.
-The reference's lane-packed table storage (``packed_tables``) is a TPU
-layout and is not ported.
+Built with a group (a :class:`~param_tpu_torch.backend.base.CommGroup` of
+n ranks), the model is the reference's hybrid-parallel one: rank r holds
+tables [r*T/n, (r+1)*T/n) and batch rows [r*B/n, (r+1)*B/n), the MLPs are
+replicated, and each step runs the DLRM butterfly on the group:
+
+====  ==========================================  ==========================
+comm  reference                                   here
+====  ==========================================  ==========================
+1/2   ``lax.all_to_all`` of the (B/n, T, nnz)     :func:`all_to_all_tables`
+      ids, split on tables, stacked on the batch  (``all_to_all_single``)
+3     ``lax.all_to_all`` of the pooled            :class:`PooledAllToAll`,
+      (B, T/n, D), split on the batch             :func:`all_to_all_rows`
+5     its transpose, from JAX's AD                the Function's backward
+4/6   ``lax.pmean`` of the dense gradients        one ``all_reduce`` per MLP
+====  ==========================================  ==========================
+
+As in the reference, each rank differentiates its LOCAL mean loss: the
+dense gradients are then averaged over the ranks, and the table gradients,
+which the pooled exchange's transpose sums over the n ranks, are scaled by
+1/n.  The returned loss is the mean over the ranks.  A sharded model runs
+its collectives in a world of one too.  Without a group the model is the
+single-device one and runs no collective.  The reference's lane-packed
+table storage (``packed_tables``) is a TPU layout, and its ``table_update``
+choice is the device's here (K2 on the card, its plain version on the CPU):
+neither is ported.
 """
 
 from __future__ import annotations
@@ -28,6 +50,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from param_tpu_torch.ops.embedding import embedding_bag
 from param_tpu_torch.ops.mlp import (
@@ -35,9 +58,6 @@ from param_tpu_torch.ops.mlp import (
 )
 from param_tpu_torch.ops.sparse_update import dedup_row_updates, sparse_row_update
 from param_tpu_torch.utils.device import resolve_device
-
-_SHARDED = ("sharded DLRM (world size > 1) is ROADMAP queue 1 item 7, "
-            "not ported yet")
 
 
 @dataclass
@@ -146,77 +166,247 @@ def _bce(logits, labels):
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
-class DlrmModel:
-    """Single-device DLRM forward and train steps."""
 
-    def __init__(self, cfg: DlrmConfig, world_size: int = 1, device="cuda"):
-        if world_size != 1:
-            raise NotImplementedError(_SHARDED)
+
+# ------------------------------------------------------------ collectives
+def all_to_all_tables(x: torch.Tensor, pg, n: int) -> torch.Tensor:
+    """(b, T, ...) -> (n*b, T/n, ...): rank j receives table block j of
+    every rank, stacked on the batch axis in (source rank, local row)
+    order; ``lax.all_to_all(x, split_axis=1, concat_axis=0, tiled=True)``.
+    The ids' exchange (comms 1/2) and the pooled exchange's transpose."""
+    b, T = x.shape[:2]
+    rest = x.shape[2:]
+    send = x.reshape(b, n, T // n, *rest).transpose(0, 1).contiguous()
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=pg)
+    return out.reshape(n * b, T // n, *rest)
+
+
+def all_to_all_rows(x: torch.Tensor, pg, n: int) -> torch.Tensor:
+    """(n*b, T/n, ...) -> (b, T, ...): rank j receives row block j of every
+    rank, concatenated on the table axis in source-rank order;
+    ``lax.all_to_all(x, split_axis=0, concat_axis=1, tiled=True)``.  The
+    transpose of :func:`all_to_all_tables`."""
+    B, Tl = x.shape[:2]
+    rest = x.shape[2:]
+    send = x.contiguous()
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=pg)
+    return out.reshape(n, B // n, Tl, *rest).transpose(0, 1).reshape(
+        B // n, n * Tl, *rest)
+
+
+class PooledAllToAll(torch.autograd.Function):
+    """The pooled-embedding exchange (comm 3) whose backward is the
+    transposed exchange (comm 5), as the PyTorch reference's
+    ``All2Allv_Req`` / ``All2Allv_Wait`` pair: (B, T/n, D) -> (B/n, T, D)."""
+
+    @staticmethod
+    def forward(ctx, pooled_local, pg, n):
+        ctx.pg, ctx.n = pg, n
+        return all_to_all_rows(pooled_local, pg, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_tables(g, ctx.pg, ctx.n), None, None
+
+
+def all_reduce_mean(tensors, pg, n: int):
+    """The mean over the ranks of each tensor, by one ``all_reduce`` of
+    their concatenation (``lax.pmean`` of each leaf)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=pg)
+    flat.div_(n)
+    return [f.view_as(t) for f, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
+
+
+class DlrmModel:
+    """DLRM forward and train steps on one device, or table-wise sharded
+    over ``group`` (see the module notes)."""
+
+    def __init__(self, cfg: DlrmConfig, group=None, device="cuda"):
         self.cfg = cfg
+        self.group = group
+        self.n = 1 if group is None else group.size
+        if group is not None and (cfg.num_tables % self.n
+                                  or cfg.batch % self.n):
+            raise ValueError(
+                f"num_tables={cfg.num_tables} and batch={cfg.batch} must "
+                f"divide the mesh size {self.n}")
         self.device = resolve_device(device)
+        self.local_tables = cfg.num_tables // self.n
+        self.local_batch = cfg.batch // self.n
+        self.rank = 0 if group is None else dist.get_rank(group.pg)
 
     def init_params(self, seed: int = 0):
+        """The full parameters from ``seed`` (:func:`init_dlrm_params`), of
+        which a sharded model keeps its table shard: every world size
+        starts from the same numbers."""
         params = init_dlrm_params(seed, self.cfg, self.device)
+        if self.group is not None:
+            r, tl = self.rank, self.local_tables
+            params["tables"] = params["tables"][r * tl:(r + 1) * tl].clone()
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return params
 
     def place_batch(self, batch):
-        """numpy (dense, idx, labels) -> tensors on the model's device."""
-        dense, idx, labels = batch
-        dev = self.device
-        return (torch.tensor(np.asarray(dense), device=dev),
-                torch.tensor(np.asarray(idx, dtype=np.int32), device=dev),
-                torch.tensor(np.asarray(labels), device=dev))
+        """numpy arrays of the global batch, e.g. (dense, idx, labels) ->
+        this rank's rows as tensors on the model's device (integer arrays as
+        int32)."""
+        r, b = self.rank, self.local_batch
+        rows = slice(None) if self.group is None else slice(r * b, (r + 1) * b)
+        out = []
+        for a in batch:
+            a = np.asarray(a)
+            if a.dtype.kind in "iu":
+                a = a.astype(np.int32)
+            out.append(torch.tensor(a[rows], device=self.device))
+        return tuple(out)
+
+    # ------------------------------------------------------- the butterfly
+    def _exchange_ids(self, idx):
+        """Comms 1/2: this rank's (b, T, nnz) ids -> (B, T/n, nnz) ids of
+        its tables (the identity without a group)."""
+        if self.group is None:
+            return idx
+        return all_to_all_tables(idx, self.group.pg, self.n)
+
+    def _exchange_pooled(self, pooled_local):
+        """Comm 3 (and 5 in the backward): (B, T/n, D) -> (b, T, D)."""
+        if self.group is None:
+            return pooled_local
+        return PooledAllToAll.apply(pooled_local, self.group.pg, self.n)
+
+    def mean_over_ranks(self, tensors):
+        """Comms 4/6: the mean over the group of each tensor."""
+        return all_reduce_mean(tensors, self.group.pg, self.n)
+
+    def _mean_loss(self, loss):
+        if self.group is None:
+            return loss.detach()
+        return self.mean_over_ranks([loss.detach()])[0]
+
+    def _mean_dense_grads(self, mlps, g_mlps):
+        """The dense gradients (leaves of ``mlps``, bottom MLP first)
+        averaged over the group: the top MLP's all-reduce, then the
+        bottom's, as the backward reaches them."""
+        nb = len(tree_leaves(mlps["bot"]))
+        top = self.mean_over_ranks(g_mlps[nb:])
+        return self.mean_over_ranks(g_mlps[:nb]) + top
 
     def forward(self, params, dense, idx):
-        pooled = _lookup_local_tables(params["tables"], idx)
-        return _forward_local(params, self.cfg, dense, pooled)
+        """Logits of this rank's rows."""
+        pooled = _lookup_local_tables(params["tables"], self._exchange_ids(idx))
+        return _forward_local(params, self.cfg, dense,
+                              self._exchange_pooled(pooled))
 
     def loss_fn(self, params, dense, idx, labels):
+        """Mean loss over this rank's rows (differentiable)."""
         return _bce(self.forward(params, dense, idx), labels)
+
+    def make_sharded_loss(self):
+        """``loss(params, dense, idx, labels)``: the loss of the global
+        batch, the mean over the ranks of their local losses."""
+
+        def loss(params, dense, idx, labels):
+            with torch.no_grad():
+                return self._mean_loss(self.loss_fn(params, dense, idx,
+                                                    labels))
+
+        return loss
+
+    def make_sharded_loss_ragged(self, wire: str = "padded"):
+        """``loss(params, dense, lengths, idx_padded, labels)`` with ragged
+        bags: ids beyond a bag's length are ignored, and the ids reach
+        their tables' owners by :func:`~param_tpu_torch.models.ragged.
+        ragged_sparse_dist` over ``wire``.  Each table carries one extra
+        zero pad row: ``params["tables"]`` is (T/n, E + 1, D)."""
+        from param_tpu_torch.models.ragged import ragged_sparse_dist
+
+        if self.group is None:
+            raise ValueError("the ragged exchange runs over a group")
+        cfg = self.cfg
+
+        def loss(params, dense, lengths, idx_padded, labels):
+            with torch.no_grad():
+                _, idx_t = ragged_sparse_dist(
+                    lengths, idx_padded, self.group,
+                    pad_row=cfg.rows_per_table, wire=wire)
+                pooled = _lookup_local_tables(params["tables"], idx_t)
+                logits = _forward_local(params, cfg, dense,
+                                        self._exchange_pooled(pooled))
+                return self._mean_loss(_bce(logits, labels))
+
+        return loss
+
+    def _value_and_grad(self, params, dense, idx, labels):
+        """(loss of the global batch, gradient tree of that loss)."""
+        loss = self.loss_fn(params, dense, idx, labels)
+        grads = _rebuild(params, torch.autograd.grad(loss,
+                                                     tree_leaves(params)))
+        if self.group is not None:
+            g_mlps = {"bot": grads["bot"], "top": grads["top"]}
+            g_mlps = _rebuild(g_mlps, self._mean_dense_grads(
+                g_mlps, tree_leaves(g_mlps)))
+            grads = {**grads, **g_mlps,
+                     "tables": grads["tables"] * (1.0 / self.n)}
+        return self._mean_loss(loss), grads
+
+    def make_value_and_grad(self):
+        """``vg(params, dense, idx, labels) -> (loss, grads)``: the
+        gradients of the global batch's loss, dense ones averaged over the
+        group, table ones for this rank's shard."""
+        return self._value_and_grad
 
     def make_train_step(self, optimizer):
         """Dense step: autograd over every parameter (the tables get a dense
-        (T, E, D) gradient), then ``optimizer.update`` in place.
+        table-shaped gradient), then ``optimizer.update`` in place.
         ``step(params, opt_state, dense, idx, labels) -> (params, opt_state,
         loss)``."""
 
         def step(params, opt_state, dense, idx, labels):
-            leaves = tree_leaves(params)
-            loss = self.loss_fn(params, dense, idx, labels)
-            grads = torch.autograd.grad(loss, leaves)
-            opt_state = optimizer.update(params, grads, opt_state)
-            return params, opt_state, loss.detach()
+            loss, grads = self._value_and_grad(params, dense, idx, labels)
+            opt_state = optimizer.update(params, tree_leaves(grads),
+                                         opt_state)
+            return params, opt_state, loss
 
         return step
 
     def _sparse_fwd_bwd(self, params, dense, idx, labels):
         """Forward plus the backward of the dense half.  Returns (loss,
-        per-occurrence row ids (K,) in the flat table view, their gradients
-        (K, D), the dense layers ``{"bot", "top"}``, their gradients).
+        per-occurrence row ids (K,) in the flat view of this rank's tables,
+        their gradients (K, D), the dense layers ``{"bot", "top"}``, their
+        gradients).
 
         Ids and gradients are ordered table-major, as the reference's
         ``_gather_row_updates`` orders them."""
         cfg = self.cfg
+        idx_t = self._exchange_ids(idx)
         with torch.no_grad():
-            pooled = _lookup_local_tables(params["tables"], idx)
+            pooled = _lookup_local_tables(params["tables"], idx_t)
         pooled = pooled.detach().requires_grad_(True)
         mlps = {"bot": params["bot"], "top": params["top"]}
-        loss = _bce(_forward_local(params, cfg, dense, pooled), labels)
+        loss = _bce(_forward_local(params, cfg, dense,
+                                   self._exchange_pooled(pooled)), labels)
         g_pooled, *g_mlps = torch.autograd.grad(
-            loss, [pooled] + tree_leaves(mlps))  # g_pooled (B, T, D)
-        nnz = idx.shape[2]
-        gidx = _global_ids(idx, cfg.rows_per_table).transpose(0, 1).reshape(-1)
+            loss, [pooled] + tree_leaves(mlps))  # g_pooled (B, T/n, D)
+        if self.group is not None:
+            g_pooled = g_pooled * (1.0 / self.n)
+            g_mlps = self._mean_dense_grads(mlps, g_mlps)
+        nnz = idx_t.shape[2]
+        gidx = _global_ids(idx_t, cfg.rows_per_table).transpose(0, 1) \
+            .reshape(-1)
         rows_g = g_pooled.transpose(0, 1).repeat_interleave(nnz, dim=1)
-        return (loss.detach(), gidx, rows_g.reshape(-1, cfg.emb_dim), mlps,
-                g_mlps)
+        return (self._mean_loss(loss), gidx, rows_g.reshape(-1, cfg.emb_dim),
+                mlps, g_mlps)
 
     def make_sparse_sgd_step(self, lr: float = 0.01):
         """Sparse SGD: only the gathered table rows change, by a K2 launch
         with the deduplicated ``-lr * g`` rows; dense layers take plain SGD.
         ``step(params, dense, idx, labels) -> (params, loss)``."""
-        R = self.cfg.num_tables * self.cfg.rows_per_table
+        R = self.local_tables * self.cfg.rows_per_table
         sgd = Sgd(lr)
 
         def step(params, dense, idx, labels):
@@ -240,7 +430,7 @@ class DlrmModel:
         layers take dense Adagrad.  ``initial_accumulator`` only documents
         the state :meth:`init_adagrad_state` made.
         ``step(params, acc, dense, idx, labels) -> (params, acc, loss)``."""
-        R = self.cfg.num_tables * self.cfg.rows_per_table
+        R = self.local_tables * self.cfg.rows_per_table
         adagrad = Adagrad(lr, initial_accumulator, eps)
 
         def step(params, acc, dense, idx, labels):
@@ -261,3 +451,20 @@ class DlrmModel:
         ``initial_accumulator``."""
         return tree_map(lambda p: torch.full_like(p.detach(), initial_accumulator),
                         params)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (e.g. its logits), in global batch
+        order (``x`` itself without a group)."""
+        if self.group is None:
+            return x
+        x = x.contiguous()
+        out = x.new_empty((self.n * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=self.group.pg)
+        return out
+
+
+def _rebuild(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

@@ -1,4 +1,4 @@
-"""The port's DLRM CLI on the CPU, and the rules of the port's package:
+"""The port's DLRM trainer CLI on the CPU, and the rules of the port's package:
 no JAX and nothing of the reference package, and no silent CPU fallback."""
 
 import os
@@ -50,10 +50,9 @@ def test_needs_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(TINY + ["--device", "cpu"])  # the region bench
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(TINY + ["--device", "cpu", "--print-comms", "x.json"])
+    """The region bench and --print-comms are ported
+    (tests/test_torch_dlrm_sharded.py); the TPU's lane-packed tables stay
+    refused."""
     with pytest.raises(SystemExit):
         cli.main(TINY + ["--device", "cpu", "--packed-tables",
                          "--train-batches", "1"])
@@ -70,12 +69,16 @@ _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
                   "param_tpu_torch/cli/comms.py",
                   "param_tpu_torch/ops/ring_collectives.py",
                   "param_tpu_torch/kernels/ring.py",
-                  "tests/torch_comms_worker.py"]
+                  "tests/torch_comms_worker.py",
+                  "param_tpu_torch/models/dlrm_bench.py",
+                  "param_tpu_torch/models/ragged.py",
+                  "tests/torch_dlrm_worker.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tests", "torch_comms_worker.py")]
+             os.path.join(ROOT, "tests", "torch_comms_worker.py"),
+             os.path.join(ROOT, "tests", "torch_dlrm_worker.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "param_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -109,6 +112,22 @@ def test_comms_and_ring_modules_load_without_jax():
             "import param_tpu_torch.backend, param_tpu_torch.comms.coll_bench\n"
             "import param_tpu_torch.cli.comms\n"
             "import param_tpu_torch.ops.ring_collectives\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+def test_sharded_dlrm_modules_load_without_jax():
+    """Importing the sharded DLRM, its bench, the ragged exchange and the
+    CLI pulls in neither JAX nor the reference package (the spawned ranks
+    of the sharded tests rely on it)."""
+    code = ("import sys\n"
+            "import param_tpu_torch.models.dlrm_bench\n"
+            "import param_tpu_torch.models.ragged, param_tpu_torch.cli.dlrm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'param_tpu')]\n"
             "assert not bad, bad\n")

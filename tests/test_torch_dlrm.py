@@ -19,6 +19,7 @@ from jax.sharding import Mesh
 
 from param_tpu.models import dlrm as jdlrm
 from param_tpu.models.dlrm_data import RandomDataset
+from param_tpu_torch.backend.base import CommGroup
 from param_tpu_torch.models.convert import adagrad_state_from_jax, params_from_jax
 from param_tpu_torch.models.dlrm import (
     DlrmConfig, DlrmModel, dot_interaction, init_dlrm_params,
@@ -211,8 +212,16 @@ def test_entry_points_need_cuda_or_cpu():
 
 
 def test_world_size_above_one_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DlrmModel(DlrmConfig(**TINY), world_size=2, device="cpu")
+    """A world above one is ported (tests/test_torch_dlrm_sharded.py); what
+    stays refused, with the reference's message, is a group whose size
+    does not divide the tables or the batch."""
+    for kw, ranks in ((TINY, 3), (dict(TINY, batch=63), 2)):
+        group = CommGroup(ranks=list(range(ranks)))
+        with pytest.raises(ValueError, match=r"must divide the mesh size"):
+            DlrmModel(DlrmConfig(**kw), group=group, device="cpu")
+        with pytest.raises(ValueError, match=r"must divide the mesh size"):
+            jdlrm.DlrmModel(jdlrm.DlrmConfig(**kw),
+                            Mesh(np.array(jax.devices()[:ranks]), ("x",)))
 
 
 def test_init_params_shapes():
