@@ -184,6 +184,24 @@ Phases (any failure exits non-zero):
      more cards, ``cli.dlrm`` under torchrun over all of them:
      ``--train-batches 5`` for each optimizer (rank 0's first loss equal to
      phase 6's within rtol 1e-5) and the default bench.
+ 21. The multi-device transformer tier in a world of one on NCCL at
+     llama2-7B width (``param_tpu_torch.experiments.parallel_tier``'s
+     checks, the launch counts reset before each parallel run and read
+     after): ring attention (1, 32, 2048, 128) bf16 causal against K6
+     within flash_fwd_tolerance; ring attention over 4 sequence shards in
+     one process ((1, 32, 4096, 128) bf16 and (1, 4, 2048, 64) f32,
+     causal), each rank's steps fed the shards in ring order, held to the
+     plain version and to K6 over the whole sequence, with its K6 launches
+     and times; the dp x tp step (1, 1), two bf16 steps equal to
+     ``make_train_step``'s (rtol 1e-5), K6 and K7 once each a step, its
+     host and kernel ms beside the single-device step's; the pipeline step
+     with one stage and 4 microbatches, its loss the single-device step's
+     on batch 4 within rtol 1e-3, K6 and K7 4 times each; the MoE layer
+     with one expert (emb 4096, ffn 11008, 8192 tokens, bf16) against
+     ``moe_apply_reference``, and one train step; the dp x tp MLP step
+     (512-512-256-1, batch 2048, f32) equal to the plain step (rtol 1e-5).
+     With two or more cards, ``experiments.parallel_tier`` under torchrun
+     over all of them in f32, each path against the single-card result.
 Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19) use CUDA events after a warm-up and
 report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
@@ -647,6 +665,249 @@ def dlrm_world(cards: int, smi: str, first_losses=None) -> dict:
             f"{' '.join(argv) or '(no flags)'} | {wall:.1f} s | {smi}\n"
             f"{out.strip()}")
     return runs
+
+
+LLAMA2 = dict(seq=2048, emb=4096, heads=32, ffn=11008)
+
+
+def ring_shards(shape, dtype, causal, smi, dev, breakdown) -> dict:
+    """Ring attention over 4 sequence shards on one card, in one process:
+    for each rank r in turn, ``ring_attention_steps`` fed the shards in
+    ring order (what r would hold at each step), the 4 outputs
+    concatenated and held to the plain version and to K6 over the whole
+    sequence.  f32: within atol = rtol = 3e-5 of the plain version (the
+    reference's ring tolerance).  16-bit, with u the unit roundoff: each
+    partial output is rounded once by K6 within its own flash bound,
+    u (2 |O_t| + |P_t| @ |V|); the merge weights sum these to at most
+    3 u |P| @ |V|, and the final cast adds u |O|; with flash_fwd_tolerance's
+    2^-6 margin and 2^-16 for the f32 sums.  Against K6 the bound is that
+    one plus K6's own.  Also times the 4 ranks' steps one after another
+    beside one K6 call over the whole sequence (eager, CUDA events), and
+    ``breakdown`` (phase 13's) splits the 4 ranks' steps by kernel."""
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.kernels.flash_fwd import (
+        flash_fwd_plain, flash_fwd_tolerance,
+    )
+    from param_tpu_torch.ops.attention import flash_attention
+    from param_tpu_torch.ops.ring_attention import ring_attention_steps
+    from param_tpu_torch.utils.timer import time_samples
+
+    n = 4
+    b, h, s, d = shape
+    sl = s // n
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 0.3)
+               .to(dtype) for _ in range(3))
+    ks = [k[:, :, i * sl:(i + 1) * sl] for i in range(n)]
+    vs = [v[:, :, i * sl:(i + 1) * sl] for i in range(n)]
+
+    def ring():
+        return torch.cat([ring_attention_steps(
+            q[:, :, r * sl:(r + 1) * sl],
+            ((ks[(r - t) % n], vs[(r - t) % n]) for t in range(n)), r, n,
+            causal=causal) for r in range(n)], dim=2)
+
+    kernels.reset_launch_counts()
+    got = ring()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["flash_fwd"]
+    whole = flash_attention(q, k, v, causal=causal)
+    want = flash_fwd_plain(q, k, v, causal)
+    if dtype == torch.float32:
+        bound = 3e-5 + 3e-5 * want.abs()
+        k6_bound = 2e-5
+    else:
+        u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+        pv = flash_fwd_plain(q, k, v.abs(), causal).float()
+        bound = (1 + 2.0 ** -6) * u * (want.float().abs() + 3 * pv) + 2.0 ** -16
+        k6_bound = flash_fwd_tolerance(q, k, v, want, causal)
+    err = (got.float() - want.float()).abs()
+    err_k6 = (got.float() - whole.float()).abs()
+    if not (err <= bound).all() or not (err_k6 <= bound + k6_bound).all():
+        fail(f"phase 21 ring attention {shape} {dtype} over {n} in-process "
+             f"shards: max error {err.max().item():.3e} against the plain "
+             f"version, {err_k6.max().item():.3e} against K6 over the whole "
+             f"sequence, over their bounds")
+    ring_ms = statistics.median(time_samples(ring, 5, dev, reps=5))
+    k6_ms = statistics.median(time_samples(
+        lambda: flash_attention(q, k, v, causal=causal), 5, dev, reps=5))
+    rec = dict(shape=list(shape), dtype=str(dtype), k6_launches=launches,
+               max_abs_err=err.max().item(),
+               max_abs_err_k6=err_k6.max().item(), ring_ms=ring_ms,
+               k6_whole_ms=k6_ms, breakdown=breakdown(
+                   f"ring attention {shape} {dtype} over {n} in-process "
+                   f"shards", ring, 10, phase=21))
+    say(f"phase 21 ring attention {shape} {dtype} causal over {n} "
+        f"in-process shards: K6 launches {launches}, max abs err "
+        f"{rec['max_abs_err']:.3e} (plain) / {rec['max_abs_err_k6']:.3e} "
+        f"(K6 whole) | the 4 ranks' steps {ring_ms:.4f} ms against K6 over "
+        f"the whole sequence {k6_ms:.4f} ms (eager, CUDA events) | {smi}")
+    return rec
+
+
+def parallel_tier(smi: str, breakdown) -> dict:
+    """Phase 21: the multi-device transformer tier in a world of one on
+    NCCL at llama2-7B width (``experiments.parallel_tier``'s checks; the
+    launch counts reset just before each parallel run and read just
+    after): ring attention (1, 32, 2048, 128) bf16 causal against K6's
+    ``flash_attention`` within flash_fwd_tolerance, then over 4 in-process
+    shards (:func:`ring_shards`); the dp x tp step at (1, 1), two steps
+    equal to ``make_train_step``'s (losses and every parameter within rtol
+    1e-5), K6 and K7 once each a step; the pipeline step with one stage
+    and 4 microbatches of 1, its loss the single-device step's on batch 4
+    within rtol 1e-3, K6 and K7 4 times each; ``moe_apply_ep`` (emb 4096,
+    ffn 11008, 8192 tokens, bf16, one expert) against
+    ``moe_apply_reference`` within 4 bf16 ulps of the largest output, then
+    one train step, its loss finite and within rtol 1e-3 of the oracle's;
+    the dp x tp MLP step (512-512-256-1, batch 2048, f32) equal to the
+    plain step within rtol 1e-5.  ``breakdown`` (phase 13's) gives the tp
+    step's host and kernel ms beside the single-device step's."""
+    import torch
+
+    from param_tpu_torch.backend import DistBackend
+    from param_tpu_torch.experiments import parallel_tier as par
+    from param_tpu_torch.kernels.flash_fwd import flash_fwd_tolerance
+    from param_tpu_torch.models import moe
+    from param_tpu_torch.models import transformer as tfm
+    from param_tpu_torch.models.parallel import mesh_groups
+
+    backend = DistBackend("cuda")
+    backend.initialize()  # phase 20's world was shut down: a new one
+    dev = backend.device
+    group = backend.get_default_group()
+    bf16 = torch.bfloat16
+    res = {}
+
+    def show(label, rec, extra=""):
+        errs = ", ".join(f"{k} {v:.3e}" for k, v in rec.items()
+                         if k.startswith("max_"))
+        say(f"phase 21 {label}: {rec['wall_s']:.3f} s | launches "
+            f"{rec['launches']} | {errs}{extra} | steady {rec['ms']:.4f} ms "
+            f"a call (single-device oracle {rec['oracle_ms']:.4f}) | {smi}")
+
+    def launched(label, rec, fwd, bwd):
+        got = (rec["launches"].get("flash_fwd", 0),
+               rec["launches"].get("flash_bwd", 0))
+        if got != (fwd, bwd):
+            fail(f"phase 21 {label}: K6 / K7 launched {got} times, not "
+                 f"({fwd}, {bwd}): {rec['launches']}")
+
+    res["ring_world1"] = par.check_ring(
+        group, (1, 32, 2048, 128), bf16, dev,
+        tol=lambda q, k, v, want, causal: flash_fwd_tolerance(
+            q, k, v, want, causal))
+    launched("ring attention, world 1", res["ring_world1"], 1, 0)
+    show("ring attention (1, 32, 2048, 128) bf16 causal, world 1, against "
+         "K6's flash_attention", res["ring_world1"])
+    res["ring_shards"] = [ring_shards((1, 32, 4096, 128), bf16, True, smi,
+                                      dev, breakdown),
+                          ring_shards((1, 4, 2048, 64), torch.float32, True,
+                                      smi, dev, breakdown)]
+    torch.cuda.empty_cache()
+
+    cfg = tfm.TransformerConfig(batch=1, **LLAMA2)
+    rec = par.check_tp(backend, 1, 1, cfg, dev, steps=2, loss_rtol=1e-5,
+                       param_rtol=1e-5)
+    launched("tp step (1, 1)", rec, 2, 2)
+    show("dp x tp step (1, 1) at llama2 width bf16, 2 steps against "
+         "make_train_step", rec, f" | losses {rec['losses']}")
+    groups = mesh_groups(backend, 1, 1)
+    x = (torch.randn((1, cfg.seq, cfg.emb), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev) * 0.1).bfloat16()
+    full = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev)
+    for label, step, p in (
+            ("single-device step", tfm.make_train_step(cfg), full),
+            ("tp step (1, 1)", tfm.make_sharded_train_step(groups, cfg),
+             tfm.tp_shard(full, cfg, 0, 1))):
+        state = {"p": p}
+
+        def train(state=state, step=step):
+            state["p"], loss = step(state["p"], x)
+            return loss
+
+        rec[f"breakdown {label}"] = breakdown(
+            f"{label} (1, 2048, 4096, 32, 11008) bf16", train, 10, grad=True,
+            phase=21)
+        del state
+    res["tp_world1"] = rec
+    del full, x
+    torch.cuda.empty_cache()
+
+    rec = par.check_pp(group, tfm.TransformerConfig(batch=4, **LLAMA2), 4,
+                       dev, loss_rtol=1e-3)
+    launched("pp step, one stage", rec, 4, 4)
+    show("pp step, one stage, 4 microbatches of 1 at llama2 width bf16, "
+         "against the single-device step on batch 4", rec,
+         f" | loss {rec['loss']} (oracle {rec['oracle_loss']})")
+    res["pp_world1"] = rec
+    torch.cuda.empty_cache()
+
+    rec = par.check_moe(
+        group, moe.MoeConfig(4096, 11008, 1, dtype="bfloat16"), 8192, dev,
+        out_tol=lambda want: 4 * 2.0 ** -8 * want.float().abs().max(),
+        loss_rtol=1e-3)
+    show("MoE, one expert (emb 4096, ffn 11008, 8192 tokens, bf16), "
+         "moe_apply_ep against moe_apply_reference, then one train step",
+         rec, f" | step loss {rec['loss']} (oracle {rec['oracle_loss']})")
+    res["moe_world1"] = rec
+    torch.cuda.empty_cache()
+
+    rec = par.check_mlp(backend, 1, 1, [512, 512, 256, 1], 2048, dev,
+                        rtol=1e-5, param_rtol=1e-5)
+    show("dp x tp MLP step (1, 1), 512-512-256-1, batch 2048, f32, against "
+         "the plain step", rec, f" | loss {rec['loss']}")
+    res["mlp_world1"] = rec
+    backend.shutdown()
+    torch.cuda.empty_cache()
+    return res
+
+
+def parallel_world(cards: int, smi: str) -> dict:
+    """``experiments.parallel_tier`` under torchrun, one rank per card on
+    NCCL, in f32: ring attention over the cards, tp at (cards / 2, 2) and
+    (1, cards), pp over the cards, MoE with one expert a card, the MLP at
+    (cards / 2, 2), each held to the single-card result on the same inputs
+    (loss rtol 1e-4; the largest parameter error printed)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(cards), "-m",
+           "param_tpu_torch.experiments.parallel_tier"]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        out = p.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        fail(f"phase 21 torchrun world of {cards} timed out")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if p.returncode != 0 or not lines:
+        fail(f"phase 21 torchrun world of {cards}: rc {p.returncode}:\n"
+             f"{out[-6000:]}")
+    res = json.loads(lines[-1])
+    for key, rec in res.items():
+        if not isinstance(rec, dict):
+            continue
+        want = ({"flash_fwd"} if key == "ring" else
+                {"flash_fwd", "flash_bwd"} if key.startswith(("tp", "pp"))
+                else set())
+        if not want <= set(rec["launches"]):
+            fail(f"phase 21 torchrun {key}: {want} not launched "
+                 f"({rec['launches']})")
+        errs = ", ".join(f"{k} {v:.3e}" for k, v in rec.items()
+                         if k.startswith("max_"))
+        say(f"phase 21 torchrun world of {cards} {key}: {rec['wall_s']:.3f} s "
+            f"(rank 0) | launches (rank 0) {rec['launches']} | {errs} | "
+            f"steady {rec['ms']:.4f} ms a call on {cards} cards, the "
+            f"single-card oracle {rec['oracle_ms']:.4f} (rank 0) | {smi}")
+    res["wall_s"] = wall
+    return res
 
 
 def main(out_path=None) -> int:
@@ -2401,6 +2662,18 @@ def main(out_path=None) -> int:
     result["phases"]["sharded_dlrm"] = dlrm20
     main20 = dlrm20["launches"]
 
+    # ---------------------------------------------------------------- 21
+    par21 = parallel_tier(smi, breakdown)
+    if cards >= 2:
+        par21["torchrun"] = parallel_world(cards, smi)
+    else:
+        say("phase 21: one card: the parallel tier ran as a world of one "
+            "and its shard schedules in one process; the KV ring, the "
+            "all-to-alls, the tp all-reduces and the pipeline hops between "
+            "cards are unchecked")
+    result["phases"]["parallel_tier"] = par21
+    main21 = [par21[key] for key in ("ring_world1", "tp_world1", "pp_world1")]
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2436,6 +2709,8 @@ def main(out_path=None) -> int:
                 train_runs["attention_llama2_f32_grad"]]
     k6_f32_launches = main_path_flash(f32_runs, "flash_fwd", "tf32x3")
     k7_f32_launches = main_path_flash(f32_runs, "flash_bwd", "tf32x3")
+    k6_par_launches = main_path_flash(main21, "flash_fwd")
+    k7_par_launches = main_path_flash(main21, "flash_bwd")
     src = "param_tpu_torch/kernels/csrc/"
     report = {"kernels": [
         entry("emb_gather (K1)", src + "emb_gather.cu",
@@ -2510,6 +2785,14 @@ def main(out_path=None) -> int:
         entry("sparse_update sgd, sharded DLRM (K2)", src + "sparse_update.cu",
               "param_tpu/ops/sparse_update.py:117",
               main20["sparse_update_sgd"], k2["sgd"]),
+        entry("flash attention forward, parallel tier: ring attention, tp "
+              "and pp steps (K6), wgmma path", src + "flash_fwd.cu",
+              "param_tpu/ops/attention.py:251", k6_par_launches,
+              k6["llama2_causal"]),
+        entry("flash attention backward, parallel tier: tp and pp steps "
+              "(K7), wgmma path", src + "flash_bwd.cu",
+              "param_tpu/ops/attention.py:809, :841", k7_par_launches,
+              k7["llama2_causal"]),
         entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
               "param_tpu/ops/embedding.py:185", main19["emb_gather"],
               k1["headline_f32"]),

@@ -3,10 +3,14 @@
 The reference's DLRM parameter tree ``{"tables": (T, E, D), "bot": [(W, b),
 ...], "top": [...]}`` (as numpy arrays) has the same layout as the port's, so
 conversion is a copy to torch tensors on ``device``; so are that of an MLP's
-list of (W, b) pairs and a transformer block's dict.  A rank of a sharded
-DLRM takes its slice of the full tree (:func:`params_shard_from_jax`,
-:func:`adagrad_state_shard_from_jax`).  Used by the tests so that both
-packages start from the same numbers.
+list of (W, b) pairs, a transformer block's dict and the MoE layer's.  A
+rank of a sharded model takes its slice of the full tree: a sharded DLRM's
+(:func:`params_shard_from_jax`, :func:`adagrad_state_shard_from_jax`), a tp
+rank's block (:func:`tp_shard_from_jax`) or MLP
+(:func:`mlp_tp_shard_from_jax`), a pipeline stage's block of the stacked
+tree (:func:`stage_params_from_jax`) and an expert's slab
+(:func:`moe_expert_from_jax`).  Used by the tests and
+``chip_smoke.py`` so that both packages start from the same numbers.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from param_tpu_torch.models.moe import expert_shard
+from param_tpu_torch.models.transformer import tp_shard
+from param_tpu_torch.ops.mlp import mlp_tp_shard
 from param_tpu_torch.utils.device import resolve_device
 
 
@@ -101,3 +108,41 @@ def transformer_params_from_jax(np_params, device="cuda"):
         return tuple(map(leaf, v)) if isinstance(v, (tuple, list)) else leaf(v)
 
     return {k: conv(v) for k, v in np_params.items()}
+
+
+def tp_shard_from_jax(np_params, cfg, tp_rank: int, tp: int, device="cuda"):
+    """Tensor-parallel rank ``tp_rank``'s shard of ``tp`` of a transformer
+    block (:func:`~param_tpu_torch.models.transformer.tp_shard`), from the
+    reference's whole block (numpy leaves); ``cfg`` is the port's
+    ``TransformerConfig``."""
+    return tp_shard(transformer_params_from_jax(np_params, device), cfg,
+                    tp_rank, tp)
+
+
+def stage_params_from_jax(np_stacked, stage: int, device="cuda"):
+    """Pipeline stage ``stage``'s block of the reference's stacked tree
+    (``init_stacked_params``; leaves with a leading stage axis)."""
+    return transformer_params_from_jax(
+        {k: (tuple(np.asarray(t)[stage] for t in v)
+             if isinstance(v, (tuple, list)) else np.asarray(v)[stage])
+         for k, v in np_stacked.items()}, device)
+
+
+def moe_params_from_jax(np_params, device="cuda"):
+    """The reference's MoE parameters (``init_moe_params``: ``wr``, ``w1``,
+    ``w2``) as the port's, bit for bit."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in np_params.items()}
+
+
+def moe_expert_from_jax(np_params, e: int, device="cuda"):
+    """Expert ``e``'s rank of the MoE layer: the router and expert e's
+    slabs (:func:`~param_tpu_torch.models.moe.expert_shard`)."""
+    return expert_shard(moe_params_from_jax(np_params, device), e)
+
+
+def mlp_tp_shard_from_jax(np_params, tp_rank: int, tp: int, device="cuda"):
+    """Tensor-parallel rank ``tp_rank``'s MLP of ``tp``
+    (:func:`~param_tpu_torch.ops.mlp.mlp_tp_shard`) from the reference's
+    list of (W, b) numpy pairs."""
+    return mlp_tp_shard(mlp_params_from_jax(np_params, device), tp_rank, tp)

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from param_tpu_torch.models.parallel import all_reduce_mean
 from param_tpu_torch.ops.embedding import embedding_bag
 from param_tpu_torch.ops.mlp import (
     Adagrad, Sgd, init_mlp, mlp_forward, tree_leaves, tree_map,
@@ -209,16 +210,6 @@ class PooledAllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_to_all_tables(g, ctx.pg, ctx.n), None, None
-
-
-def all_reduce_mean(tensors, pg, n: int):
-    """The mean over the ranks of each tensor, by one ``all_reduce`` of
-    their concatenation (``lax.pmean`` of each leaf)."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=pg)
-    flat.div_(n)
-    return [f.view_as(t) for f, t in zip(
-        flat.split([t.numel() for t in tensors]), tensors)]
 
 
 class DlrmModel:

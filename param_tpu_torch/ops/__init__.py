@@ -1,1 +1,2 @@
-"""Operators of the port: embedding bag, sparse row update, MLP."""
+"""Operators of the port: embedding bag, sparse row update, MLP, matmuls,
+attention, ring attention, ring collectives."""

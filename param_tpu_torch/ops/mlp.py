@@ -16,6 +16,9 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from param_tpu_torch.models.parallel import (
+    MeshGroups, all_reduce_mean, copy_to_group, gather_from_group,
+)
 from param_tpu_torch.ops.sparse_update import adagrad_factor
 from param_tpu_torch.utils.device import resolve_device
 
@@ -50,6 +53,65 @@ def mlp_forward(params: Params, x: torch.Tensor) -> torch.Tensor:
         if i < len(params) - 1:
             x = torch.relu(x)
     return x
+
+
+def mlp_tp_shard(params: Params, tp_rank: int, tp: int) -> Params:
+    """Tensor-parallel rank ``tp_rank``'s MLP of ``tp`` (dry-run path 5's
+    sharding): each layer of output width above 1 column-sharded (its
+    column block of W and b), a width-1 layer whole.  New tensors."""
+    out = []
+    for w, b in params:
+        if w.shape[1] > 1:
+            if w.shape[1] % tp:
+                raise ValueError(f"tp {tp} must divide the width {w.shape[1]}")
+            c = w.shape[1] // tp
+            w, b = w[:, tp_rank * c:(tp_rank + 1) * c], b[
+                tp_rank * c:(tp_rank + 1) * c]
+        out.append((w.contiguous().clone(), b.contiguous().clone()))
+    return out
+
+
+def make_tp_mlp_train_step(groups: MeshGroups, lr: float = 0.01):
+    """(shard, x, y) -> (shard', loss): the dp x tp MLP step of dry-run path
+    5 on this rank's :func:`mlp_tp_shard` and its dp shard of the batch.
+
+    A column-sharded layer reads its input through ``copy_to_group`` and
+    its output slice goes to the next layer through ``gather_from_group``;
+    together their backwards make the reduce-scatter that transposes the
+    gather.  The last layer must be the width-1 logit, which stays whole.
+    A layer is taken as sharded when its width is below the next layer's
+    input width (in a tp group of one the two coincide, and so do the
+    results).  The loss is mean((logit - y)^2) over the full batch and the
+    step SGD with the gradients averaged over dp.  Not in place."""
+    tp, dp = groups.tp, groups.dp
+
+    def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
+        for i, (w, b) in enumerate(params):
+            sharded = i + 1 < len(params) and (
+                w.shape[1] < params[i + 1][0].shape[0])
+            if sharded:
+                x = copy_to_group(x, tp)
+            x = torch.matmul(x, w) + b
+            if i < len(params) - 1:
+                x = torch.relu(x)
+            if sharded:
+                x = gather_from_group(x, tp)
+        return x
+
+    def step(params: Params, x: torch.Tensor, y: torch.Tensor):
+        if params[-1][0].shape[1] != 1:
+            raise ValueError("the last layer must be the width-1 logit")
+        ts = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            local = [tuple(ts[2 * i:2 * i + 2]) for i in range(len(params))]
+            loss = torch.mean(torch.square(forward(local, x)[:, 0] - y))
+            grads = torch.autograd.grad(loss, ts)
+        grads = all_reduce_mean(list(grads), dp.pg, dp.size)
+        loss, = all_reduce_mean([loss.detach()], dp.pg, dp.size)
+        new = [p - lr * g for p, g in zip(tree_leaves(params), grads)]
+        return [tuple(new[2 * i:2 * i + 2]) for i in range(len(params))], loss
+
+    return step
 
 
 def tree_leaves(tree):

@@ -72,13 +72,19 @@ _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
                   "tests/torch_comms_worker.py",
                   "param_tpu_torch/models/dlrm_bench.py",
                   "param_tpu_torch/models/ragged.py",
-                  "tests/torch_dlrm_worker.py"]
+                  "tests/torch_dlrm_worker.py",
+                  "param_tpu_torch/models/parallel.py",
+                  "param_tpu_torch/models/moe.py",
+                  "param_tpu_torch/ops/ring_attention.py",
+                  "param_tpu_torch/experiments/parallel_tier.py",
+                  "tests/torch_parallel_worker.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tests", "torch_comms_worker.py"),
-             os.path.join(ROOT, "tests", "torch_dlrm_worker.py")]
+             os.path.join(ROOT, "tests", "torch_dlrm_worker.py"),
+             os.path.join(ROOT, "tests", "torch_parallel_worker.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "param_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -128,6 +134,23 @@ def test_sharded_dlrm_modules_load_without_jax():
     code = ("import sys\n"
             "import param_tpu_torch.models.dlrm_bench\n"
             "import param_tpu_torch.models.ragged, param_tpu_torch.cli.dlrm\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+def test_parallel_tier_modules_load_without_jax():
+    """Importing the multi-device transformer tier (collectives, ring
+    attention, MoE, the steps and their checks) pulls in neither JAX nor
+    the reference package (the spawned ranks of its tests and torchrun's
+    ranks on the cards rely on it)."""
+    code = ("import sys\n"
+            "import param_tpu_torch.experiments.parallel_tier\n"
+            "import param_tpu_torch.models.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'param_tpu')]\n"
             "assert not bad, bad\n")
