@@ -202,8 +202,36 @@ Phases (any failure exits non-zero):
      (512-512-256-1, batch 2048, f32) equal to the plain step (rtol 1e-5).
      With two or more cards, ``experiments.parallel_tier`` under torchrun
      over all of them in f32, each path against the single-card result.
-Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19) use CUDA events after a warm-up and
-report the median of several windows with the spread (min-max): the
+ 22. The comms remainder and the comm-trace replay in a world of one on
+     NCCL, in-process, at the CLIs' default widths: K1 at the
+     comms-compute bench's lookup shape (100000 x 128 f32, 2048 bags x 30)
+     against its plain version and timed (phase 4's way); the quantized
+     all_reduce and reduce at 16 and 8 bits from 8 B to 64 MiB, every
+     element within one quantization step of the quantize -> dequantize
+     round trips of its input (the bf16 cast; two int8 round trips), and a
+     planted fault (phase 2 dequantized with scale 1) must break that;
+     ``cli.comms --bitwidth 16`` and ``8`` (all_reduce, reduce, 8 B to 64
+     MiB, dcheck OK, ``quant_us`` finite); ``cli.comms --backend
+     torchcomms`` (all_reduce, all_gather, reduce_scatter, all_to_all,
+     broadcast, pt2pt, dcheck OK) and ``--backend mock``; ``cli.overlap``
+     (same group, all_reduce + all_gather, 64K to 4M; every time finite,
+     efficiency in [0, 1]); ``cli.comms_compute`` with gemm, emb_lookup,
+     d2h and h2d at the defaults (K1 must launch in emb_lookup's run); an
+     all_reduce, all_to_all sweep recorded with ``--trace-dump`` and
+     ``--trace-dump-et`` and replayed blocking by ``cli.replay`` from each
+     file (the replayed ops, their count and their sizes equal the
+     recorded ones) and by a ``--dry-run``; the replay of a trace with an
+     emb_lookup op at the comms-compute shape (K1 must launch); and
+     ``cli.comms --bitwidth 8 --profile``, whose device-time split must
+     show non-zero comm and quant time.  The launch counts are reset
+     before each of those runs and read after.  With two or more cards,
+     ``experiments.comms_remainder`` under torchrun over all of them: the
+     quantized all_reduce / reduce at 8 and 16 bits against f32 (rtol 0.02
+     / 1e-2 of the largest sum), the overlap bench (same group; split-pgs
+     at an even count of 4+), comms-compute gemm, and a sweep recorded and
+     replayed by that world.
+Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22) use CUDA events after a
+warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
 issued eagerly from Python), the plain version issued eagerly.  Bounds: bytes over
@@ -910,6 +938,293 @@ def parallel_world(cards: int, smi: str) -> dict:
     return res
 
 
+def run_cli(mod, argv):
+    """A CLI's ``main(argv)`` in this process -> (rc, stdout, wall s)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv + ["--log", "WARNING"])
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+_COMMS_ROW = re.compile(r"^\s+\d+[KMG]?\s+\d+\s")
+
+
+def comms_rows_ok(out: str, tables: int) -> list:
+    """The COMMS-RES rows of ``out``, or [] unless there are ``tables``
+    tables and every row's numbers are finite and its dcheck OK."""
+    rows = [ln for ln in out.splitlines() if _COMMS_ROW.match(ln)]
+    nums = [float(v) for ln in rows for v in ln.split()[1:]
+            if re.fullmatch(r"-?[\d.]+", v)]
+    if out.count("COMMS-RES:") != tables or not rows or any(
+            not ln.endswith("  OK") for ln in rows) or not all(
+            math.isfinite(v) for v in nums):
+        return []
+    return rows
+
+
+def comms_remainder(smi: str) -> dict:
+    """Phase 22: the comms remainder and the comm-trace replay in a world
+    of one on NCCL, in-process, at the CLIs' own default widths (see the
+    module docstring).  Returns the records, with K1's launches in
+    ``launches``."""
+    import tempfile
+
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.backend import CollectiveArgs, DistBackend
+    from param_tpu_torch.cli import comms, comms_compute, overlap, replay
+    from param_tpu_torch.comms import quantization
+
+    backend = DistBackend("cuda")
+    backend.initialize()  # phase 21's world was shut down: a new one
+    dev = backend.device
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_22_")
+    rec = {"launches": {k: 0 for k in kernels.launch_counts}}
+
+    def count(fn):
+        kernels.reset_launch_counts()
+        got = fn()
+        for k, v in kernels.launch_counts.items():
+            rec["launches"][k] += v
+        return got, {k: v for k, v in kernels.launch_counts.items() if v}
+
+    # -- quantized collectives against the round trips of their input
+    def rt8(v):
+        a = v.abs().max()
+        s = torch.where(a > 0, a / 127.0, torch.ones_like(a))
+        return torch.clamp(torch.round(v / s), -127, 127) * s
+
+    def tolerance(want, bw):
+        """One quantization step: a bf16 step of each element, or the
+        int8 scale of the whole result."""
+        return (want.abs() * 2.0 ** -7 if bw == 16
+                else want.abs().max() / 127.0)
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    quant = {}
+    for elems in (2, 1025, 1 << 18, 16 << 20):  # 8 B to 64 MiB of f32
+        x = torch.randn(elems, generator=gen, device=dev) * 3
+        for bw in (16, 8):
+            want = x.to(torch.bfloat16).float() if bw == 16 else rt8(rt8(x))
+            tol = tolerance(want, bw)
+            for coll in ("all_reduce", "reduce"):
+                got = backend.collective_fn[coll](CollectiveArgs(
+                    in_tensor=x, bitwidth=bw))
+                err = (got - want).abs()
+                if got.shape != x.shape or not torch.isfinite(got).all() or \
+                        not bool((err <= tol).all()):
+                    fail(f"phase 22 {coll} bitwidth {bw} at {elems * 4} B: "
+                         f"max abs err {err.max().item():.3e} beyond one "
+                         f"quantization step")
+                quant[f"{coll} bitwidth {bw} {elems * 4} B"] = dict(
+                    max_abs_err=err.max().item(),
+                    tol=tol.max().item())
+    real = quantization.dequantize
+    quantization.dequantize = lambda q, s, dtype=torch.float32: real(
+        q, torch.ones_like(s), dtype)
+    try:
+        bad = backend.all_reduce(CollectiveArgs(in_tensor=x, bitwidth=8))
+    finally:
+        quantization.dequantize = real
+    fault_err = (bad - want).abs().max().item()
+    if bool(((bad - want).abs() <= tol).all()):
+        fail("phase 22: a planted fault (phase 2 dequantized with scale 1) "
+             "passed the comparison")
+    say(f"phase 22 quantized all_reduce / reduce (world 1, NCCL) against "
+        f"the quantize -> dequantize round trips of their input, 8 B to 64 "
+        f"MiB: every element within one step (largest errors "
+        f"{max(v['max_abs_err'] for v in quant.values()):.3e}); planted "
+        f"fault (phase 2 dequantized with scale 1) caught, max abs err "
+        f"{fault_err:.3e} | {smi}")
+    rec["quantized"] = dict(rows=quant, fault_max_abs_err=fault_err)
+
+    # -- cli.comms --bitwidth 16 / 8: rows, dcheck, quant_us
+    for bw in (16, 8):
+        js = os.path.join(tmp, f"bitwidth{bw}.jsonl")
+        rc, out, wall = run_cli(comms, [
+            "--collective", "all_reduce,reduce", "--b", "8", "--e", "64M",
+            "--c", "1", "--bitwidth", str(bw), "--output-json", js])
+        metrics = [json.loads(ln) for ln in open(js)] if rc == 0 else []
+        quant_us = [m["quant"]["quant_us"] for m in metrics]
+        if rc != 0 or not comms_rows_ok(out, 2) or not quant_us or not all(
+                math.isfinite(q) and q > 0 for q in quant_us):
+            fail(f"phase 22 cli.comms --bitwidth {bw}: rc {rc}, rows not OK "
+                 f"or quant_us not finite ({quant_us}):\n{out}")
+        at64 = {m["commsOp"]: (m["p50_us"], m["quant"]["quant_us"],
+                               m["bus_bw_gbs"])
+                for m in metrics if m["input_size_bytes"] == 64 << 20}
+        say(f"phase 22 cli.comms --bitwidth {bw} | {wall:.1f} s | at 64 MiB "
+            f"(p50 us, quant_us, busBW): {at64} | {smi}\n{out.rstrip()}")
+        rec[f"cli_bitwidth{bw}"] = dict(wall_s=wall, at_64MiB=at64,
+                                        output=out)
+
+    # -- --backend torchcomms and mock
+    rc, out, wall = run_cli(comms, [
+        "--backend", "torchcomms", "--collective",
+        "all_reduce,all_gather,reduce_scatter,all_to_all,broadcast,pt2pt",
+        "--c", "1"])
+    if rc != 0 or not comms_rows_ok(out, 6) or "(torchcomms, nccl)" not in out:
+        fail(f"phase 22 cli.comms --backend torchcomms: rc {rc}:\n{out}")
+    say(f"phase 22 cli.comms --backend torchcomms | {wall:.1f} s | {smi}\n"
+        f"{out.rstrip()}")
+    rec["torchcomms"] = dict(wall_s=wall, output=out)
+    rc, out, wall = run_cli(comms, ["--backend", "mock", "--collective",
+                                    "all_reduce,all_gather", "--e", "1M",
+                                    "--c", "1"])
+    if rc != 0 or not comms_rows_ok(out, 2) or "(mock, none)" not in out:
+        fail(f"phase 22 cli.comms --backend mock: rc {rc}:\n{out}")
+    say(f"phase 22 cli.comms --backend mock: ran ({wall:.1f} s)")
+
+    # -- cli.overlap, same group
+    rc, out, wall = run_cli(overlap, ["--collective", "all_reduce",
+                                      "--collective-pair", "all_gather"])
+    lines = [ln for ln in out.splitlines() if ln.startswith("OVERLAP-RES")]
+    parsed = []
+    for ln in lines:
+        times = [float(v) for v in re.findall(r"=([\d.]+)us", ln)]
+        eff = float(re.search(r"eff=([\d.]+)%", ln).group(1)) / 100
+        parsed.append(dict(size=int(re.search(r"size=(\d+)B", ln).group(1)),
+                           times_us=times, eff=eff))
+    if rc != 0 or len(lines) != 4 or not all(
+            len(p["times_us"]) == 3 and all(math.isfinite(t) and t > 0
+                                            for t in p["times_us"])
+            and 0.0 <= p["eff"] <= 1.0 for p in parsed):
+        fail(f"phase 22 cli.overlap: rc {rc}, rows missing or out of range:"
+             f"\n{out}")
+    say(f"phase 22 cli.overlap (same group, all_reduce + all_gather, 64K to "
+        f"4M) | {wall:.1f} s | {smi}\n{out.rstrip()}")
+    rec["overlap"] = dict(wall_s=wall, rows=parsed)
+
+    # -- cli.comms_compute, each kernel at the defaults
+    rec["comms_compute"] = {}
+    for kernel in ("gemm", "emb_lookup", "d2h", "h2d"):
+        (rc, out, wall), launched = count(lambda: run_cli(
+            comms_compute, ["--kernel", kernel]))
+        m = re.search(r"comm=([\d.]+)us compute=([\d.]+)us both=([\d.]+)us "
+                      r"eff=([\d.]+)%", out)
+        vals = [float(v) for v in m.groups()] if m else []
+        if rc != 0 or not vals or not all(math.isfinite(v) for v in vals) \
+                or (kernel == "emb_lookup"
+                    and launched.get("emb_gather", 0) <= 0):
+            fail(f"phase 22 cli.comms_compute --kernel {kernel}: rc {rc}, "
+                 f"launches {launched}:\n{out}")
+        say(f"phase 22 cli.comms_compute --kernel {kernel} | {wall:.1f} s | "
+            f"launches {launched} | {smi}\n{out.rstrip()}")
+        rec["comms_compute"][kernel] = dict(
+            t_comm_us=vals[0], t_compute_us=vals[1], t_both_us=vals[2],
+            eff=vals[3] / 100, launches=launched, output=out)
+
+    # -- record a sweep, replay it from both files
+    basic, et = os.path.join(tmp, "comms.json"), os.path.join(tmp, "et.json")
+    rc, out, _ = run_cli(comms, ["--collective", "all_reduce,all_to_all",
+                                 "--b", "8", "--e", "64M", "--f", "8",
+                                 "--c", "1", "--trace-dump", basic,
+                                 "--trace-dump-et", et])
+    if rc != 0 or not comms_rows_ok(out, 2):
+        fail(f"phase 22 cli.comms --trace-dump: rc {rc}:\n{out}")
+    with open(basic) as f:
+        recorded = [(e["comms"], e["in_msg_size"] * 4) for e in json.load(f)]
+    rec["replay"] = {}
+    for path, ttype in ((basic, "basic"), (et, "pytorch_et")):
+        details = os.path.join(tmp, f"details_{ttype}.json")
+        rc, out, wall = run_cli(replay, ["--trace-path", path,
+                                         "--trace-type", ttype, "--blocking",
+                                         "--output-path", details])
+        with open(details) as f:
+            replayed = [(d["comms"], d["size_bytes"]) for d in json.load(f)]
+        rc2, dry, _ = run_cli(replay, ["--trace-path", path, "--trace-type",
+                                       ttype, "--dry-run"])
+        counts = {k: v["count"] for k, v in json.loads(dry)["dry_run"]
+                  .items() if k != "init"}
+        want_counts = {c: sum(1 for r in recorded if r[0] == c)
+                       for c in {r[0] for r in recorded}}
+        if rc != 0 or rc2 != 0 or replayed != recorded or \
+                counts != want_counts:
+            fail(f"phase 22 cli.replay {ttype}: rc {rc} / {rc2}, "
+                 f"{len(replayed)} ops replayed against {len(recorded)} "
+                 f"recorded, dry-run counts {counts} against {want_counts}")
+        say(f"phase 22 cli.comms --trace-dump{'-et' if ttype != 'basic' else ''}"
+            f" -> cli.replay --trace-type {ttype} --blocking: {len(replayed)} "
+            f"ops, each the recorded collective and size; --dry-run counts "
+            f"{counts} | {wall:.1f} s | {smi}")
+        rec["replay"][ttype] = dict(ops=len(replayed), wall_s=wall,
+                                    counts=counts)
+
+    # -- a trace with an emb_lookup compute op at the comms-compute shape
+    trace = [{"compute": "emb_lookup", "emb_dim": 128, "num_embs": 100_000,
+              "batch_size": 2048, "bag_size": 30},
+             {"comms": "all_reduce", "in_msg_size": 1 << 20,
+              "out_msg_size": 1 << 20, "dtype": "float32"}]
+    path = os.path.join(tmp, "compute.json")
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    (rc, out, wall), launched = count(lambda: run_cli(replay, [
+        "--trace-path", path, "--blocking", "--num-replays", "3"]))
+    res = json.loads(out) if rc == 0 else {}
+    if rc != 0 or launched.get("emb_gather", 0) <= 0 or \
+            res["collectives"].get("compute:emb_lookup", {}).get("count") != 3:
+        fail(f"phase 22 cli.replay with an emb_lookup op: rc {rc}, launches "
+             f"{launched}:\n{out}")
+    say(f"phase 22 cli.replay of a trace with an emb_lookup op (100000 x "
+        f"128, 2048 bags x 30): launches {launched}; emb_lookup p50 "
+        f"{res['collectives']['compute:emb_lookup']['p50_us']:.1f} us "
+        f"(blocking) | {smi}")
+    rec["replay_compute"] = dict(launches=launched, report=res)
+
+    # -- the profiled quantized sweep's device-time split
+    prof = os.path.join(tmp, "profile")
+    rc, out, wall = run_cli(comms, ["--collective", "all_reduce", "--b", "1M",
+                                    "--e", "16M", "--f", "4", "--n", "2",
+                                    "--w", "1", "--bitwidth", "8",
+                                    "--profile", prof])
+    split = {k: (float(us), int(n)) for k, us, n in re.findall(
+        r"^\s+(comm|quant|dequant|other):\s+([\d.]+) us .*n=(\d+)$", out,
+        re.M)}
+    if rc != 0 or len(split) != 4 or split["comm"][0] <= 0 or \
+            split["quant"][0] <= 0:
+        fail(f"phase 22 --profile --bitwidth 8: rc {rc}, split {split}:\n"
+             f"{out[-6000:]}")
+    say(f"phase 22 cli.comms --bitwidth 8 --profile: device-time split (us, "
+        f"kernels) {split} | {smi}")
+    rec["profile_split"] = split
+    backend.shutdown()
+    rec["launches"] = {k: v for k, v in rec["launches"].items() if v}
+    return rec
+
+
+def comms_remainder_world(cards: int, smi: str) -> dict:
+    """``experiments.comms_remainder`` under torchrun, one rank per card on
+    NCCL: the quantized all_reduce / reduce at 8 and 16 bits against f32,
+    the overlap bench (same group; split-pgs at 4+ cards), comms-compute
+    gemm, and a sweep recorded and replayed by the world."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(cards), "-m",
+           "param_tpu_torch.experiments.comms_remainder"]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        out = p.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        fail(f"phase 22 torchrun world of {cards} timed out")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if p.returncode != 0 or not lines or not json.loads(lines[-1])["ok"]:
+        fail(f"phase 22 torchrun world of {cards}: rc {p.returncode}:\n"
+             f"{out[-6000:]}")
+    res = json.loads(lines[-1])
+    say(f"phase 22 torchrun world of {cards} experiments.comms_remainder | "
+        f"{wall:.1f} s | {smi}\n{json.dumps(res)}")
+    res["wall_s"] = wall
+    return res
+
+
 def main(out_path=None) -> int:
     try:
         import torch
@@ -1016,7 +1331,7 @@ def main(out_path=None) -> int:
     # ---------------------------------------------------------------- 2 + 4
     k1 = {}
 
-    def k1_case(name, table, idx_list, rtol, iters):
+    def k1_case(name, table, idx_list, rtol, iters, phase="2/4"):
         i0 = idx_list[0]
         got = emb_gather_cuda(table, i0).float()
         want = emb_gather_plain(table, i0).float()
@@ -1043,7 +1358,7 @@ def main(out_path=None) -> int:
                    bound_ms=b_ms, bound_by=b_by, unique_rows=uniq,
                    bytes=nbytes, gbps=nbytes / rec["ms"] / 1e6)
         k1[name] = rec
-        say(f"phase 2/4 K1 {name}: {rec['shape']} max_abs_err {err:.3e} "
+        say(f"phase {phase} K1 {name}: {rec['shape']} max_abs_err {err:.3e} "
             f"(tol {tol:.3e}) | {timing_text(rec, 'F.embedding_bag')} "
             f"({rec['gbps']:.0f} GB/s) bound {b_ms:.4f} ms ({b_by}) | {smi}")
 
@@ -2478,19 +2793,9 @@ def main(out_path=None) -> int:
     from param_tpu_torch.cli import comms as comms_cli
 
     def comms_run(argv, n_tables):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = comms_cli.main(argv + ["--log", "WARNING"])
-        wall = time.perf_counter() - t0
-        out = buf.getvalue()
-        rows = [ln for ln in out.splitlines()
-                if re.match(r"\s+\d+[KMG]?\s+\d+\s", ln)]
-        nums = [float(v) for ln in rows for v in ln.split()[1:]
-                if re.fullmatch(r"-?[\d.]+", v)]
-        if rc != 0 or out.count("COMMS-RES:") != n_tables or not rows or \
-                any(not ln.endswith("  OK") for ln in rows) or \
-                not all(math.isfinite(v) for v in nums):
+        rc, out, wall = run_cli(comms_cli, argv)
+        rows = comms_rows_ok(out, n_tables)
+        if rc != 0 or not rows:
             fail(f"phase 18 cli.comms {' '.join(argv)}: rc {rc}, dcheck not "
                  f"OK on every row or a table missing:\n{out}")
         say(f"phase 18 cli.comms {' '.join(argv)} | {wall:.1f} s | {smi}\n"
@@ -2674,6 +2979,26 @@ def main(out_path=None) -> int:
     result["phases"]["parallel_tier"] = par21
     main21 = [par21[key] for key in ("ring_world1", "tp_world1", "pp_world1")]
 
+    # ---------------------------------------------------------------- 22
+    # K1 at the comms-compute bench's and the replay's lookup shape
+    RC, DC, BC, NC = 100_000, 128, 2048, 30
+    ctab = torch.rand((RC, DC), generator=gen, device=dev)
+    cbase = torch.randint(0, RC, (BC, NC), generator=gen, device=dev,
+                          dtype=torch.int32)
+    k1_case("comms_compute_f32", ctab,
+            [((cbase + s) % RC).to(torch.int32) for s in range(8)], 1e-5,
+            100, phase="22")
+    del ctab, cbase
+    rem22 = comms_remainder(smi)
+    if cards >= 2:
+        rem22["torchrun"] = comms_remainder_world(cards, smi)
+    else:
+        say("phase 22: one card: the quantized collectives, the overlap and "
+            "comms-compute benches and the replay ran in a world of one; "
+            "their traffic between cards is unchecked")
+    result["phases"]["comms_remainder"] = rem22
+    main22 = rem22["launches"]
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -2793,6 +3118,9 @@ def main(out_path=None) -> int:
               "(K7), wgmma path", src + "flash_bwd.cu",
               "param_tpu/ops/attention.py:809, :841", k7_par_launches,
               k7["llama2_causal"]),
+        entry("emb_gather, comms-compute bench and trace replay (K1)",
+              src + "emb_gather.cu", "param_tpu/ops/embedding.py:185",
+              main22.get("emb_gather", 0), k1["comms_compute_f32"]),
         entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
               "param_tpu/ops/embedding.py:185", main19["emb_gather"],
               k1["headline_f32"]),

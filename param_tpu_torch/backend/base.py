@@ -4,6 +4,8 @@
 The harness never calls ``torch.distributed`` directly: every collective
 goes through ``backend.collective_fn[name]``, as in the reference (and in
 PARAM's ``backendFunctions``, ``train/comms/pt/pytorch_backend_utils.py``).
+That table is also where ``--trace-dump`` records the calls
+(:meth:`Backend.start_trace_recording`).
 
 The reference is single-controller: a group is a mesh of devices and a
 tensor is a global array sharded over it.  The port runs one process per
@@ -15,8 +17,11 @@ process group over a list of global ranks, and every tensor in a
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Type
+
+import numpy as np
 
 log = logging.getLogger(__name__)
 
@@ -91,12 +96,11 @@ class CollectiveArgs:
     src_ranks: List[int] = field(default_factory=list)
     dst_ranks: List[int] = field(default_factory=list)
     window: int = 100
-    # quantized-communication bitwidth (32 = off; the only value the port
-    # takes until the quantization tier is ported)
+    # quantized-communication bitwidth (32 = off)
     bitwidth: int = 32
     # the reducing collectives and broadcast work in ``in_tensor`` itself,
     # as PARAM and nccl-tests time them; False: on a copy of it, leaving
-    # the input as it was
+    # the input as it was (the quantized paths always leave it as it was)
     in_place: bool = False
     # opaque slot benchmarks use to stash per-op state
     misc: Dict[str, Any] = field(default_factory=dict)
@@ -113,6 +117,100 @@ class Backend:
 
     def __init__(self):
         self.collective_fn: Dict[str, Callable[[CollectiveArgs], Any]] = {}
+        self.compute_fn: Dict[str, Callable[..., Any]] = {}
+        self._trace_recorder: Optional[List[dict]] = None
+        self._unwrapped_collective_fn: Optional[Dict[str, Callable]] = None
+
+    # -- comm trace recording ---------------------------------------------
+    @staticmethod
+    def _per_rank_msg_sizes(name: str, per: int, n: int, args) -> tuple:
+        """(in_msg_size, out_msg_size) in per-rank element counts, the
+        basic schema's convention (PARAM's replay allocates ``in_msg_size``
+        elements a rank): ``per`` is this rank's input element count."""
+        if name == "incast":
+            # the root receives one buffer per actual source
+            n_src = len(args.src_ranks) if args.src_ranks else n - 1
+            out = per * n_src
+        elif name in ("all_gather", "all_gather_base", "gather"):
+            out = per * n
+        elif name == "all_gather_v":
+            out = (int(np.sum(args.in_split)) if args.in_split is not None
+                   else per * n)
+        elif name in ("reduce_scatter", "reduce_scatter_base", "scatter"):
+            out = max(1, per // n)
+        elif name == "reduce_scatter_v":
+            splits = (args.out_split if args.out_split is not None
+                      else args.in_split)
+            out = (int(np.max(splits)) if splits is not None
+                   else max(1, per // n))
+        else:
+            # all_reduce, reduce, broadcast, multicast, all_to_all(v), pt2pt
+            out = per
+        return per, out
+
+    def is_recording(self) -> bool:
+        return self._trace_recorder is not None
+
+    def start_trace_recording(self) -> None:
+        """Record every collective called through ``collective_fn`` as a
+        basic-schema trace element (``--trace-dump``).  The table is
+        wrapped once; a second start only empties the record, and
+        :meth:`stop_trace_recording` restores the table as it was."""
+        if self._trace_recorder is not None:
+            self._trace_recorder = []
+            return
+        self._trace_recorder = []
+        self._unwrapped_collective_fn = dict(self.collective_fn)
+        for name, fn in list(self.collective_fn.items()):
+
+            def wrapped(args: CollectiveArgs, _fn=fn, _name=name):
+                if self._trace_recorder is not None and _name not in (
+                        "barrier", "noop"):
+                    self._trace_recorder.append(self._trace_element(_name,
+                                                                    args))
+                return _fn(args)
+
+            self.collective_fn[name] = wrapped
+
+    def _trace_element(self, name: str, args: CollectiveArgs) -> dict:
+        x = args.in_tensor
+        per = int(np.prod(x.shape)) if hasattr(x, "shape") else 0
+        g = args.group or self.get_default_group()
+        in_elems, out_elems = self._per_rank_msg_sizes(name, per, g.size,
+                                                       args)
+        rec = {
+            "comms": name,
+            "in_msg_size": in_elems,
+            "out_msg_size": out_elems,
+            "dtype": str(getattr(x, "dtype", "float32")).removeprefix(
+                "torch."),
+            "world_size": g.size,
+            "startTime_ns": time.monotonic_ns(),
+        }
+        if args.group is not None and args.group.pg_id:
+            rec["pg_id"] = args.group.pg_id
+            rec["global_ranks"] = list(args.group.ranks)
+        if args.in_split is not None:
+            split = np.asarray(args.in_split)
+            rec["in_split"] = (split.tolist() if split.ndim == 1
+                               else split[0].tolist())
+            rec["out_split"] = rec["in_split"]
+        if name == "pt2pt":
+            rec["src_rank"] = args.src_ranks[0] if args.src_ranks else 0
+            rec["dst_rank"] = args.dst_ranks[0] if args.dst_ranks else 0
+            rec["use_batch"] = False
+        return rec
+
+    def stop_trace_recording(self) -> List[dict]:
+        """End the recording; returns its elements and restores the
+        dispatch table in place (callers may hold the dict)."""
+        trace = self._trace_recorder or []
+        self._trace_recorder = None
+        if self._unwrapped_collective_fn is not None:
+            self.collective_fn.clear()
+            self.collective_fn.update(self._unwrapped_collective_fn)
+            self._unwrapped_collective_fn = None
+        return trace
 
     # -- init / topology ---------------------------------------------------
     def initialize(self) -> None:
@@ -138,6 +236,9 @@ class Backend:
 
     def new_group(self, ranks: Sequence[int], pg_id: int = 0) -> CommGroup:
         raise NotImplementedError
+
+    def shutdown(self) -> None:
+        """Release what :meth:`initialize` set up."""
 
     # -- completion --------------------------------------------------------
     def complete_ops(self) -> None:
@@ -175,3 +276,7 @@ def get_backend_cls(name: str) -> Type[Backend]:
     except KeyError:
         raise ValueError(f"unknown backend {name!r}; known: "
                          f"{sorted(_BACKENDS)}") from None
+
+
+def list_backends() -> List[str]:
+    return sorted(_BACKENDS)

@@ -21,7 +21,10 @@ device r of its mesh):
   ``window_send``) receive into buffers allocated once per shape, dtype and
   pairs, as PARAM posts into preallocated buffers: a result stays valid
   until the next call with the same shape, dtype and pairs;
-- ``avg`` is the sum divided by the group size, ``prod`` the product.
+- ``avg`` is the sum divided by the group size, ``prod`` the product;
+- a sum all-reduce or reduce at ``bitwidth`` 16 or 8 is quantized
+  (``comms/quantization.py``; the input is left as it was), the other
+  reductions ignore the bitwidth.
 
 The reducing collectives and ``broadcast`` work on a copy of the input, or
 with ``CollectiveArgs.in_place`` in the input itself: the benchmark times
@@ -82,6 +85,7 @@ class DistBackend(Backend):
         self._owns_pg = False
         self._recv_bufs = {}  # pt2pt receive buffers of the last shape
         self._init_collective_fns()
+        self._init_compute_fns()
 
     # ------------------------------------------------------------------ init
     def initialize(self) -> None:
@@ -211,10 +215,6 @@ class DistBackend(Backend):
 
     def _setup(self, args: CollectiveArgs):
         """(group, its process group, this rank's group rank, input)."""
-        if args.bitwidth != 32:
-            raise NotImplementedError(
-                "quantized collectives (bitwidth != 32) come with "
-                "comms/quantization.py, ROADMAP item 10")
         g = args.group or self._default_group
         if g.pg is None:
             raise ValueError(f"rank {self.rank} is not in group {g.ranks}")
@@ -236,14 +236,37 @@ class DistBackend(Backend):
         return t
 
     def all_reduce(self, args: CollectiveArgs):
+        """All-reduce; a sum at ``bitwidth`` 16 or 8 is quantized
+        (:meth:`all_reduce_quant`), the other reductions ignore it."""
+        if args.bitwidth != 32 and args.red_op == "sum":
+            return self.all_reduce_quant(args)
         g, _, _, x = self._setup(args)
         return self._reduce_in_place(self._buffer(args, x), args.red_op, g)
 
+    def all_reduce_quant(self, args: CollectiveArgs):
+        """Quantized sum all-reduce: bf16 at bitwidth 16, the two-phase
+        int8 algorithm at 8 (``comms/quantization.py``)."""
+        from param_tpu_torch.comms.quantization import quantized_all_reduce
+
+        g, _, _, x = self._setup(args)
+        return quantized_all_reduce(x, g, args.bitwidth)
+
+    def quant_overhead(self, args: CollectiveArgs):
+        """Quantize and dequantize without communicating: the cost the
+        bench reports as ``quant_us``."""
+        from param_tpu_torch.comms.quantization import dequantize, quantize
+
+        q, s = quantize(args.in_tensor, args.bitwidth)
+        return dequantize(q, s, args.in_tensor.dtype)
+
     def reduce(self, args: CollectiveArgs):
         """Rooted reduce: the root (``dst_rank``) gets the reduction, the
-        other ranks zeros."""
+        other ranks zeros.  A sum at ``bitwidth`` 16 or 8 runs the
+        quantized hop chain (:meth:`_reduce_quant`)."""
         g, pg, me, x = self._setup(args)
         root = args.dst_rank
+        if args.bitwidth != 32 and args.red_op == "sum":
+            return self._reduce_quant(args, g, root)
         op = "sum" if args.red_op == "avg" else args.red_op
         if op not in _OPS:
             raise ValueError(f"unsupported reduction {args.red_op!r}")
@@ -252,6 +275,13 @@ class DistBackend(Backend):
         if me != root:
             return out.zero_()
         return out.div_(g.size) if args.red_op == "avg" else out
+
+    def _reduce_quant(self, args: CollectiveArgs, g: CommGroup, root: int):
+        """Quantized rooted sum: n - 1 single-edge hops into the root, each
+        carrying the quantized running partial."""
+        from param_tpu_torch.comms.quantization import quantized_ring_reduce
+
+        return quantized_ring_reduce(args.in_tensor, g, args.bitwidth, root)
 
     def all_gather(self, args: CollectiveArgs):
         g, pg, _, x = self._setup(args)
@@ -510,6 +540,27 @@ class DistBackend(Backend):
     def barrier(self, group: Optional[CommGroup] = None) -> None:
         g = group or self._default_group
         dist.barrier(group=g.pg)
+
+    # ---------------------------------------------------------------- compute
+    def _init_compute_fns(self):
+        """The compute ops a comm trace embeds (PARAM's compute kernels of
+        the comms-compute bench): gemm is cuBLAS, as the reference's is a
+        plain XLA dot."""
+        from param_tpu_torch.ops.matmul import matmul
+
+        self.compute_fn = {
+            "gemm": matmul,
+            "add": torch.add,
+            "sub": torch.sub,
+            "copy": torch.clone,
+        }
+
+    def emb_lookup(self, table, indices, offsets=None):
+        """Sum-pooled lookup through ``ops.embedding.embedding_bag``: K1 on
+        a CUDA table."""
+        from param_tpu_torch.ops.embedding import embedding_bag
+
+        return embedding_bag(table, indices, offsets)
 
 
 register_backend("dist", DistBackend)

@@ -15,9 +15,16 @@ a leading ``--`` is dropped here:
     torchrun --nproc-per-node 2 -m param_tpu_torch.cli.comms -- --device cpu \\
         --collective all_reduce,all_gather --b 1K --e 64K --c 1
 
-Not ported (they raise NotImplementedError naming their ROADMAP item):
-``--bitwidth`` other than 32, ``--trace-dump`` / ``--trace-dump-et``,
-``--backend`` other than ``dist``, and the reference's single-controller
+``--bitwidth 16|8`` quantizes the sum all_reduce / reduce (and casts the
+other quantizable collectives' payload); ``--backend`` takes ``dist``,
+``torchcomms`` (the communicator facade over it) or ``mock`` (no-op
+collectives on CPU tensors, no process group); ``--trace-dump PATH``
+records every collective call as a basic-schema comm trace and
+``--trace-dump-et PATH`` exports it as a PyTorch ET (rank 0 writes them);
+with ``--profile DIR`` and a bitwidth, rank 0 prints the comm / quant /
+dequant / other split of the card's time.
+
+Not ported (NotImplementedError): the reference's single-controller
 ``--num-devices``, ``--coordinator``, ``--num-processes`` and
 ``--process-id`` (torchrun sets the world).
 """
@@ -62,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pt2pt", default=None, choices=[None, "one2one", "pairwise"])
     ap.add_argument("--window", type=int, default=100, help="pt2pt BW window size")
     ap.add_argument("--bitwidth", type=int, default=32,
-                    help="quantized comm bitwidth (not ported: 32 only)")
+                    help="quantized comm bitwidth (16/8)")
     ap.add_argument("--multi-comms", type=int, default=1,
                     help="round-robin ranks into N groups")
     ap.add_argument("--in-split", default=None,
@@ -77,7 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--process-id", type=int, default=None,
                     help="not ported: torchrun sets the world")
     ap.add_argument("--backend", default="dist",
-                    help="registered backend name (dist: torch.distributed)")
+                    choices=["dist", "torchcomms", "mock"],
+                    help="dist: torch.distributed; torchcomms: every "
+                         "collective through the communicator facade "
+                         "(quantized all_reduce / reduce through dist); "
+                         "mock: no-op collectives, no process group")
     ap.add_argument("--num-devices", type=int, default=0,
                     help="not ported: torchrun sets the world")
     ap.add_argument("--device", default="cuda",
@@ -90,9 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="start the profiler only once the sweep reaches "
                          "this message size")
     ap.add_argument("--trace-dump", default=None, metavar="PATH",
-                    help="not ported: record the collectives as a comm trace")
+                    help="record every collective as a basic-schema comm "
+                         "trace (replayable with cli.replay)")
     ap.add_argument("--trace-dump-et", default=None, metavar="PATH",
-                    help="not ported: export the trace as PyTorch-ET")
+                    help="also export the recorded trace in the PyTorch-ET "
+                         "(Chakra host ET) schema")
     ap.add_argument("--output-json", default=None, metavar="PATH",
                     help="append metric records as JSON lines")
     ap.add_argument("--n-per-iter", type=int, default=1,
@@ -103,18 +116,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(ns) -> None:
-    if ns.bitwidth != 32:
-        raise NotImplementedError(
-            "--bitwidth other than 32: quantized collectives come with "
-            "comms/quantization.py, ROADMAP item 10")
-    if ns.trace_dump or ns.trace_dump_et:
-        raise NotImplementedError(
-            "--trace-dump / --trace-dump-et: the comm trace comes with the "
-            "trace tier, ROADMAP item 11")
-    if ns.backend != "dist":
-        raise NotImplementedError(
-            f"--backend {ns.backend!r}: the port has the torch.distributed "
-            f"backend only; mock_backend and torchcomms are ROADMAP item 10")
     if ns.num_devices or ns.coordinator or ns.num_processes is not None \
             or ns.process_id is not None:
         raise NotImplementedError(
@@ -150,33 +151,84 @@ def main(argv=None) -> int:
     params = CommsParams.from_args(ns)
     params.num_coll_per_iter = ns.n_per_iter
 
-    backend = get_backend_cls(ns.backend)(ns.device)
+    cls = get_backend_cls(ns.backend)
+    backend = cls() if ns.backend == "mock" else cls(ns.device)
     backend.initialize()
     try:
         bench = CollBench(backend, params, reps=ns.reps)
         if ns.output_json:
             perf_log.register_perf_logger(
                 "comms-file", perf_log.FileJsonLogger(ns.output_json))
-        if backend.get_global_rank() == 0:
-            dev = backend.get_device()
+        rank0 = backend.get_global_rank() == 0
+        dev = backend.get_device()
+        if rank0:
+            wire = ("none" if ns.backend == "mock" else
+                    "nccl" if dev.type == "cuda" else "gloo")
             print(f"comms: world {backend.get_world_size()} on {dev} "
-                  f"({'nccl' if dev.type == 'cuda' else 'gloo'}), "
-                  f"mode {params.mode.value}")
+                  f"({ns.backend}, {wire}), mode {params.mode.value}"
+                  + (f", bitwidth {params.bitwidth}"
+                     if params.bitwidth != 32 else ""))
+        if ns.trace_dump or ns.trace_dump_et:
+            backend.start_trace_recording()
         if ns.size_start_profiler and ns.profile:
             bench.profiler = SizeTriggeredProfiler(
-                ns.profile, parse_size(ns.size_start_profiler),
-                backend.get_device())
+                ns.profile, parse_size(ns.size_start_profiler), dev)
             try:
                 backend.benchmark_comms(bench.run)
             finally:
                 bench.profiler.stop()
         else:
-            with profile_to(ns.profile, backend.get_device()):
+            with profile_to(ns.profile, dev):
                 backend.benchmark_comms(bench.run)
+        if ns.trace_dump or ns.trace_dump_et:
+            _dump_trace(backend.stop_trace_recording(), backend, ns, rank0)
+        if ns.profile and ns.bitwidth != 32 and rank0:
+            _print_quant_split(ns.profile, dev)
     finally:
         perf_log.unregister_perf_logger("comms-file")
         backend.shutdown()
     return 0
+
+
+def _dump_trace(trace, backend, ns, rank0: bool) -> None:
+    """Rank 0 writes the recorded trace (its own calls; every rank of a
+    sweep makes the same ones)."""
+    if not rank0:
+        return
+    if ns.trace_dump:
+        from param_tpu_torch.trace.comms_trace import dump_trace_file
+
+        dump_trace_file(trace, ns.trace_dump)
+        print(f"recorded {len(trace)} comm ops -> {ns.trace_dump}")
+    if ns.trace_dump_et:
+        from param_tpu_torch.trace.export_pytorch_et import (
+            dump_pytorch_et_file,
+        )
+
+        dump_pytorch_et_file(trace, backend.get_world_size(),
+                             ns.trace_dump_et)
+        print(f"exported {len(trace)} comm ops as PyTorch-ET -> "
+              f"{ns.trace_dump_et}")
+
+
+def _print_quant_split(profile_dir: str, dev) -> None:
+    """The card's time in the profiled sweep: comm (NCCL kernels), quant,
+    dequant (kernels under those record_function regions) and other."""
+    if dev.type != "cuda":
+        print("quantized device-time split: CPU run, not measured")
+        return
+    from param_tpu_torch.trace.device_trace import (
+        load_chrome_trace, quant_comm_split,
+    )
+
+    events, threads = load_chrome_trace(profile_dir)
+    split = quant_comm_split(events, threads)
+    total = sum(d["total_us"] for d in split.values()) or 1.0
+    print("quantized device-time split (from profile):")
+    for k in ("comm", "quant", "dequant", "other"):
+        d = split[k]
+        print(f"  {k:>8}: {d['total_us']:>10.1f} us "
+              f"({100 * d['total_us'] / total:5.1f}%)  n={d['count']}")
 
 
 if __name__ == "__main__":

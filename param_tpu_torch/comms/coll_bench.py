@@ -10,9 +10,12 @@ iteration.  ``blocking`` times every call to its completion on the host
 clock.  On the CPU (gloo) ``graph`` is the same as ``dispatch`` and the
 windows are timed on the host clock.  The dcheck call works on a copy of
 the input; the timed calls of the reducing collectives and broadcast work
-in place in the buffer ``prep_comm`` allocated, as PARAM times them.  The pt2pt tests time ping, ping-pong
-and a window of uni- / bi-directional sends.  The COMMS-RES table prints on
-each group's first rank.
+in place in the buffer ``prep_comm`` allocated, as PARAM times them.  At
+``--bitwidth`` 16 or 8 the bus bandwidth is scaled by bitwidth / 32 and
+``quant_us`` (one quantize and dequantize without communication, in the
+metric records) is timed beside the collective.  The pt2pt tests time
+ping, ping-pong and a window of uni- / bi-directional sends.  The
+COMMS-RES table prints on each group's first rank.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from param_tpu_torch.utils.bw import alg_bw
 from param_tpu_torch.utils.logger import (
     CommsCollPerfMetrics,
     CommsPt2PtPerfMetrics,
+    CommsQuantCollPerfMetrics,
     emit_metrics,
 )
 from param_tpu_torch.utils.sizes import format_size, percentile
@@ -57,6 +61,7 @@ class CollResult:
     alg_bw_gbs: float = 0.0
     bus_bw_gbs: float = 0.0
     dcheck_ok: Optional[bool] = None
+    quant_us: Optional[float] = None
 
     def pct(self, p):
         return percentile(self.lat_us, p)
@@ -123,6 +128,12 @@ class CollBench(CommsBench):
         res.alg_bw_gbs = alg_bw(payload, res.pct(50))
         res.bus_bw_gbs = self.backend.get_bus_bw(collective, res.alg_bw_gbs,
                                                  group)
+        if p.bitwidth != 32:
+            res.bus_bw_gbs *= p.bitwidth / 32.0
+            # the quantize + dequantize cost alone, without communication
+            res.quant_us = statistics.median(self._windows_us(
+                lambda: self.backend.quant_overhead(args), p.num_iters,
+                p.num_warmup_iters))
         return res
 
     def bench_collective(self, collective: str,
@@ -206,7 +217,11 @@ class CollBench(CommsBench):
                 num_elements=r.num_elements, p50_us=r.pct(50),
                 p75_us=r.pct(75), p95_us=r.pct(95), min_us=r.pct(0),
                 max_us=r.pct(100), alg_bw_gbs=r.alg_bw_gbs,
-                bus_bw_gbs=r.bus_bw_gbs))
+                bus_bw_gbs=r.bus_bw_gbs, quant=None if r.quant_us is None
+                else CommsQuantCollPerfMetrics(
+                    commsOp=collective, dtype=self.params.dtype,
+                    world_size=group.size, tag=self.params.tag,
+                    bitwidth=self.params.bitwidth, quant_us=r.quant_us)))
 
     def report_pt2pt(self, rows, group: CommGroup):
         if not self._reports(group):

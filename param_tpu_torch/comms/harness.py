@@ -143,10 +143,6 @@ class CommsBench:
         """This rank's input for one (collective, size) point, filled with
         the rank pattern (rank r's input == r + 1)."""
         p = self.params
-        if p.bitwidth != 32:
-            raise NotImplementedError(
-                "quantized collectives (--bitwidth other than 32) come with "
-                "comms/quantization.py, ROADMAP item 10")
         n = group.size
         elems = max(1, size_bytes // self.elem_size)
         if collective in OBJECT_COLLECTIVES:
@@ -162,6 +158,13 @@ class CommsBench:
         me = group.rank_of(self.backend.get_global_rank())
         x = torch.full((local,), me + 1, dtype=torch.float32,
                        device=self.backend.get_device()).to(self.dtype)
+        if p.bitwidth != 32 and collective not in ("all_reduce", "reduce"):
+            # a non-reducing quantized collective moves the cast payload
+            # itself; the reducing ones quantize inside the collective
+            from param_tpu_torch.comms.quantization import check_quant_args
+
+            check_quant_args(collective, p.bitwidth)
+            x = x.to(torch.bfloat16 if p.bitwidth == 16 else torch.int8)
         return CollectiveArgs(
             group=group, in_tensor=x, red_op=p.red_op, src_rank=p.src_rank,
             dst_rank=p.dst_rank, src_ranks=list(p.src_ranks),

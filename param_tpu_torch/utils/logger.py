@@ -2,7 +2,8 @@
 copy of what it uses of ``param_tpu/utils/logger.py``).
 
 A bench builds a :class:`ComputePerfMetrics`, :class:`CommsCollPerfMetrics`
-or :class:`CommsPt2PtPerfMetrics` per result and hands it to
+(with a :class:`CommsQuantCollPerfMetrics` for a quantized row) or
+:class:`CommsPt2PtPerfMetrics` per result and hands it to
 :func:`emit_metrics`, which passes it to every registered sink (none by
 default): :class:`StdoutJsonLogger` prints one JSON line,
 :class:`FileJsonLogger` appends one to a file.
@@ -14,7 +15,7 @@ import json
 import logging
 from abc import ABC, abstractmethod
 from dataclasses import asdict, dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 log = logging.getLogger(__name__)
 
@@ -31,6 +32,16 @@ class CommsPerfMetrics:
 
 
 @dataclass
+class CommsQuantCollPerfMetrics(CommsPerfMetrics):
+    """A quantized collective's extras: ``quant_us`` is one quantize and
+    dequantize of the message without communication."""
+
+    bitwidth: int = 32
+    quant_us: float = 0.0
+    dequant_us: float = 0.0
+
+
+@dataclass
 class CommsCollPerfMetrics(CommsPerfMetrics):
     """One row of a collective sweep."""
 
@@ -44,6 +55,7 @@ class CommsCollPerfMetrics(CommsPerfMetrics):
     max_us: float = 0.0
     alg_bw_gbs: float = 0.0
     bus_bw_gbs: float = 0.0
+    quant: Optional[CommsQuantCollPerfMetrics] = None
 
 
 @dataclass

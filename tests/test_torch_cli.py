@@ -77,14 +77,25 @@ _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
                   "param_tpu_torch/models/moe.py",
                   "param_tpu_torch/ops/ring_attention.py",
                   "param_tpu_torch/experiments/parallel_tier.py",
-                  "tests/torch_parallel_worker.py"]
+                  "tests/torch_parallel_worker.py",
+                  "param_tpu_torch/comms/quantization.py",
+                  "param_tpu_torch/comms/overlap_bench.py",
+                  "param_tpu_torch/backend/mock_backend.py",
+                  "param_tpu_torch/backend/torchcomms.py",
+                  "param_tpu_torch/cli/overlap.py",
+                  "param_tpu_torch/cli/comms_compute.py",
+                  "param_tpu_torch/cli/replay.py",
+                  "param_tpu_torch/trace/replay.py",
+                  "param_tpu_torch/trace/device_trace.py",
+                  "tests/torch_remainder_worker.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tests", "torch_comms_worker.py"),
              os.path.join(ROOT, "tests", "torch_dlrm_worker.py"),
-             os.path.join(ROOT, "tests", "torch_parallel_worker.py")]
+             os.path.join(ROOT, "tests", "torch_parallel_worker.py"),
+             os.path.join(ROOT, "tests", "torch_remainder_worker.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "param_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -151,6 +162,30 @@ def test_parallel_tier_modules_load_without_jax():
     code = ("import sys\n"
             "import param_tpu_torch.experiments.parallel_tier\n"
             "import param_tpu_torch.models.convert\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+def test_comms_remainder_and_trace_modules_load_without_jax():
+    """Importing the quantized collectives, the facade and mock backends,
+    the overlap benches, the trace tier and their CLIs pulls in neither
+    JAX nor the reference package (the spawned ranks of their tests rely
+    on it)."""
+    code = ("import sys\n"
+            "import param_tpu_torch.cli.overlap, param_tpu_torch.cli.replay\n"
+            "import param_tpu_torch.cli.comms_compute\n"
+            "import param_tpu_torch.comms.overlap_bench\n"
+            "import param_tpu_torch.comms.quantization\n"
+            "import param_tpu_torch.trace.replay\n"
+            "import param_tpu_torch.trace.device_trace\n"
+            "import param_tpu_torch.trace.export_pytorch_et\n"
+            "import param_tpu_torch.trace.profiler_analysis\n"
+            "import param_tpu_torch.backend.torchcomms\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'param_tpu')]\n"
             "assert not bad, bad\n")

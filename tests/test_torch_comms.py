@@ -3,7 +3,9 @@ arithmetic, ``CommsParams.from_args``, every collective of the
 ``torch.distributed`` backend in spawned gloo worlds of 2 and 4 against
 ``TpuBackend`` on a CPU mesh of the same size fed the same inputs, the
 harness's rank-pattern dcheck, ``cli.comms --device cpu`` under torchrun,
-the harness at world 1 in this process, and the flags the port refuses.
+the harness at world 1 in this process, the flags the port refuses and
+those it took over from its refusals (``--bitwidth``, ``--trace-dump[-et]``,
+``--backend mock``).
 
 Inputs are small integers as f32, so sums, products and averages over up
 to four ranks are exact in any order: every output must match the
@@ -11,6 +13,7 @@ reference exactly.  The spawned ranks (tests/torch_comms_worker.py) import
 no JAX; each world runs under its own timeout.
 """
 
+import json
 import math
 import os
 import re
@@ -387,10 +390,6 @@ def test_cli_list(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bitwidth", "16"], "item 10"),
-    (["--trace-dump", "t.json"], "item 11"),
-    (["--trace-dump-et", "t.json"], "item 11"),
-    (["--backend", "mock"], "item 10"),
     (["--num-devices", "2"], "leave-outs"),
     (["--coordinator", "localhost:1234"], "leave-outs"),
 ])
@@ -399,10 +398,45 @@ def test_unported_flags_raise(flags, item):
         cli.main(["--device", "cpu"] + flags)
 
 
-def test_quantized_args_raise(world1):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        world1.all_reduce(CollectiveArgs(in_tensor=torch.ones(4),
-                                         bitwidth=8))
+@pytest.mark.parametrize("flags", [
+    ["--bitwidth", "16"],
+    ["--trace-dump", "t.json"],
+    ["--trace-dump-et", "t.json"],
+    ["--backend", "mock"],
+])
+def test_formerly_refused_flags_run(flags, tmp_path, capsys):
+    """The flags the comms remainder and the comm trace brought in: a
+    sweep runs with every dcheck OK, and a trace flag writes its file."""
+    flags = [str(tmp_path / f) if f.endswith(".json") else f for f in flags]
+    assert cli.main(["--device", "cpu", "--collective", "all_reduce", "--b",
+                     "1K", "--e", "2K", "--n", "2", "--w", "1", "--c", "1"]
+                    + flags) == 0
+    out = capsys.readouterr().out
+    assert out.count("  OK") == 2 and "BAD" not in out
+    for f in flags:
+        if f.endswith(".json"):
+            with open(f) as fh:
+                data = json.load(fh)
+            assert data["nodes"] if isinstance(data, dict) else data
+
+
+def test_quantized_args_run(world1):
+    """A quantized sum all-reduce in a world of one is the two int8 round
+    trips of its input (no more a refusal)."""
+    from param_tpu_torch.comms.quantization import dequantize, quantize
+
+    x = torch.linspace(-3.0, 5.0, 11)
+    got = world1.all_reduce(CollectiveArgs(in_tensor=x, bitwidth=8))
+    want = dequantize(*quantize(dequantize(*quantize(x, 8)), 8))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_replay_cli_trace_type_et_names_item_11b():
+    from param_tpu_torch.cli import replay
+
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        replay.main(["--trace-path", "t.json", "--trace-type", "et",
+                     "--device", "cpu"])
 
 
 def test_needs_cuda_unless_cpu_is_asked_for():
