@@ -230,6 +230,32 @@ Phases (any failure exits non-zero):
      / 1e-2 of the largest sum), the overlap bench (same group; split-pgs
      at an even count of 4+), comms-compute gemm, and a sweep recorded and
      replayed by that world.
+ 23. The execution-trace tier at the trainer's full default width (8 x
+     100,000 x 64 f32, nnz 10, MLPs 512-256-64 / 512-256-1, batch 2048): the
+     forward, ``make_train_step(Sgd)``, ``make_sparse_sgd_step`` and
+     ``make_sparse_adagrad_step`` captured on the card (``trace.capture``);
+     each graph holds as many ``param_tpu_torch::emb_gather`` /
+     ``::sparse_update`` nodes as the direct call launches K1 / K2.  Each
+     is replayed with the real inputs (3 iterations after 1 warm-up): no
+     error, no skipped node, every output equal to the direct call's
+     within rtol 1e-5, atol 1e-6 (the dense step's ``index_add_`` adds in
+     atomic order, so not bitwise), K1 / K2 launched 4 x the direct
+     count, the launch counts reset before each replay and read after.
+     A planted fault (one table row of the replay's inputs + 1) must break
+     the forward's comparison.  Each replay's iter_s, qps and top five
+     per-op times (a replay of one iteration after one warm-up, each op
+     synchronised) beside the direct call's host ms.  ``cli.et`` capture /
+     validate / replay / codegen for dlrm, mlp and dlrm_train in-process
+     (K1 launched in the dlrm replay), and the generated dlrm script in a
+     subprocess (``replayed N ops OK``, K1 launched).  Dry-run path 4: the
+     table-wise sharded dense step in a world of one on NCCL
+     (``experiments.et_sharded``) captured and replayed equal to the
+     direct step, its saved trace replayed by ``cli.replay --trace-type
+     et --blocking``: exactly ``comms_from_et``'s 6 comm ops.  With two or
+     more cards, ``experiments.et_sharded`` under torchrun over all of
+     them, each rank's replay equal to its own direct step.  Phases 2 and 3
+     also time K1 and K2 issued eagerly through their registered ops
+     beside the wrappers' own eager time.
 Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22) use CUDA events after a
 warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
@@ -1225,6 +1251,260 @@ def comms_remainder_world(cards: int, smi: str) -> dict:
     return res
 
 
+def et_tier(smi: str) -> dict:
+    """Phase 23: the execution-trace tier on the card at the trainer's full
+    default width (see the module docstring).  Returns the records, with
+    the replays' kernel launches in ``launches``."""
+    import tempfile
+
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.backend import DistBackend
+    from param_tpu_torch.cli import et as et_cli
+    from param_tpu_torch.cli import replay as replay_cli
+    from param_tpu_torch.experiments import et_sharded
+    from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel
+    from param_tpu_torch.models.dlrm_data import RandomDataset
+    from param_tpu_torch.ops.mlp import Sgd, tree_map
+    from param_tpu_torch.trace.capture import (
+        capture_execution_trace, inputs_for, tensor_leaves,
+    )
+    from param_tpu_torch.trace.comms_trace import comms_from_et
+    from param_tpu_torch.trace.et_replay import EtReplayManager
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    iters, warmup = 3, 1
+    k1_node = "param_tpu_torch::emb_gather.default"
+    k2_node = "param_tpu_torch::sparse_update.default"
+    cfg = DlrmConfig()
+    model = DlrmModel(cfg, device=dev)
+    params = model.init_params(0)
+    batch = model.place_batch(next(iter(RandomDataset(
+        batch=cfg.batch, dense_dim=cfg.dense_dim, num_tables=cfg.num_tables,
+        nnz=cfg.nnz, num_rows=cfg.rows_per_table, num_batches=1, seed=23))))
+    rec = {"launches": {k: 0 for k in kernels.launch_counts}, "cases": {}}
+
+    def add_launches():
+        got = {k: v for k, v in kernels.launch_counts.items() if v}
+        for k, v in got.items():
+            rec["launches"][k] += v
+        return got
+
+    def fresh():
+        return tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                        params)
+
+    def forward(p, d, i):
+        with torch.no_grad():
+            return model.forward(p, d, i)
+
+    def adagrad_args():
+        p = fresh()
+        return (p, model.init_adagrad_state(p), *batch)
+
+    cases = {
+        "forward": (forward, lambda: (fresh(), *batch[:2]), None),
+        "dense_sgd": (model.make_train_step(Sgd(0.01)),
+                      lambda: (fresh(), None, *batch), None),
+        "sparse_sgd": (model.make_sparse_sgd_step(0.01),
+                       lambda: (fresh(), *batch), "sparse_update_sgd"),
+        "sparse_adagrad": (model.make_sparse_adagrad_step(0.01),
+                           adagrad_args, "sparse_update_adagrad"),
+    }
+    for name, (fn, args, k2) in cases.items():
+        a = args()
+        kernels.reset_launch_counts()
+        want = [t.detach().clone() for t in tensor_leaves(fn(*a))]
+        sync()
+        d_k1 = kernels.launch_counts["emb_gather"]
+        d_k2 = kernels.launch_counts[k2] if k2 else 0
+        host = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            fn(*a)
+            sync()
+            host.append((time.perf_counter() - t0) * 1e3)
+        del a
+        et = capture_execution_trace(fn, *args())
+        names = [n.name for n in et.get_nodes()]
+        n_k1, n_k2 = names.count(k1_node), names.count(k2_node)
+        if d_k1 <= 0 or n_k1 != d_k1 or n_k2 != d_k2 or (k2 and d_k2 <= 0):
+            fail(f"phase 23 {name}: the direct call launched K1 {d_k1} / K2 "
+                 f"{d_k2} times, its graph holds {n_k1} / {n_k2} kernel "
+                 f"nodes")
+        mgr = EtReplayManager(et, inputs=inputs_for(et, *args()), device=dev)
+        kernels.reset_launch_counts()
+        out = mgr.replay(iters=iters, warmup=warmup)
+        launched = add_launches()
+        n = iters + warmup
+        if out["errors"] or out["num_skipped"] or (
+                launched.get("emb_gather", 0) != n * d_k1
+                or (k2 and launched.get(k2, 0) != n * d_k2)):
+            fail(f"phase 23 {name} replay: errors {out['errors']}, "
+                 f"{out['num_skipped']} skipped, launches {launched} against "
+                 f"{n} x (K1 {d_k1}, K2 {d_k2})")
+        got = mgr.outputs()
+        if len(got) != len(want):
+            fail(f"phase 23 {name}: {len(got)} replayed outputs against "
+                 f"{len(want)}")
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.allclose(g, w, rtol=1e-5, atol=1e-6):
+                fail(f"phase 23 {name}: replayed output {i} differs from "
+                     f"the direct call's by {(g - w).abs().max().item():.3e}")
+        timed_ops = EtReplayManager(et, inputs=inputs_for(et, *args()),
+                                    device=dev).replay(iters=1, warmup=1,
+                                                       per_op=True)
+        top5 = {k: round(v["total_us"], 1) for k, v in
+                list(timed_ops["per_op_us"].items())[:5]}
+        case = dict(num_ops=out["num_ops"], k1_nodes=n_k1, k2_nodes=n_k2,
+                    launches=launched, iter_s=out["iter_s"], qps=out["qps"],
+                    device_memory=out.get("device_memory"),
+                    direct_host_ms=statistics.median(host),
+                    direct_host_ms_all=host, max_abs_err=err,
+                    per_op_top5_us=top5)
+        if name == "forward":
+            bad = args()
+            with torch.no_grad():
+                bad[0]["tables"][0, int(batch[1][0, 0, 0])] += 1
+            faulty = EtReplayManager(et, inputs=inputs_for(et, *bad),
+                                     device=dev)
+            faulty.replay(iters=1)
+            fault_err = (faulty.outputs()[0] - want[0]).abs().max().item()
+            if torch.allclose(faulty.outputs()[0], want[0], rtol=1e-5,
+                              atol=1e-6):
+                fail("phase 23: a planted fault (one table row + 1 in the "
+                     "replay's inputs) passed the forward's comparison")
+            case["fault_max_abs_err"] = fault_err
+            del bad, faulty
+        rec["cases"][name] = case
+        say(f"phase 23 ET {name}: {case['num_ops']} ops ({n_k1} K1, {n_k2} "
+            f"K2 nodes, as the direct call's launches), replay {iters} iters "
+            f"after {warmup}: iter_s {out['iter_s'] * 1e3:.3f} ms, qps "
+            f"{out['qps']:.0f} ops/s against the direct call's "
+            f"{case['direct_host_ms']:.3f} host ms | launches {launched} | "
+            f"every output equal within rtol 1e-5, atol 1e-6 (max abs err "
+            f"{err:.3e})"
+            + (f"; planted fault (a table row + 1) caught, max abs err "
+               f"{fault_err:.3e}" if name == "forward" else "")
+            + f" | top per-op us {top5} | {smi}")
+        del et, mgr, want, got
+        torch.cuda.empty_cache()
+
+    # -- cli.et at its own sizes, and a generated script in a subprocess
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_23_")
+    rec["cli"] = {}
+    for w in ("dlrm", "mlp", "dlrm_train"):
+        path = os.path.join(tmp, f"{w}_et.json.gz")
+        script = os.path.join(tmp, f"replay_{w}.py")
+        rcs = [run_cli(et_cli, ["capture", "--workload", w, "-o", path,
+                                "--device", "cuda"])[0],
+               run_cli(et_cli, ["validate", path])[0]]
+        kernels.reset_launch_counts()
+        rc, out, wall = run_cli(et_cli, ["replay", path, "--iters", "3",
+                                         "--per-op", "--device", "cuda"])
+        launched = add_launches()
+        rcs += [rc, run_cli(et_cli, ["codegen", path, "-o", script])[0]]
+        report = json.loads(out) if rc == 0 else {}
+        if any(rcs) or report.get("errors") or report.get("num_skipped") or \
+                (w != "mlp" and launched.get("emb_gather", 0) <= 0):
+            fail(f"phase 23 cli.et {w}: rcs {rcs}, launches {launched}:\n"
+                 f"{out}")
+        rec["cli"][w] = dict(num_ops=report["num_ops"],
+                             iter_s=report["iter_s"], launches=launched)
+        say(f"phase 23 cli.et capture / validate / replay / codegen {w}: "
+            f"{report['num_ops']} ops, iter_s {report['iter_s'] * 1e3:.3f} "
+            f"ms | launches {launched}")
+    script = os.path.join(tmp, "replay_dlrm.py")
+    code = (f"import runpy, sys; sys.argv = [{script!r}, '--device', "
+            "'cuda']; "
+            f"runpy.run_path({script!r}, run_name='__main__'); "
+            "from param_tpu_torch import kernels; "
+            "print('K1 launches', kernels.launch_counts['emb_gather'])")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    want_line = f"replayed {rec['cli']['dlrm']['num_ops']} ops OK"
+    m = re.search(r"K1 launches (\d+)", r.stdout)
+    if r.returncode != 0 or want_line not in r.stdout or not m or \
+            int(m.group(1)) <= 0:
+        fail(f"phase 23 generated dlrm script: rc {r.returncode}:\n"
+             f"{r.stdout}\n{r.stderr[-4000:]}")
+    rec["codegen_k1_launches"] = int(m.group(1))
+    say(f"phase 23 generated dlrm script in a subprocess: '{want_line}', K1 "
+        f"launched {m.group(1)} times")
+
+    # -- the sharded dense step in a world of one on NCCL (dry-run path 4)
+    backend = DistBackend("cuda")
+    backend.initialize()
+    try:
+        kernels.reset_launch_counts()
+        srec, et = et_sharded.check(backend, cfg)[:2]
+        add_launches()
+        if not srec["ok"]:
+            fail(f"phase 23 sharded step (world 1): {srec}")
+        path = os.path.join(tmp, "sharded_et.json.gz")
+        et.save(path)
+        want_ops = len(comms_from_et(et, 1))
+        details = os.path.join(tmp, "sharded_details.json")
+        rc, out, wall = run_cli(replay_cli, [
+            "--trace-path", path, "--trace-type", "et", "--blocking",
+            "--no-warm-up", "--output-path", details, "--device", "cuda"])
+        replayed = json.load(open(details)) if rc == 0 else []
+        if rc != 0 or want_ops != 6 or len(replayed) != want_ops:
+            fail(f"phase 23 cli.replay --trace-type et: rc {rc}, "
+                 f"{len(replayed)} ops replayed against comms_from_et's "
+                 f"{want_ops}:\n{out}")
+    finally:
+        backend.shutdown()
+    srec["cli_replay_ops"] = len(replayed)
+    rec["sharded"] = srec
+    say(f"phase 23 sharded dense step (world 1, NCCL): {srec['num_ops']} ops "
+        f"({srec['comm_ops']} comm), replay equals the direct step (max abs "
+        f"err {srec['max_abs_err']:.3e}), iter_s {srec['iter_s'] * 1e3:.3f} "
+        f"ms against {srec['direct_host_ms']:.3f} host ms; cli.replay "
+        f"--trace-type et --blocking replayed {len(replayed)} comm ops | "
+        f"launches {srec['launches']} | {smi}")
+    rec["launches"] = {k: v for k, v in rec["launches"].items() if v}
+    return rec
+
+
+def et_sharded_world(cards: int, smi: str) -> dict:
+    """``experiments.et_sharded`` under torchrun, one rank per card on NCCL:
+    each rank's replay of its captured sharded step equals its own direct
+    step."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(cards), "-m",
+           "param_tpu_torch.experiments.et_sharded"]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        out = p.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        fail(f"phase 23 torchrun world of {cards} timed out")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if p.returncode != 0 or not lines or not json.loads(lines[-1])["ok"]:
+        fail(f"phase 23 torchrun world of {cards}: rc {p.returncode}:\n"
+             f"{out[-6000:]}")
+    res = json.loads(lines[-1])
+    say(f"phase 23 torchrun world of {cards} experiments.et_sharded | "
+        f"{wall:.1f} s | {smi}\n{json.dumps(res)}")
+    res["wall_s"] = wall
+    return res
+
+
 def main(out_path=None) -> int:
     try:
         import torch
@@ -1266,12 +1546,17 @@ def main(out_path=None) -> int:
     def fmt(t):
         return f"{t['ms']:.4f} ms ({t['min']:.4f}-{t['max']:.4f})"
 
-    def timings(kernel, plain, library, iters):
-        """Kernel (graph and eager), plain (eager) and library (graph)."""
+    def timings(kernel, plain, library, iters, op=None):
+        """Kernel (graph and eager), plain (eager) and library (graph);
+        with ``op``, the same launch issued eagerly through its registered
+        PyTorch op (``torch.ops.param_tpu_torch.*``, as the main path
+        calls it) beside the wrapper's own eager time."""
         rec = {"t_kernel": timed(kernel, iters),
                "t_kernel_eager": timed(kernel, iters, graph=False),
                "t_plain": timed(plain, max(3, iters // 5), graph=False),
                "t_library": timed(library, iters) if library else None}
+        if op is not None:
+            rec["t_op_eager"] = timed(op, iters, graph=False)
         rec.update(ms=rec["t_kernel"]["ms"], plain_ms=rec["t_plain"]["ms"],
                    library_ms=rec["t_library"]["ms"] if library else None)
         return rec
@@ -1279,9 +1564,11 @@ def main(out_path=None) -> int:
     def timing_text(rec, lib_name):
         lib = (f"{lib_name} {fmt(rec['t_library'])}" if rec["t_library"]
                else "no library call")
+        op = (f" [through the op, eagerly {fmt(rec['t_op_eager'])}]"
+              if "t_op_eager" in rec else "")
         return (f"kernel {fmt(rec['t_kernel'])} [issued eagerly "
-                f"{fmt(rec['t_kernel_eager'])}] plain {fmt(rec['t_plain'])} "
-                f"{lib}")
+                f"{fmt(rec['t_kernel_eager'])}]{op} plain "
+                f"{fmt(rec['t_plain'])} {lib}")
 
     # ---------------------------------------------------------------- 1
     smi = nvidia_smi_line()
@@ -1331,7 +1618,7 @@ def main(out_path=None) -> int:
     # ---------------------------------------------------------------- 2 + 4
     k1 = {}
 
-    def k1_case(name, table, idx_list, rtol, iters, phase="2/4"):
+    def k1_case(name, table, idx_list, rtol, iters, phase="2/4", op=False):
         i0 = idx_list[0]
         got = emb_gather_cuda(table, i0).float()
         want = emb_gather_plain(table, i0).float()
@@ -1349,10 +1636,13 @@ def main(out_path=None) -> int:
         b_ms, b_by = bound_ms(nbytes, nb * nnz * dim)
         n_k, n_p = itertools.cycle(idx_list), itertools.cycle(idx_list)
         n_l = itertools.cycle([i.long() for i in idx_list])
+        n_o = itertools.cycle(idx_list)
+        k1_op = torch.ops.param_tpu_torch.emb_gather.default
         rec = timings(lambda: emb_gather_cuda(table, next(n_k)),
                       lambda: emb_gather_plain(table, next(n_p)),
                       lambda: F.embedding_bag(next(n_l), table, mode="sum"),
-                      iters)
+                      iters,
+                      (lambda: k1_op(table, next(n_o), None)) if op else None)
         rec.update(shape=f"table {tuple(table.shape)} {str(table.dtype)[6:]}, "
                          f"{nb} bags x {nnz}", max_abs_err=err, tol=tol,
                    bound_ms=b_ms, bound_by=b_by, unique_rows=uniq,
@@ -1371,8 +1661,8 @@ def main(out_path=None) -> int:
     del head, base
     flat = torch.randn((T * E, D), generator=gen, device=dev) / math.sqrt(E)
     ids = [main_path_ids() for _ in range(8)]
-    k1_case("dlrm_f32", flat, ids, 1e-5, 100)
-    k1_case("dlrm_bf16", flat.to(torch.bfloat16), ids, 8e-3, 100)
+    k1_case("dlrm_f32", flat, ids, 1e-5, 100, op=True)
+    k1_case("dlrm_bf16", flat.to(torch.bfloat16), ids, 8e-3, 100, op=True)
     result["phases"]["k1"] = k1
 
     # ---------------------------------------------------------------- 3 + 4
@@ -1406,11 +1696,13 @@ def main(out_path=None) -> int:
         b_ms, b_by = bound_ms(nbytes, n_valid * D * (6 if mode == "adagrad"
                                                       else 1))
         vt = upd[:n_valid]
+        k2_op = torch.ops.param_tpu_torch.sparse_update.default
         rec = timings(
             lambda: sparse_update_cuda(t_k, rows, upd, a_k, lr=lr, eps=eps),
             lambda: sparse_update_plain(t_p, rows, upd, a_p, lr=lr, eps=eps),
             (lambda: t_p.index_add_(0, valid_rows, vt)) if mode == "sgd"
-            else None, 100)
+            else None, 100,
+            lambda: k2_op(t_k, rows, upd, a_k, lr, eps))
         rec.update(shape=f"table ({R}, {D}) f32, {rows.numel()} slots, "
                          f"{n_valid} valid", max_abs_err=err, tol=tol,
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
@@ -2999,6 +3291,17 @@ def main(out_path=None) -> int:
     result["phases"]["comms_remainder"] = rem22
     main22 = rem22["launches"]
 
+    # ---------------------------------------------------------------- 23
+    et23 = et_tier(smi)
+    if cards >= 2:
+        et23["torchrun"] = et_sharded_world(cards, smi)
+    else:
+        say("phase 23: one card: the sharded step's trace was captured and "
+            "replayed in a world of one; its collectives between cards are "
+            "unchecked")
+    result["phases"]["et_tier"] = et23
+    main23 = et23["launches"]
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -3008,7 +3311,9 @@ def main(out_path=None) -> int:
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "shape": rec["shape"], "ms_min": rec["t_kernel"]["min"],
                 "ms_max": rec["t_kernel"]["max"],
-                "ms_issued_eagerly": rec["t_kernel_eager"]["ms"]}
+                "ms_issued_eagerly": rec["t_kernel_eager"]["ms"],
+                "ms_issued_eagerly_through_op":
+                    rec["t_op_eager"]["ms"] if "t_op_eager" in rec else None}
 
     def cli_launches(run, key):
         return cli_runs[run]["launches"].get(key, 0)
@@ -3121,6 +3426,15 @@ def main(out_path=None) -> int:
         entry("emb_gather, comms-compute bench and trace replay (K1)",
               src + "emb_gather.cu", "param_tpu/ops/embedding.py:185",
               main22.get("emb_gather", 0), k1["comms_compute_f32"]),
+        entry("emb_gather, ET replay (K1)", src + "emb_gather.cu",
+              "param_tpu/ops/embedding.py:185", main23.get("emb_gather", 0),
+              k1["dlrm_f32"]),
+        entry("sparse_update sgd, ET replay (K2)", src + "sparse_update.cu",
+              "param_tpu/ops/sparse_update.py:117",
+              main23.get("sparse_update_sgd", 0), k2["sgd"]),
+        entry("sparse_update adagrad, ET replay (K2)",
+              src + "sparse_update.cu", "param_tpu/ops/sparse_update.py:117",
+              main23.get("sparse_update_adagrad", 0), k2["adagrad"]),
         entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
               "param_tpu/ops/embedding.py:185", main19["emb_gather"],
               k1["headline_f32"]),

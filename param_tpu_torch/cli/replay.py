@@ -13,9 +13,12 @@ JSON:
         --trace-path comms.json --dry-run
     python -m param_tpu_torch.cli.replay --trace-path et.json \\
         --trace-type pytorch_et --device cpu
+    python -m param_tpu_torch.cli.et capture --workload dlrm -o et.json.gz
+    python -m param_tpu_torch.cli.replay --trace-path et.json.gz \\
+        --trace-type et --backend mock
 
-``--trace-type et`` (the JAX package's jaxpr execution trace) raises
-NotImplementedError naming ROADMAP item 11b.
+``--trace-type et`` replays the comm ops of an execution trace: one the
+port captured (``cli.et capture``) or one of the JAX package's.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-type", default="basic",
                     choices=["basic", "pytorch_et", "kineto", "et"],
                     help="basic JSON | PyTorch/Chakra host ET | Kineto "
-                         "unitrace with comms metadata | et (not ported)")
+                         "unitrace with comms metadata | et (an execution "
+                         "trace's comm ops)")
     ap.add_argument("--target-rank", type=int, default=0,
                     help="rank whose comm stream to extract from per-rank "
                          "pytorch_et/kineto traces")
@@ -66,12 +70,8 @@ def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
     logging.basicConfig(level=ns.log.upper())
     from param_tpu_torch.backend import get_backend_cls
-    from param_tpu_torch.trace.replay import (
-        ET_NOT_PORTED, CommsReplay, ReplayParams,
-    )
+    from param_tpu_torch.trace.replay import CommsReplay, ReplayParams
 
-    if ns.trace_type == "et":
-        raise NotImplementedError(ET_NOT_PORTED)
     cls = get_backend_cls(ns.backend)
     backend = cls() if ns.backend == "mock" else cls(ns.device)
     backend.initialize()

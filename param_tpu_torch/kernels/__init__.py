@@ -30,7 +30,10 @@ Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
 through; kernels with several paths (or routes) also count
 ``<kernel>_<path>``.
-Importing this package builds nothing.
+Importing this package builds nothing; it registers K1 and K2 as the
+PyTorch ops ``param_tpu_torch::emb_gather`` and ``param_tpu_torch::
+sparse_update`` (a generated execution-trace replay script imports it for
+that).
 """
 
 launch_counts = {
@@ -75,3 +78,8 @@ launch_counts = {
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# registers param_tpu_torch::emb_gather and ::sparse_update
+from param_tpu_torch.kernels import emb_gather as _k1  # noqa: E402,F401
+from param_tpu_torch.kernels import sparse_update as _k2  # noqa: E402,F401

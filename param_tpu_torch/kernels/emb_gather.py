@@ -6,6 +6,14 @@ the table's dtype; ``w`` is 1 when no weights are given.  As in the
 reference's ``jnp.take``, an id in [-R, 0) counts from the end and any other
 id outside [0, R) makes its bag NaN.  Counterpart of
 ``param_tpu/ops/embedding.py::_emb_gather_kernel`` (``embedding_bag_pallas``).
+
+K1 is the PyTorch op ``torch.ops.param_tpu_torch.emb_gather`` (registered
+with ``torch.library.Library``, not ``custom_op``, whose Python dispatch
+costs several times more a call): its CUDA kernel is the launch, its CPU
+kernel the plain version, its Meta kernel the output's shape.  So a
+dispatcher-level recorder (``make_fx``) sees one ``param_tpu_torch::
+emb_gather`` node, where it could not see a ctypes launch, and the replay
+of that node launches K1 on the card.
 """
 
 from __future__ import annotations
@@ -77,11 +85,22 @@ def emb_gather_cuda(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def _emb_gather_meta(table: torch.Tensor, idx: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return table.new_empty((idx.shape[0], table.shape[1]))
+
+
+_LIB = torch.library.Library("param_tpu_torch", "FRAGMENT")
+_LIB.define("emb_gather(Tensor table, Tensor idx, Tensor? weights=None) "
+            "-> Tensor")
+_LIB.impl("emb_gather", emb_gather_cuda, "CUDA")
+_LIB.impl("emb_gather", emb_gather_plain, "CPU")
+_LIB.impl("emb_gather", _emb_gather_meta, "Meta")
+
+
 def emb_gather(table: torch.Tensor, idx: torch.Tensor,
                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 for a CUDA table, the plain version for a CPU table."""
-    if table.device.type == "cuda":
-        return emb_gather_cuda(table, idx, weights)
-    if table.device.type == "cpu":
-        return emb_gather_plain(table, idx, weights)
-    raise ValueError(f"unsupported device {table.device}")
+    """K1 for a CUDA table, the plain version for a CPU table, through the
+    op ``param_tpu_torch::emb_gather``; another device has no kernel and
+    raises."""
+    return torch.ops.param_tpu_torch.emb_gather.default(table, idx, weights)

@@ -8,6 +8,11 @@ PyTorch version.
 ``idx`` (N,) int32 must be duplicate-free; ids outside [0, R) are dropped.
 Counterpart of ``param_tpu/ops/sparse_update.py::_update_kernel``
 (``sparse_row_update``).
+
+K2 is the PyTorch op ``torch.ops.param_tpu_torch.sparse_update``, which
+declares that it writes ``table`` and ``acc`` (``Tensor(a!)``); as K1's
+(:mod:`.emb_gather`), its CUDA kernel is the launch and its CPU kernel the
+plain version, so a captured graph holds one node for it.
 """
 
 from __future__ import annotations
@@ -80,12 +85,21 @@ def sparse_update_cuda(table: torch.Tensor, idx: torch.Tensor,
         launch_counts["sparse_update_adagrad"] += 1
 
 
+_LIB = torch.library.Library("param_tpu_torch", "FRAGMENT")
+_LIB.define("sparse_update(Tensor(a!) table, Tensor idx, Tensor upd, "
+            "Tensor(b!)? acc, float lr, float eps) -> ()")
+_LIB.impl("sparse_update", lambda table, idx, upd, acc, lr, eps:
+          sparse_update_cuda(table, idx, upd, acc, lr=lr, eps=eps), "CUDA")
+_LIB.impl("sparse_update", lambda table, idx, upd, acc, lr, eps:
+          sparse_update_plain(table, idx, upd, acc, lr=lr, eps=eps), "CPU")
+_LIB.impl("sparse_update", lambda table, idx, upd, acc, lr, eps: None, "Meta")
+
+
 def sparse_update(table: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
                   acc: Optional[torch.Tensor] = None, *, lr: float = 0.01,
                   eps: float = 1e-7) -> None:
-    """K2 for a CUDA table, the plain version for a CPU table."""
-    if table.device.type == "cuda":
-        return sparse_update_cuda(table, idx, upd, acc, lr=lr, eps=eps)
-    if table.device.type == "cpu":
-        return sparse_update_plain(table, idx, upd, acc, lr=lr, eps=eps)
-    raise ValueError(f"unsupported device {table.device}")
+    """K2 for a CUDA table, the plain version for a CPU table, through the
+    op ``param_tpu_torch::sparse_update``; another device has no kernel and
+    raises."""
+    torch.ops.param_tpu_torch.sparse_update.default(table, idx, upd, acc,
+                                                    float(lr), float(eps))

@@ -1,11 +1,13 @@
 """Comm-trace replay engine (the port's ``param_tpu/trace/replay.py``;
 PARAM's ``commsTraceReplayBench``).
 
-Dry-run statistics, warm-up replays, blocking or non-blocking timed
-replays with tensors reused by op signature, ``--auto-shrink`` (a trace of
-a larger world remapped onto this one), the ``equal`` rebalance of ragged
-all_to_allv splits, per-process-group routing from the trace's metadata,
-per-collective latency statistics and a per-op JSON details dump.
+Dry-run statistics of a basic, PyTorch-ET, Kineto or execution trace
+(the last through ``comms_from_et``), warm-up replays, blocking or
+non-blocking timed replays with tensors reused by op signature,
+``--auto-shrink`` (a trace of a larger world remapped onto this one), the
+``equal`` rebalance of ragged all_to_allv splits, per-process-group
+routing from the trace's metadata, per-collective latency statistics and a
+per-op JSON details dump.
 
 Every process is one rank and replays the whole trace on its own tensors;
 an op of a group this rank is not in is skipped on it.  A blocking replay
@@ -31,24 +33,22 @@ from param_tpu_torch.trace.comms_trace import (
     P2P_OPS,
     SKIP_OPS,
     CommsOp,
+    comms_from_et,
     parse_trace,
     read_trace_file,
 )
+from param_tpu_torch.trace.execution_trace import ExecutionTrace
 from param_tpu_torch.utils.bw import alg_bw, bus_bw_factor
 from param_tpu_torch.utils.dtypes import dtype_from_name, dtype_size
 from param_tpu_torch.utils.sizes import percentile
 
 log = logging.getLogger(__name__)
 
-ET_NOT_PORTED = ("trace type 'et' (the JAX package's own jaxpr execution "
-                 "trace) comes with the execution-trace half of the trace "
-                 "tier, ROADMAP item 11b")
-
 
 @dataclass
 class ReplayParams:
     trace_path: Optional[str] = None
-    trace_type: str = "basic"  # basic | pytorch_et | kineto
+    trace_type: str = "basic"  # basic | pytorch_et | kineto | et
     target_rank: int = 0  # rank whose stream to take from per-rank traces
     dry_run: bool = False
     num_replays: int = 1
@@ -81,14 +81,19 @@ class CommsReplay:
         self.total_replay_s: float = 0.0
 
     # ---------------------------------------------------------------- loading
-    def load(self, trace: Optional[List[dict]] = None) -> None:
-        if self.params.trace_type == "et":
-            raise NotImplementedError(ET_NOT_PORTED)
+    def load(self, trace=None) -> None:
+        """Read the trace (``trace`` itself when given) into ``ops``; an
+        execution trace (``et``: the port's aten graph or the JAX package's
+        jaxpr) gives its collective stream (:func:`comms_from_et`)."""
         if trace is None:
             trace = read_trace_file(self.params.trace_path)
-        self.ops = parse_trace(trace, self.params.trace_type,
-                               target_rank=self.params.target_rank,
-                               total_ranks=self.backend.get_world_size())
+        if self.params.trace_type == "et":
+            self.ops = comms_from_et(ExecutionTrace(trace),
+                                     self.backend.get_world_size())
+        else:
+            self.ops = parse_trace(trace, self.params.trace_type,
+                                   target_rank=self.params.target_rank,
+                                   total_ranks=self.backend.get_world_size())
         if self.params.auto_shrink:
             self._shrink_to_world()
         if self.params.rebalance_policy == "equal":

@@ -87,7 +87,12 @@ _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
                   "param_tpu_torch/cli/replay.py",
                   "param_tpu_torch/trace/replay.py",
                   "param_tpu_torch/trace/device_trace.py",
-                  "tests/torch_remainder_worker.py"]
+                  "tests/torch_remainder_worker.py",
+                  "param_tpu_torch/trace/execution_trace.py",
+                  "param_tpu_torch/trace/capture.py",
+                  "param_tpu_torch/trace/et_replay.py",
+                  "param_tpu_torch/cli/et.py",
+                  "tests/torch_et_worker.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -95,7 +100,8 @@ def test_port_imports_neither_jax_nor_reference():
              os.path.join(ROOT, "tests", "torch_comms_worker.py"),
              os.path.join(ROOT, "tests", "torch_dlrm_worker.py"),
              os.path.join(ROOT, "tests", "torch_parallel_worker.py"),
-             os.path.join(ROOT, "tests", "torch_remainder_worker.py")]
+             os.path.join(ROOT, "tests", "torch_remainder_worker.py"),
+             os.path.join(ROOT, "tests", "torch_et_worker.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "param_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -193,3 +199,62 @@ def test_comms_remainder_and_trace_modules_load_without_jax():
                        capture_output=True, text=True, timeout=120,
                        env=dict(os.environ, PYTHONPATH=ROOT))
     assert r.returncode == 0, r.stderr
+
+
+def test_et_modules_load_without_jax():
+    """The execution-trace tier and its CLI, and a generated replay script
+    (``import param_tpu_torch.kernels`` for K1 / K2's ops), pull in neither
+    JAX nor the reference package."""
+    code = ("import sys\n"
+            "import param_tpu_torch.trace.execution_trace\n"
+            "import param_tpu_torch.trace.capture\n"
+            "import param_tpu_torch.trace.et_replay\n"
+            "import param_tpu_torch.cli.et, param_tpu_torch.kernels\n"
+            "import torch\n"
+            "assert torch.ops.param_tpu_torch.emb_gather.default\n"
+            "assert torch.ops.param_tpu_torch.sparse_update.default\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("workload", ["dlrm", "mlp", "dlrm_train"])
+def test_et_cli_on_cpu(workload, tmp_path, capsys):
+    """``cli.et`` capture / validate / replay / codegen with ``--device
+    cpu``: a clean trace, a replay with no error or skipped node, and a
+    script with one call per op."""
+    import json
+
+    from param_tpu_torch.cli import et
+
+    path, script = str(tmp_path / "et.json.gz"), str(tmp_path / "replay.py")
+    assert et.main(["capture", "--workload", workload, "-o", path,
+                    "--iterations", "2", "--device", "cpu"]) == 0
+    n_ops = int(re.search(r"captured (\d+) ops", capsys.readouterr().out)[1])
+    assert n_ops > 3
+    assert et.main(["validate", path]) == 0
+    assert f"ops={n_ops} comm_ops=0 errors=0" in capsys.readouterr().out
+    assert et.main(["--device", "cpu", "replay", path, "--iters", "2",
+                    "--alloc", "lazy", "--per-op"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["errors"] == {} and report["num_skipped"] == 0
+    assert report["num_ops"] == n_ops and report["trace_iterations"] == 2
+    assert sum(v["count"] for v in report["per_op_us"].values()) == n_ops
+    assert et.main(["codegen", path, "-o", script, "--device", "cpu"]) == 0
+    code = open(script).read()
+    assert code.count("torch.ops.") == n_ops // 2
+    assert code.rstrip().endswith(f'print("replayed {n_ops // 2} ops OK")')
+
+
+def test_et_cli_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    from param_tpu_torch.cli import et
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behaviour")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        et.main(["capture", "--workload", "mlp", "-o",
+                 str(tmp_path / "et.json")])

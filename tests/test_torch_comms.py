@@ -431,12 +431,29 @@ def test_quantized_args_run(world1):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_replay_cli_trace_type_et_names_item_11b():
+def test_replay_cli_trace_type_et_names_item_11b(tmp_path, capsys):
+    """Item 11b is ported: ``--trace-type et`` replays a saved execution
+    trace's comm ops on gloo (a world of one in-process)."""
     from param_tpu_torch.cli import replay
+    from param_tpu_torch.trace.capture import capture_execution_trace
 
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        replay.main(["--trace-path", "t.json", "--trace-type", "et",
-                     "--device", "cpu"])
+    backend = DistBackend("cpu")
+    backend.initialize()
+    try:
+        def f(x):
+            torch.distributed.all_reduce(x)
+            return x * 2
+
+        capture_execution_trace(f, torch.ones(64)).save(
+            str(tmp_path / "et.json"))
+        rc = replay.main(["--trace-path", str(tmp_path / "et.json"),
+                          "--trace-type", "et", "--device", "cpu",
+                          "--blocking"])
+    finally:
+        backend.shutdown()
+    report = json.loads(capsys.readouterr().out)
+    assert rc == 0 and report["num_ops"] == 1
+    assert report["collectives"]["all_reduce"]["total_bytes"] == 64 * 4
 
 
 def test_needs_cuda_unless_cpu_is_asked_for():

@@ -122,9 +122,53 @@ def test_profiler_analysis_matches_reference(tmp_path):
         ref_pa.effective_a2a_bytes([1, 2, 3], [3, 2, 1], 1, 4)
 
 
-def test_replay_cli_et_names_item_11b():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        replay_cli.main(["--trace-path", "t.json", "--trace-type", "et"])
+def test_replay_cli_et_names_item_11b(tmp_path, capsys):
+    """Item 11b is ported: ``--trace-type et`` replays the comm ops of a
+    saved execution trace (the JAX package's bundled jaxpr trace of a
+    sharded train step's collectives, or none) under the mock backend."""
+    from param_tpu_torch.trace.execution_trace import ExecutionTrace
+
+    path = str(tmp_path / "et.json")
+    ExecutionTrace({
+        "schema": "param-tpu-torch-et-1.0",
+        "nodes": [{"id": 1, "name": "c10d::allreduce_.default", "parent": 0,
+                   "op": True, "inputs": [0], "outputs": [0],
+                   "params": {"args": [[{"__tensor__": 0}],
+                                       {"__group__": {"size": 2,
+                                                      "ranks": [0, 1],
+                                                      "rank": 0}},
+                                       {"__reduce_op__": "SUM"}, None, False],
+                              "kwargs": {}, "n_out": 1},
+                   "iter": 0}],
+        "tensors": {"0": {"shape": [256], "dtype": "float32"}},
+        "in_tensors": [0], "out_tensors": [0]}).save(path)
+    rc = replay_cli.main(["--trace-path", path, "--trace-type", "et",
+                          "--backend", "mock", "--no-warm-up"])
+    report = json.loads(capsys.readouterr().out)
+    assert rc == 0 and report["num_ops"] == 1
+    assert report["collectives"]["all_reduce"]["total_bytes"] == 1024
+
+
+def test_pt2pt_replay_keeps_each_ops_pair():
+    """F3: two equal-sized sends between different pairs replay as the
+    trace's own pairs (the tensor cache is keyed on the pair too)."""
+    from param_tpu_torch.backend import MockBackend
+    from param_tpu_torch.trace.replay import CommsReplay, ReplayParams
+
+    trace = [{"comms": "send", "in_msg_size": 256, "out_msg_size": 256,
+              "dtype": "float32", "src_rank": s, "dst_rank": d}
+             for s, d in ((0, 1), (2, 3), (0, 1))]
+    backend = MockBackend(world_size=4)
+    rep = CommsReplay(backend, ReplayParams(do_warmup=False))
+    rep.run(trace)
+    pairs = [(a.src_ranks, a.dst_ranks) for _, a in backend.calls]
+    assert pairs == [([e["src_rank"]], [e["dst_rank"]]) for e in trace]
+    # the collectives' cache is unchanged: one entry for both all_reduces
+    rep2 = CommsReplay(MockBackend(world_size=4), ReplayParams(do_warmup=False))
+    rep2.run([{"comms": "all_reduce", "in_msg_size": 256,
+               "out_msg_size": 256, "dtype": "float32"}] * 2)
+    assert len(rep2._tensor_cache) == 1
+    assert len(rep._tensor_cache) == 2
 
 
 # --------------------------------------------------- quant / comm split
