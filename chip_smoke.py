@@ -256,6 +256,30 @@ Phases (any failure exits non-zero):
      them, each rank's replay equal to its own direct step.  Phases 2 and 3
      also time K1 and K2 issued eagerly through their registered ops
      beside the wrappers' own eager time.
+ 24. The op-level PyTorch-ET replay at the fixtures' llama2-7B attention
+     width (d 4096, 32 x 128 heads, S 2048, FFN 16384, 4 layers; f32 and
+     ``--cast bf16``), after an unrecorded warm-up replay:
+     ``cli.pt_et`` on ``transformer_long_et`` unfused and with ``--fuse
+     attention``, and on ``transformer_train_long_et`` unfused and with
+     ``--fuse attention-train``, the launch counts reset before each run
+     and read after: no op skipped, 4 forward (and 4 backward) windows,
+     as many ``fused::flash_attention`` (``_bwd``) calls, and K6 (K7)
+     launched twice a call (untimed, timed), all on tf32x3 in f32 and on
+     wgmma in bf16, none unfused.  Each run's ms in its timed calls, wall
+     s, top five ops and peak device memory.  Window 0's K6 output in the
+     replay, f32 and bf16: bitwise a direct K6 call on the same q / k / v
+     views, and within ``flash_fwd_tolerance`` of the plain version (in
+     f32 scaled by max |v|: phase 13's bound is for unit-scale inputs) on
+     every row whose softmax cannot turn over under the products' rounding
+     (at least 90% of them).  ``--chain`` on the bf16 train fixture: the
+     CUDA graph captured, its two replays running 8 each of
+     ``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma`` and ``flash_bwd_dkv_wgmma``
+     by ``torch.profiler`` kernel names (the wrappers' counters do not see
+     a graph replay), and its ms an iteration beside discrete mode's.  The
+     generated script of ``transformer_train_et`` in a subprocess on the
+     card (``replayed 226 ops OK``), ``cli.analyze`` of phase 22's replay
+     details, and ``cli.scaling --collective all_reduce --size 64M
+     --worlds 2 4 8 16 64`` (the model's rows, not a measurement).
 Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22) use CUDA events after a
 warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
@@ -264,8 +288,8 @@ issued eagerly from Python), the plain version issued eagerly.  Bounds: bytes ov
 3.35 TB/s, or operations over the H100's peak for the type (989 TF/s bf16,
 67 TF/s f32, 165 TF/s for f32-accurate attention on the tensor cores).
 Then a ``{"kernels": [...]}`` line (K6 and K7 by the path the main path
-took; every launch of theirs in the 16-bit runs of phases 13 and 16 must
-have been on wgmma, and in the f32 runs on tf32x3; K8a, K8b
+took; every launch of theirs in the 16-bit runs of phases 13, 16 and 24
+must have been on wgmma, and in the f32 runs on tf32x3; K8a, K8b
 and their one-rank copy by route, each with its own launches), and last
 the ``{"ok": true, ...}`` line.
 ``--out PATH`` also writes the full results as JSON to PATH.
@@ -964,12 +988,13 @@ def parallel_world(cards: int, smi: str) -> dict:
     return res
 
 
-def run_cli(mod, argv):
-    """A CLI's ``main(argv)`` in this process -> (rc, stdout, wall s)."""
+def run_cli(mod, argv, log=True):
+    """A CLI's ``main(argv)`` in this process -> (rc, stdout, wall s);
+    ``log``: the CLI takes ``--log`` (WARNING is passed)."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = mod.main(argv + ["--log", "WARNING"])
+        rc = mod.main(argv + (["--log", "WARNING"] if log else []))
     return rc, buf.getvalue(), time.perf_counter() - t0
 
 
@@ -1176,7 +1201,7 @@ def comms_remainder(smi: str) -> dict:
             f"ops, each the recorded collective and size; --dry-run counts "
             f"{counts} | {wall:.1f} s | {smi}")
         rec["replay"][ttype] = dict(ops=len(replayed), wall_s=wall,
-                                    counts=counts)
+                                    counts=counts, details=details)
 
     # -- a trace with an emb_lookup compute op at the comms-compute shape
     trace = [{"compute": "emb_lookup", "emb_dim": 128, "num_embs": 100_000,
@@ -1503,6 +1528,280 @@ def et_sharded_world(cards: int, smi: str) -> dict:
         f"{wall:.1f} s | {smi}\n{json.dumps(res)}")
     res["wall_s"] = wall
     return res
+
+
+def softmax_turns_over(q, k, causal, scale):
+    """(B, H, S_q) bool: rows of softmax(scale q k^T) whose top two scores
+    are within 4 eps of each other, eps = D 2^-22 scale max_j |q| @ |k_j|
+    (the bound of a D-term sum of products each rounded to 2^-22 relative,
+    the split-TF32 products' error and above f32's): there a last-bit
+    difference in the scores may move the weight to another row of V, and
+    no elementwise bound applies.  Computed in f64 on the card."""
+    import torch
+
+    qd, kd = q.double(), k.double()
+    s = torch.matmul(qd, kd.transpose(-1, -2)) * scale
+    mag = torch.matmul(qd.abs(), kd.abs().transpose(-1, -2)) * scale
+    sq, sk = s.shape[-2:]
+    if causal:  # bottom-right aligned, as K6
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
+            sk - sq)
+        s = s.masked_fill(~keep, -math.inf)
+        mag = mag.masked_fill(~keep, 0)
+    top = s.topk(2, dim=-1).values
+    eps = q.shape[-1] * 2.0 ** -22 * mag.amax(-1)
+    return (top[..., 0] - top[..., 1]) <= 4 * eps
+
+
+PT_ET_RUNS = (("transformer_long_et", "attention"),
+              ("transformer_train_long_et", "attention-train"))
+PT_ET_WINDOWS = 4  # attention windows a direction in each fixture
+
+
+def pt_et_tier(smi: str, details: str) -> dict:
+    """Phase 24: the PyTorch-ET op replay at the fixtures' llama2-7B
+    attention width (see the module docstring).  ``details`` is phase 22's
+    replay details file.  Returns the records; ``by_cast`` holds the
+    main-path runs' K6 / K7 launches, f32 and bf16."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.cli import analyze, pt_et, scaling
+    from param_tpu_torch.kernels.flash_fwd import (
+        flash_fwd_plain, flash_fwd_tolerance,
+    )
+    from param_tpu_torch.ops.attention import flash_attention
+    from param_tpu_torch.trace.pytorch_et import tensor_key
+    from param_tpu_torch.trace.pytorch_op_replay import PyTorchOpReplay
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fixtures = os.path.join(ROOT, "tests", "fixtures")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_24_")
+    gib = 2.0 ** 30
+    rec = {"launches": {k: 0 for k in kernels.launch_counts}, "runs": {},
+           "by_cast": {"f32": [], "bf16": []}}
+    path_of = {"f32": "tf32x3", "bf16": "wgmma"}
+
+    def fresh():
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # -- a warm-up replay (not recorded): clocks, cuBLAS and K6 / K7's
+    # builds come up before the runs that are compared
+    rc, out, _ = run_cli(pt_et, [
+        "--trace", os.path.join(fixtures, "transformer_train_et.json.gz"),
+        "--device", "cuda", "--fuse", "attention-train"])
+    if rc != 0:
+        fail(f"phase 24 warm-up replay: rc {rc}:\n{out[-4000:]}")
+
+    # -- cli.pt_et, unfused then fused, f32 and bf16 (the main path)
+    for fixture, fuse in PT_ET_RUNS:
+        trace = os.path.join(fixtures, f"{fixture}.json.gz")
+        for cast in ("f32", "bf16"):
+            for f in (None, fuse):
+                name = f"{fixture} --fuse {f} {cast}" if f else \
+                    f"{fixture} unfused {cast}"
+                report_path = os.path.join(tmp, "report.json")
+                argv = ["--trace", trace, "--device", "cuda", "--top", "5",
+                        "--output-json", report_path]
+                argv += ["--fuse", f] if f else []
+                argv += ["--cast", "bf16"] if cast == "bf16" else []
+                fresh()
+                kernels.reset_launch_counts()
+                rc, out, wall = run_cli(pt_et, argv)
+                torch.cuda.synchronize(dev)
+                launched = {k: v for k, v in kernels.launch_counts.items()
+                            if v}
+                peak = torch.cuda.max_memory_allocated(dev) / gib
+                report = {}
+                if rc == 0:
+                    with open(report_path) as fh:
+                        report = json.load(fh)
+                per_op = report.get("per_op", {})
+                m = re.search(r"^fused (\d+) attention windows", out, re.M)
+                mb = re.search(r"^fused (\d+) attention BACKWARD", out, re.M)
+                wins = (int(m.group(1)) if m else 0,
+                        int(mb.group(1)) if mb else 0)
+                want_wins = (PT_ET_WINDOWS if f else 0,
+                             PT_ET_WINDOWS if f == "attention-train" else 0)
+                counts = (
+                    per_op.get("fused::flash_attention", {}).get("count", 0),
+                    per_op.get("fused::flash_attention_bwd", {})
+                    .get("count", 0))
+                # one untimed and one timed call a window and iteration
+                want = {"flash_fwd": 2 * counts[0],
+                        f"flash_fwd_{path_of[cast]}": 2 * counts[0],
+                        "flash_bwd": 2 * counts[1],
+                        f"flash_bwd_{path_of[cast]}": 2 * counts[1]}
+                flash = {k: v for k, v in launched.items()
+                         if k.startswith("flash_")}
+                if rc != 0 or report.get("skipped") != {} or \
+                        wins != want_wins or counts != wins or \
+                        flash != {k: v for k, v in want.items() if v}:
+                    fail(f"phase 24 cli.pt_et {name}: rc {rc}, skipped "
+                         f"{report.get('skipped')}, windows {wins} against "
+                         f"{want_wins}, fused calls {counts}, launches "
+                         f"{launched} against {want}:\n{out[-4000:]}")
+                for k, v in launched.items():
+                    rec["launches"][k] += v
+                ms = sum(s["total_us"] for s in per_op.values()) / 1e3
+                run = dict(ops=report["num_executed"],
+                           selected=report["num_selected"], windows=wins,
+                           ms_timed_calls=ms, wall_s=report["wall_s"],
+                           cli_wall_s=wall, peak_gib=peak,
+                           launches=launched,
+                           top5_us={k: (v["count"], round(v["total_us"], 1))
+                                    for k, v in list(per_op.items())[:5]})
+                rec["runs"][name] = run
+                if f:
+                    rec["by_cast"][cast].append(run)
+                say(f"phase 24 cli.pt_et {name}: {run['ops']} of "
+                    f"{run['selected']} ops, none skipped, windows {wins}, "
+                    f"{ms:.3f} ms in the timed calls ({run['wall_s']:.2f} s "
+                    f"wall with the untimed calls; cli {wall:.1f} s) | peak "
+                    f"{peak:.2f} GiB | launches {launched} | top "
+                    f"{run['top5_us']} | {smi}")
+
+    # -- one forward window's K6 output against the plain version
+    data = pt_et.load_trace(os.path.join(fixtures, "transformer_long_et"
+                                         ".json.gz"))
+    rec["window"] = {}
+    for cast in ("f32", "bf16"):
+        fresh()
+        r = PyTorchOpReplay(data, fuse="attention", device=dev,
+                            cast="bf16" if cast == "bf16" else None)
+        w = r.fused_windows[0]
+        for node in r.nodes:
+            r.run_node(node, timed=False)
+            if node.id == w.anchor_id:
+                got = r.registry[tensor_key(node.outputs[0])]
+                break
+        q, k, v = (r._resolve_tensor(*s[:3]) for s in (w.q, w.k, w.v))
+        direct = flash_attention(q, k, v, causal=w.causal, scale=w.scale)
+        want = flash_fwd_plain(q, k, v, w.causal, w.scale)
+        tol = flash_fwd_tolerance(q, k, v, want, w.causal, w.scale)
+        v_scale = max(1.0, v.abs().max().item())
+        if q.dtype == torch.float32:
+            # phase 13's bound is for unit-scale inputs; O is linear in V
+            tol = tol * v_scale
+        rows = softmax_turns_over(q, k, w.causal, w.scale)
+        err = (got.float() - want.float()).abs()
+        n_bad = int(((err > tol) & ~rows[..., None]).sum())
+        share = 1.0 - rows.float().mean().item()
+        if got.shape != want.shape or not torch.equal(got, direct) or \
+                n_bad or share < 0.9:
+            fail(f"phase 24 window 0 {cast}: the replay's K6 output "
+                 f"{tuple(got.shape)}, bitwise a direct K6 call: "
+                 f"{torch.equal(got, direct)}; {n_bad} elements of the "
+                 f"{share:.4f} of rows whose softmax cannot turn over "
+                 f"outside flash_fwd_tolerance of the plain version")
+        max_err = err[~rows].max().item()
+        rec["window"][cast] = dict(
+            shape=list(w.shape), causal=w.causal, scale=w.scale,
+            v_scale=v_scale, rows_checked=share, max_abs_err=max_err)
+        say(f"phase 24 window 0 of transformer_long_et {cast} "
+            f"{tuple(w.shape)} causal: the replay's K6 output is bitwise a "
+            f"direct K6 call on the same q / k / v views, and within "
+            f"flash_fwd_tolerance of the plain version (f32: x max|v| "
+            f"{v_scale:.1f}) on the {share:.4f} of rows whose softmax "
+            f"cannot turn over (max abs err {max_err:.3e})")
+        del r, q, k, v, got, want, tol, err, direct, rows
+
+    # -- the CUDA-graph chain of the bf16 train fixture
+    fresh()
+    data = pt_et.load_trace(os.path.join(fixtures, "transformer_train_long"
+                                         "_et.json.gz"))
+    r = PyTorchOpReplay(data, fuse="attention-train", cast="bf16",
+                        device=dev)
+    t0 = time.perf_counter()
+    chain = r.build_chain()
+    build_s = time.perf_counter() - t0
+    chain(1)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain(2)
+        torch.cuda.synchronize(dev)
+    names = {"flash_fwd_wgmma": 0, "flash_bwd_dq_wgmma": 0,
+             "flash_bwd_dkv_wgmma": 0}
+    kernels_seen = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_seen += e.count
+        for n in names:
+            if re.search(rf"\b{n}\b", e.key):
+                names[n] += e.count
+    if any(v != 2 * PT_ET_WINDOWS for v in names.values()):
+        fail(f"phase 24 chain: two graph replays ran {names} (profiler "
+             f"kernel names; {kernels_seen} kernels in all), not "
+             f"{2 * PT_ET_WINDOWS} of each")
+    chain_ms = r.measure_chain_iteration(n=5, reps=3, chain=chain)
+    carry = chain(1).item()
+    peak = torch.cuda.max_memory_allocated(dev) / gib
+    discrete = rec["runs"]["transformer_train_long_et --fuse "
+                           "attention-train bf16"]
+    rec["chain"] = dict(ms=chain_ms, build_s=build_s, peak_gib=peak,
+                        profiler_kernels=names, kernels=kernels_seen,
+                        carry=carry, discrete_ms=discrete["ms_timed_calls"],
+                        discrete_wall_s=discrete["wall_s"])
+    say(f"phase 24 --chain transformer_train_long_et --fuse attention-train "
+        f"bf16: captured in {build_s:.1f} s; two replays ran {names} "
+        f"(torch.profiler kernel names, {kernels_seen} kernels); "
+        f"{chain_ms:.3f} ms an iteration (CUDA events) against discrete "
+        f"mode's {discrete['ms_timed_calls']:.3f} ms in its timed calls "
+        f"({discrete['wall_s']:.2f} s wall); carry {carry:.4g} | peak "
+        f"{peak:.2f} GiB | {smi}")
+    del r, chain, prof
+    fresh()
+
+    # -- codegen of transformer_train_et, run on the card
+    r = PyTorchOpReplay(pt_et.load_trace(os.path.join(
+        fixtures, "transformer_train_et.json.gz")), device=dev)
+    src = r.codegen("transformer_train_et")
+    script = os.path.join(tmp, "replay_transformer_train.py")
+    with open(script, "w") as fh:
+        fh.write(src)
+    want_line = f"replayed {src.count('    _bind(')} ops OK"
+    p = subprocess.run([sys.executable, script, "--device", "cuda"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if p.returncode != 0 or want_line not in p.stdout:
+        fail(f"phase 24 generated script: rc {p.returncode}, no "
+             f"'{want_line}':\n{p.stdout}\n{p.stderr[-4000:]}")
+    rec["codegen"] = p.stdout.strip()
+    say(f"phase 24 generated transformer_train_et script on the card: "
+        f"{' / '.join(p.stdout.strip().splitlines())}")
+
+    # -- cli.analyze on phase 22's replay details, cli.scaling
+    rc, out, _ = run_cli(analyze, [details, "--world-size", "1", "--json"],
+                         log=False)
+    res = json.loads(out) if rc == 0 else {}
+    if rc != 0 or not res.get("collectives") or \
+            not res.get("total_comm_us", 0) > 0:
+        fail(f"phase 24 cli.analyze {details}: rc {rc}:\n{out}")
+    rec["analyze"] = res
+    say(f"phase 24 cli.analyze (phase 22's replay details): "
+        f"{len(res['collectives'])} collectives, total "
+        f"{res['total_comm_us']:.1f} us, shared bw "
+        f"{res['shared_bw_gbs']:.2f} GB/s")
+    rc, out, _ = run_cli(scaling, ["--collective", "all_reduce", "--size",
+                                   "64M", "--worlds", "2", "4", "8", "16",
+                                   "64", "--json"], log=False)
+    rows = json.loads(out) if rc == 0 else []
+    if rc != 0 or [row["world"] for row in rows] != [2, 4, 8, 16, 64] or \
+            not all(0 < row["time_us"] < math.inf and
+                    0 < row["bus_bw_gbs"] <= 450 for row in rows):
+        fail(f"phase 24 cli.scaling: rc {rc}:\n{out}")
+    rec["scaling"] = rows
+    say("phase 24 cli.scaling --collective all_reduce --size 64M (the "
+        "model, not a measurement): " + ", ".join(
+            f"{row['world']} GPUs {row['time_us']} us "
+            f"({row['bus_bw_gbs']} GB/s)" for row in rows))
+    rec["launches"] = {k: v for k, v in rec["launches"].items() if v}
+    return rec
 
 
 def main(out_path=None) -> int:
@@ -3302,6 +3601,10 @@ def main(out_path=None) -> int:
     result["phases"]["et_tier"] = et23
     main23 = et23["launches"]
 
+    # ---------------------------------------------------------------- 24
+    pt24 = pt_et_tier(smi, rem22["replay"]["basic"]["details"])
+    result["phases"]["pt_et_tier"] = pt24
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -3341,6 +3644,11 @@ def main(out_path=None) -> int:
     k7_f32_launches = main_path_flash(f32_runs, "flash_bwd", "tf32x3")
     k6_par_launches = main_path_flash(main21, "flash_fwd")
     k7_par_launches = main_path_flash(main21, "flash_bwd")
+    pt_f32, pt_bf16 = pt24["by_cast"]["f32"], pt24["by_cast"]["bf16"]
+    k6_pt_f32 = main_path_flash(pt_f32, "flash_fwd", "tf32x3")
+    k7_pt_f32 = main_path_flash(pt_f32, "flash_bwd", "tf32x3")
+    k6_pt_bf16 = main_path_flash(pt_bf16, "flash_fwd")
+    k7_pt_bf16 = main_path_flash(pt_bf16, "flash_bwd")
     src = "param_tpu_torch/kernels/csrc/"
     report = {"kernels": [
         entry("emb_gather (K1)", src + "emb_gather.cu",
@@ -3435,6 +3743,20 @@ def main(out_path=None) -> int:
         entry("sparse_update adagrad, ET replay (K2)",
               src + "sparse_update.cu", "param_tpu/ops/sparse_update.py:117",
               main23.get("sparse_update_adagrad", 0), k2["adagrad"]),
+        entry("flash attention forward, PyTorch-ET op replay (K6), tf32x3 "
+              "path", src + "flash_fwd.cu", "param_tpu/ops/attention.py:251",
+              k6_pt_f32, k6["f32_llama2_causal"]),
+        entry("flash attention backward, PyTorch-ET op replay (K7), tf32x3 "
+              "path", src + "flash_bwd.cu",
+              "param_tpu/ops/attention.py:809, :841", k7_pt_f32,
+              k7["f32_llama2_causal"]),
+        entry("flash attention forward, PyTorch-ET op replay (K6), wgmma "
+              "path", src + "flash_fwd.cu", "param_tpu/ops/attention.py:251",
+              k6_pt_bf16, k6["llama2_causal"]),
+        entry("flash attention backward, PyTorch-ET op replay (K7), wgmma "
+              "path", src + "flash_bwd.cu",
+              "param_tpu/ops/attention.py:809, :841", k7_pt_bf16,
+              k7["llama2_causal"]),
         entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
               "param_tpu/ops/embedding.py:185", main19["emb_gather"],
               k1["headline_f32"]),

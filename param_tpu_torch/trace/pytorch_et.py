@@ -29,7 +29,7 @@ from __future__ import annotations
 import json
 import logging
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from param_tpu_torch.trace.comms_trace import CommsOp, P2P_OPS, to_comm_name
 
@@ -73,6 +73,27 @@ def _torch_dtype(token: str) -> str:
     if t.startswith("tensor(") and t.endswith(")"):
         t = t[len("tensor("):-1]
     return _TORCH_DTYPES.get(t, t or "float32")
+
+
+def is_tensor_slot(type_token: str) -> bool:
+    """A slot holding one tensor (not a list of them)."""
+    t = type_token or ""
+    return "Tensor" in t and "GenericList" not in t
+
+
+def is_tensor_list_slot(type_token: str) -> bool:
+    """A ``GenericList[...]`` slot holding tensors; index lists can lead
+    with None slots (``GenericList[None,Tensor(long)]``)."""
+    t = type_token or ""
+    return t.startswith("GenericList[") and "Tensor" in t
+
+
+def tensor_key(desc: Any) -> Optional[Tuple[int, int]]:
+    """(tensor_id, storage_id) of a tensor descriptor; None for anything
+    else."""
+    if not isinstance(desc, (list, tuple)) or len(desc) < 4:
+        return None
+    return (int(desc[0]), int(desc[1]))
 
 
 @dataclass

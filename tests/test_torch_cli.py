@@ -1,6 +1,7 @@
 """The port's DLRM trainer CLI on the CPU, and the rules of the port's package:
 no JAX and nothing of the reference package, and no silent CPU fallback."""
 
+import json
 import os
 import re
 import subprocess
@@ -92,7 +93,13 @@ _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
                   "param_tpu_torch/trace/capture.py",
                   "param_tpu_torch/trace/et_replay.py",
                   "param_tpu_torch/cli/et.py",
-                  "tests/torch_et_worker.py"]
+                  "tests/torch_et_worker.py",
+                  "param_tpu_torch/trace/pytorch_op_replay.py",
+                  "param_tpu_torch/trace/attention_fusion.py",
+                  "param_tpu_torch/trace/scaling_model.py",
+                  "param_tpu_torch/cli/pt_et.py",
+                  "param_tpu_torch/cli/analyze.py",
+                  "param_tpu_torch/cli/scaling.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -258,3 +265,148 @@ def test_et_cli_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         et.main(["capture", "--workload", "mlp", "-o",
                  str(tmp_path / "et.json")])
+
+
+def test_pt_et_modules_load_without_jax():
+    """The op-level replay, attention fusion, scaling model and their CLIs
+    pull in neither JAX nor the reference package."""
+    code = ("import sys\n"
+            "import param_tpu_torch.trace.pytorch_op_replay\n"
+            "import param_tpu_torch.trace.attention_fusion\n"
+            "import param_tpu_torch.trace.scaling_model\n"
+            "import param_tpu_torch.cli.pt_et, param_tpu_torch.cli.analyze\n"
+            "import param_tpu_torch.cli.scaling\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+_TRAIN_ET = os.path.join(ROOT, "tests", "fixtures", "transformer_train_et"
+                         ".json.gz")
+
+
+def test_pt_et_parser():
+    from param_tpu_torch.cli import pt_et
+
+    ns = pt_et.build_parser().parse_args(["--trace", "x.json", "--chain",
+                                          "--max-ops", "10"])
+    assert ns.chain and ns.max_ops == 10 and ns.device == "cuda"
+    assert ns.backend == "dist" and ns.mode == "comp"
+    with pytest.raises(SystemExit):
+        pt_et.build_parser().parse_args(["--trace", "x", "--backend", "tpu"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--fuse", "attention-train",
+                                        "--cast", "bf16"], ["--chain"]])
+def test_pt_et_main_on_cpu(extra, tmp_path, capsys):
+    """``cli.pt_et`` on the small training fixture with ``--device cpu``:
+    every op replayed (the fused windows counted), nothing skipped."""
+    from param_tpu_torch.cli import pt_et
+
+    out_json = str(tmp_path / "report.json")
+    assert pt_et.main(["--trace", _TRAIN_ET, "--device", "cpu",
+                       "--output-json", out_json] + extra) == 0
+    out = capsys.readouterr().out
+    assert "selected 226 ATen ops (schema 1.1.1-chakra.0.0.4)" in out
+    report = json.loads(open(out_json).read())
+    assert report["skipped"] == {} and report["num_selected"] == 226
+    if "--chain" in extra:
+        assert "fused-iteration time:" in out
+        assert report["chain_iteration_s"] > 0
+    elif "--fuse" in extra:
+        assert "fused 2 attention windows (14 ops)" in out
+        assert "fused 2 attention BACKWARD windows (26 ops)" in out
+        assert report["num_executed"] == 190
+        assert report["per_op"]["fused::flash_attention_bwd"]["count"] == 2
+    else:
+        assert report["num_executed"] == 226 and "executed 226 ops" in out
+
+
+def test_pt_et_codegen_and_skip_config(tmp_path, capsys):
+    from param_tpu_torch.cli import pt_et
+
+    script, cfg = str(tmp_path / "gen.py"), str(tmp_path / "skip.json")
+    with open(cfg, "w") as f:
+        json.dump({"skip nodes": {"aten::gelu": "pre-skip"}}, f)
+    assert pt_et.main(["--trace", _TRAIN_ET, "--device", "cpu",
+                       "--codegen", script, "--skip-config", cfg]) == 0
+    assert f"-> {script}" in capsys.readouterr().out
+    src = open(script).read()
+    assert src.count("# skipped: aten::gelu (pre-skip)") == 2
+    assert "replayed 224 ops OK" in src
+
+
+def test_pt_et_needs_cuda_unless_cpu_is_asked_for():
+    from param_tpu_torch.cli import pt_et
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behaviour")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_et.main(["--trace", _TRAIN_ET])
+
+
+def test_pt_et_full_mode_on_mock_backend(capsys):
+    """``--mode full --backend mock``: a trace without comm records
+    replays its compute stream; the mock backend needs no process group."""
+    from param_tpu_torch.cli import pt_et
+
+    assert pt_et.main(["--trace", _TRAIN_ET, "--device", "cpu", "--mode",
+                       "full", "--backend", "mock", "--max-ops", "20"]) == 0
+    assert "executed 20 ops" in capsys.readouterr().out
+
+
+def _details(path):
+    records = [{"op_id": i, "comms": c, "size_bytes": 1 << 20,
+                "lat_us": 10.0 + i, "marker": ""}
+               for i, c in enumerate(["all_reduce", "all_gather",
+                                      "all_reduce"])]
+    with open(path, "w") as f:
+        json.dump(records, f)
+    return path
+
+
+def test_analyze_main(tmp_path, capsys):
+    from param_tpu_torch.cli import analyze
+
+    one = _details(str(tmp_path / "d0.json"))
+    assert analyze.main([one, "--world-size", "2", "--json"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert [r["collective"] for r in res["collectives"]] == [
+        "all_gather", "all_reduce"]
+    assert res["total_comm_us"] == pytest.approx(33.0)
+    assert analyze.main([one, "--world-size", "2"]) == 0
+    assert "all_reduce" in capsys.readouterr().out
+    two = _details(str(tmp_path / "d1.json"))
+    assert analyze.main([one, two, "--world-size", "2"]) == 0
+    assert json.loads(capsys.readouterr().out)
+    with pytest.raises(SystemExit):
+        analyze.build_parser().parse_args(["x.json"])  # --world-size needed
+
+
+def test_scaling_main(tmp_path, capsys):
+    from param_tpu_torch.cli import scaling
+
+    assert scaling.main(["--collective", "all_reduce", "--size", "64M",
+                         "--worlds", "2", "4", "8", "16", "64",
+                         "--json"]) == 0
+    rows = json.loads(capsys.readouterr().out)
+    assert [r["world"] for r in rows] == [2, 4, 8, 16, 64]
+    assert [r["nodes"] for r in rows][-2:] == ["8*2n", "8*8n"]
+    assert all(0 < r["bus_bw_gbs"] <= 450 for r in rows)
+    assert scaling.main(["--collective", "all_to_all", "--worlds", "8",
+                         "--nvlink-gbs", "100"]) == 0
+    assert "all_to_all size=64M gen=h100" in capsys.readouterr().out
+    trace = str(tmp_path / "comms.json")
+    with open(trace, "w") as f:
+        json.dump([{"comms": "all_reduce", "in_msg_size": 1 << 20,
+                    "out_msg_size": 1 << 20, "dtype": "float32"}], f)
+    assert scaling.main(["--trace-path", trace, "--worlds", "8", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "per-op breakdown at world=8" in out and "8*2n" in out
+    assert scaling.main([]) == 2
+    with pytest.raises(SystemExit):
+        scaling.build_parser().parse_args(["--generation", "v5e"])
