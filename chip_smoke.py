@@ -163,10 +163,16 @@ Phases (any failure exits non-zero):
      ``F.embedding_bag`` over each tile's row ids (its library call), and a
      planted fault (one start shifted by one row) must break that
      comparison; K10 (block-
-     coalesced bag, r_blk 8, 16 bags a tile) at B 8192 x nnz 32 uniform and
-     zipf ids against the plain bag (K1's) within rtol 1e-5, and K1 at the
-     same ids (stage B's shape) against it too; timed beside K1, the
-     pre-pass + K10 path and F.embedding_bag (its library call).  Then
+     coalesced bag, r_blk 8, 16 bags a tile, one launch planning its own
+     tiles) at B 8192 x nnz 32 uniform and zipf ids against the plain bag
+     (K1's) within rtol 1e-5, NaN bags included, and K1 at the same ids
+     (stage B's shape) against it too; K10's per-tile block copies
+     equal to the plain planning stage's (``coalesce_plan``) counts; two
+     calls bitwise equal; an id moved by one row must break the
+     comparison; one profiled ``coalesced_bag`` call must run K10 and no
+     other kernel; timed beside K1 and F.embedding_bag (its library call),
+     with the parent design's pre-pass + K10 and K10-alone times quoted
+     beside (recorded in PERF.md, not measured by this run).  Then
      ``param_tpu_torch.bench.main()`` (the 1M x 128 headline through K1)
      and ``experiments.coalesce.main()`` (--verify, then stages A and B)
      in-process, the launch counts reset before and read after: K1, K9 and
@@ -506,6 +512,54 @@ def comms_world(cards: int, smi: str) -> dict:
 
 
 DLRM_OPTS = ("adagrad", "sparse_sgd", "sparse_adagrad")
+
+# Phase 19: the kernels one coalesced_bag call runs on stage B's uniform
+# and zipf ids, from torch.profiler over 5 calls in a fresh process (in
+# this process, after the earlier phases, such a profile recorded no
+# device events at all)
+K10_PROFILE = """
+import json
+import numpy as np
+import torch
+from param_tpu_torch.experiments import coalesce as coal
+from param_tpu_torch.kernels import coalesce as kc
+from param_tpu_torch.utils.profiler import kernel_times
+dev = torch.device("cuda")
+table = torch.rand((coal.E, coal.D), device=dev)
+rng = np.random.default_rng(0)
+out = {}
+for dist in ("uniform", "zipf"):
+    ids = torch.from_numpy(coal.stage_b_ids(rng, dist)).to(dev)
+    out[dist] = kernel_times(lambda: kc.coalesced_bag(
+        table, ids, coal.R_BLK, coal.TILE_BAGS), calls=5)[1]
+print(json.dumps(out))
+"""
+
+
+def k10_profile() -> dict:
+    """{dist: {kernel name: {launches, ms} a call}} of ``K10_PROFILE``."""
+    r = subprocess.run([sys.executable, "-c", K10_PROFILE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        fail(f"phase 19 K10 profile: rc {r.returncode}:\n{r.stdout}\n"
+             f"{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+# Phase 19: the design before the one-launch K10 (b6e95b8: a PyTorch
+# pre-pass, then the kernel on its plan) at phase 19's shape, graph-replay
+# medians in ms of its two runs in one chip call, where b6e95b8's own
+# experiments/coalesce.py stage B ran in turns with this tree's (parent,
+# new, new, parent); quoted from PERF.md section 6, not measured here
+K10_PARENT_ORIGIN = ("b6e95b8's experiments/coalesce.py in turns with this "
+                     "K10, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md "
+                     "section 6, not measured in this run")
+K10_PARENT = {"uniform": dict(call="0.4174 / 0.4169", alone="0.2760 / 0.2764",
+                              origin=K10_PARENT_ORIGIN),
+              "zipf": dict(call="0.3303 / 0.3298", alone="0.1888 / 0.1893",
+                           origin=K10_PARENT_ORIGIN)}
+
 _DLRM_ROW = re.compile(r"^\s*(\S+)\s+(\d+)\s+([\d.]+)\s+([\d.]+)\s+([\d.]+)"
                        r"\s+([\d.]+)\s+([\d.]+)$", re.M)
 
@@ -3413,7 +3467,6 @@ def main(out_path=None) -> int:
     from param_tpu_torch import bench as port_bench
     from param_tpu_torch.experiments import coalesce as coal
     from param_tpu_torch.kernels import coalesce as kc
-    from param_tpu_torch.models.dlrm_data import gen_indices
 
     torch.cuda.empty_cache()
     CE, CD = coal.E, coal.D
@@ -3464,53 +3517,91 @@ def main(out_path=None) -> int:
         del starts, shifted, want
 
     k10 = {}
+    k10_kernels = k10_profile()
     crng = np.random.default_rng(0)
     for dist in ("uniform", "zipf"):
-        if dist == "uniform":
-            idx = torch.randint(0, CE, (coal.B, coal.NNZ), generator=gen,
-                                device=dev, dtype=torch.int32)
-        else:
-            idx = torch.from_numpy(gen_indices(
-                crng, coal.B, 1, coal.NNZ, CE, "zipf")[:, 0, :]).to(dev)
+        idx = torch.from_numpy(coal.stage_b_ids(crng, dist, rows=CE)).to(dev)
         ids = [((idx.long() + s) % CE).int() for s in range(8)]
         longs = [i.long() for i in ids]
-        plans = [kc.coalesce_plan(i, CE, coal.R_BLK, coal.TILE_BAGS)
-                 for i in ids]
+
+        def bag(i, n_blocks=None):
+            return kc.coalesced_bag_cuda(ctab, i, coal.R_BLK, coal.TILE_BAGS,
+                                         n_blocks)
+
         want = emb_gather_plain(ctab, ids[0])
         tol = 1e-5 * want.abs().max().item()
-        err = check(f"K10 {dist}", kc.coalesced_bag_cuda(ctab, plans[0]),
-                    want, tol)
+        plan_blocks = kc.coalesce_plan(ids[0], CE, coal.R_BLK,
+                                       coal.TILE_BAGS).n_blocks
+        fetched = torch.full_like(plan_blocks, -1)
+        got = bag(ids[0], fetched)
+        err = check(f"K10 {dist}", got, want, tol)
         k1_err = check(f"K1 {dist} (stage B's ids)",
                        emb_gather_cuda(ctab, ids[0]), want, tol)
+        if not torch.equal(fetched, plan_blocks):
+            fail(f"K10 {dist}: the kernel fetched {int(fetched.sum())} "
+                 f"blocks ({(fetched != plan_blocks).sum().item()} tiles "
+                 f"differ), the scheme needs {int(plan_blocks.sum())}")
+        if not torch.equal(bag(ids[0]), got):
+            fail(f"K10 {dist}: two calls on the same ids differ")
+        # NaN bags: an id past the table and one below -R; -1 wraps
+        odd = ids[0].clone()
+        odd[5, 3], odd[9, 0], odd[7, 2] = CE, -CE - 1, -1
+        got_odd, want_odd = bag(odd), emb_gather_plain(ctab, odd)
+        nan_rows = torch.isnan(want_odd).all(1)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.isnan(got_odd).all(1), nan_rows)
+                and nan_rows.sum().item() == 2):
+            fail(f"K10 {dist}: NaN bags differ from K1's plain version")
+        check(f"K10 {dist} beside NaN bags", got_odd[~nan_rows],
+              want_odd[~nan_rows], tol)
+        # a planted fault: one id moved by one row, against the unmoved bag
+        moved = ids[0].clone()
+        moved[0, 0] = (moved[0, 0] + 1) % CE
+        bad_err = (bag(moved) - want).abs().max().item()
+        if not bad_err > tol:
+            fail(f"K10 {dist}: an id moved by one row is not flagged (err "
+                 f"{bad_err:.3e}, tol {tol:.3e})")
+        # the whole call on the card: K10 once and nothing else
+        ran = k10_kernels[dist]
+        if len(ran) != 1 or "coalesced_bag_kernel" not in next(iter(ran)) \
+                or next(iter(ran.values()))["launches"] != 1:
+            fail(f"K10 {dist}: a coalesced_bag call ran {ran}, not K10 "
+                 f"alone once")
         uniq = torch.unique(ids[0]).numel()  # shifts are bijections
-        blocks = int(plans[0].n_blocks.sum().item())
-        nbytes = uniq * CD * 4 + idx.numel() * 4 + coal.B * CD * 4
+        blocks = int(plan_blocks.sum().item())
+        ends = idx.numel() * 4 + coal.B * CD * 4  # ids in, bags out
+        nbytes = uniq * CD * 4 + ends
         b_ms, b_by = bound_ms(nbytes, idx.numel() * CD)
-        n1, n3 = itertools.cycle(plans), itertools.cycle(longs)
-        n2, n4, n5 = (itertools.cycle(ids) for _ in range(3))
-        rec = timings(lambda: kc.coalesced_bag_cuda(ctab, next(n1)),
+        scheme_ms = bound_ms(blocks * coal.R_BLK * CD * 4 + ends)[0]
+        n1, n3 = itertools.cycle(ids), itertools.cycle(longs)
+        n2, n4 = itertools.cycle(ids), itertools.cycle(ids)
+        rec = timings(lambda: bag(next(n1)),
                       lambda: emb_gather_plain(ctab, next(n2)),
                       lambda: F.embedding_bag(next(n3), ctab, mode="sum"), 20)
         rec["t_k1"] = timed(lambda: emb_gather_cuda(ctab, next(n4)), 20)
-        rec["t_with_prepass"] = timed(
-            lambda: kc.coalesced_bag(ctab, next(n5), coal.R_BLK,
-                                     coal.TILE_BAGS), 20)
+        parent = K10_PARENT[dist]
         rec.update(shape=f"table ({CE}, {CD}) f32, {coal.B} bags x "
                          f"{coal.NNZ} {dist} ids, r_blk {coal.R_BLK}, "
                          f"{coal.TILE_BAGS} bags a tile",
                    max_abs_err=err, tol=tol, k1_max_abs_err=k1_err,
-                   bound_ms=b_ms, bound_by=b_by,
+                   moved_id_err=bad_err,
+                   bound_ms=b_ms, bound_by=b_by, scheme_bound_ms=scheme_ms,
                    unique_rows=uniq, blocks=blocks, bytes=nbytes,
+                   profiled_kernels=ran, parent=parent,
                    gbps=nbytes / rec["ms"] / 1e6)
         k10[dist] = rec
         say(f"phase 19 K10 {dist}: {rec['shape']}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}), K1 at these ids {k1_err:.3e} | "
+            f"(tol {tol:.3e}), K1 at these ids {k1_err:.3e}; blocks "
+            f"fetched = the plan's {blocks}; two calls bitwise equal; NaN "
+            f"bags as K1's; an id moved one row flagged ({bad_err:.3e}); a "
+            f"profiled call: {next(iter(ran))[:40]} alone | "
             f"{timing_text(rec, 'F.embedding_bag')} | K1 "
-            f"{fmt(rec['t_k1'])} | pre-pass + K10 "
-            f"{fmt(rec['t_with_prepass'])} | {uniq} distinct rows in "
-            f"{blocks} blocks of {coal.R_BLK} | bound {b_ms:.4f} ms "
-            f"({b_by}) | {smi}")
-        del idx, ids, longs, plans, want
+            f"{fmt(rec['t_k1'])} | parent (pre-pass + K10 {parent['call']} "
+            f"ms, K10 alone {parent['alone']} ms; {parent['origin']}) | "
+            f"{uniq} distinct rows in {blocks} blocks of {coal.R_BLK} | bound "
+            f"{b_ms:.4f} ms ({b_by}; {b_ms / rec['ms']:.1%}), the scheme's "
+            f"blocks {scheme_ms:.4f} ms ({scheme_ms / rec['ms']:.1%}) | {smi}")
+        del idx, ids, longs, want
     del ctab
     torch.cuda.empty_cache()
 

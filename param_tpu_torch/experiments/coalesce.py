@@ -11,10 +11,10 @@ by k rows while the bytes stay the same.
   the time is n_copies * t_copy + bytes / rate with a flat t_copy, the
   lever is real.
 - Stage B (K10, ``kernels.coalesce.coalesced_bag``): the sum-pooled bag
-  through a per-tile sort and block dedup (the pre-pass, in PyTorch) and
-  one copy per distinct aligned ``r_blk``-row block, against K1 at the same
-  ids, under uniform and zipf ids.  Its time includes the pre-pass; K10
-  alone (on the card) and ``F.embedding_bag`` are printed beside it.
+  through a per-tile sort and block dedup and one copy per distinct aligned
+  ``r_blk``-row block, all in one K10 launch on the card, against K1 at the
+  same ids, under uniform and zipf ids; ``F.embedding_bag`` is printed
+  beside it.
 
 Sizes are the script's: table 1,048,576 x 128 f32 (512 MiB on the card),
 B 8192, nnz 32, K_ROWS 262,144, 4096 rows a tile for stage A, r_blk 8 and
@@ -61,6 +61,17 @@ def _shifts(x: torch.Tensor, modulus: int) -> List[torch.Tensor]:
     return [((x.long() + i) % modulus).int() for i in range(N_SHIFTS)]
 
 
+def stage_b_ids(rng: np.random.Generator, dist: str, batch: int = B,
+                rows: int = E) -> np.ndarray:
+    """Stage B's (batch, NNZ) int32 ids over ``rows`` rows, ``uniform`` or
+    ``zipf``, drawn from ``rng``."""
+    if dist == "uniform":
+        idx = rng.integers(0, rows, size=(batch, NNZ))
+    else:
+        idx = gen_indices(rng, batch, 1, NNZ, rows, "zipf")[:, 0, :]
+    return np.ascontiguousarray(idx, dtype=np.int32)
+
+
 def _time(fn, iters: int, dev: torch.device) -> dict:
     """ms per call: median, min and max over 5 windows (CUDA-graph replays
     on the card)."""
@@ -94,16 +105,13 @@ def stage_a(table: torch.Tensor, k_rows: int, rows_per_tile: int,
 
 def stage_b(table: torch.Tensor, batch: int, iters: int) -> None:
     """The bag through K10 against K1 (``coalesce_experiment.py:277``)."""
-    print(f"=== stage B: end-to-end bag lookup, coalesced (pre-pass + K10) "
-          f"vs K1 ===")
+    print("=== stage B: end-to-end bag lookup, coalesced (one K10 launch) "
+          "vs K1 ===")
     rng = np.random.default_rng(0)
     dev, rows = table.device, table.shape[0]
     rpt = TILE_BAGS * NNZ
     for dist in ("uniform", "zipf"):
-        if dist == "uniform":
-            idx = rng.integers(0, rows, size=(batch, NNZ)).astype(np.int32)
-        else:
-            idx = gen_indices(rng, batch, 1, NNZ, rows, "zipf")[:, 0, :]
+        idx = stage_b_ids(rng, dist, batch, rows)
         bl = np.sort(idx.reshape(-1, rpt), axis=1) // R_BLK
         distinct = float((np.diff(bl, axis=1) != 0).sum(axis=1).mean() + 1)
         print(f"  [{dist}] distinct {R_BLK}-row blocks per {rpt}-row tile: "
@@ -116,25 +124,16 @@ def stage_b(table: torch.Tensor, batch: int, iters: int) -> None:
             k1 = _time(lambda: emb_gather(table, next(n_ids)), iters, dev)
             coal = _time(lambda: kc.coalesced_bag(table, next(n_ids2), R_BLK,
                                                   TILE_BAGS), iters, dev)
-            k10 = None
-            if dev.type == "cuda":
-                n_plan = itertools.cycle([kc.coalesce_plan(
-                    i, rows, R_BLK, TILE_BAGS) for i in ids])
-                k10 = _time(lambda: kc.coalesced_bag_cuda(table, next(n_plan)),
-                            iters, dev)
             lib = _time(lambda: F.embedding_bag(next(n_long), table,
                                                 mode="sum"), iters, dev)
         lookups = batch * NNZ
         ratio = k1["ms"] / coal["ms"]
         print(f"  [{dist}] K1: {_fmt(k1)} "
               f"({lookups / k1['ms'] / 1e3:6.1f} M rows/s)   coalesced "
-              f"R={R_BLK} (pre-pass + K10): {_fmt(coal)} "
+              f"R={R_BLK} (K10): {_fmt(coal)} "
               f"({lookups / coal['ms'] / 1e3:6.1f} M rows/s)   -> "
               f"{'WIN' if coal['ms'] < k1['ms'] else 'LOSS'} {ratio:.2f}x")
-        alone = (f"K10 alone: {_fmt(k10)}   pre-pass: "
-                 f"{coal['ms'] - k10['ms']:.4f} ms" if k10 else
-                 "K10 alone: on the card only")
-        print(f"  [{dist}] {alone}   F.embedding_bag: {_fmt(lib)}")
+        print(f"  [{dist}] F.embedding_bag: {_fmt(lib)}")
 
 
 def verify(dev: torch.device) -> None:

@@ -61,10 +61,10 @@ _SIGNATURES = {
     },
     "coalesce": {
         "desc_fetch_smem": [_I, _I, _I],
-        "coalesced_bag_smem": [_I, _I, _I, _I, _I],
+        "coalesced_bag_smem": [_I, _I, _I, _I],
         "desc_fetch_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
-        "coalesced_bag_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                              _I, _P],
+        "coalesced_bag_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                              _P],
     },
 }
 

@@ -7,20 +7,21 @@
   start outside [0, R - k] makes its tile NaN.  Counterpart of
   ``scripts/coalesce_experiment.py::_desc_kernel`` (``desc_fetch``).
 - K10 :func:`coalesced_bag`: the sum-pooled bag (K1's function) through
-  the experiment's mechanism: :func:`coalesce_plan` sorts each tile's ids
-  and dedups them into aligned ``r_blk``-row blocks (the reference's XLA
-  pre-pass), and the kernel fetches each distinct block once with one copy,
-  then re-gathers and sums the rows per bag.  Counterpart of
-  ``scripts/coalesce_experiment.py::_arena_kernel`` (``coalesced_bag``).
-  As in K1 an id in [-R, 0) counts from the end and any other id outside
-  [0, R) makes its bag NaN.  Its plain version is K1's,
-  ``emb_gather_plain``.
+  the experiment's mechanism, in one launch: per tile of ``tile_bags``
+  bags the kernel sorts the tile's ids and dedups them into aligned
+  ``r_blk``-row blocks (the reference's XLA pre-pass), fetches each
+  distinct block once with one copy, then sums the rows per bag.
+  Counterpart of ``scripts/coalesce_experiment.py::_arena_kernel``
+  (``coalesced_bag``).  As in K1 an id in [-R, 0) counts from the end and
+  any other id outside [0, R) makes its bag NaN.  Its plain version is
+  K1's, ``emb_gather_plain``; :func:`coalesce_plan` is the plain version
+  of its planning stage (the block counts it must fetch).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,7 +29,6 @@ from param_tpu_torch.kernels import bindings, launch_counts
 from param_tpu_torch.kernels.emb_gather import emb_gather_plain
 
 _THREADS = 256
-_ARENA_BYTES = 48 * 1024  # K10: one of the two arena buffers
 
 
 class CoalescePlan(NamedTuple):
@@ -65,8 +65,8 @@ def _tiles(idx: torch.Tensor, r_blk: int, tile_bags: int):
 def coalesce_plan(idx: torch.Tensor, num_rows: int, r_blk: int = 8,
                   tile_bags: int = 16) -> CoalescePlan:
     """Per-tile sort, block dedup and arena offsets of (B, nnz) ids, on
-    ``idx``'s device (``coalesce_experiment.py:237-252``).  No host sync, so
-    it can be captured in a CUDA graph."""
+    ``idx``'s device (``coalesce_experiment.py:237-252``): the plain version
+    of K10's planning stage.  No host sync."""
     n_tiles, rpt = _tiles(idx, r_blk, tile_bags)
     nnz = idx.shape[1]
     ids = idx.reshape(n_tiles, rpt).long()
@@ -168,39 +168,47 @@ def desc_fetch(table: torch.Tensor, starts: torch.Tensor, k: int,
 
 
 # ------------------------------------------------------------------ K10
-def arena_blocks(r_blk: int, dim: int) -> int:
-    """Blocks K10 fetches per round into each of its two arena buffers."""
-    return max(1, min(32, _ARENA_BYTES // (r_blk * dim * 4)))
-
-
-def coalesced_bag_cuda(table: torch.Tensor, plan: CoalescePlan) -> torch.Tensor:
-    """Launch K10 on ``table``'s CUDA device."""
+def coalesced_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
+                       r_blk: int = 8, tile_bags: int = 16,
+                       n_blocks: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """K10 on ``table``'s CUDA device: the whole scheme, planning included,
+    in one launch.  With ``n_blocks`` ((n_tiles,) int32), the kernel also
+    writes how many blocks it fetched for each tile, which
+    :func:`coalesce_plan` says the scheme needs."""
+    n_tiles, _ = _tiles(idx, r_blk, tile_bags)
     if table.dim() != 2 or table.dtype != torch.float32:
         raise TypeError(f"K10 takes an (R, D) f32 table, got "
                         f"{tuple(table.shape)} {table.dtype}")
-    if table.shape[0] != plan.num_rows:
-        raise ValueError(f"the plan was made for {plan.num_rows} rows, the "
-                         f"table has {table.shape[0]}")
-    arrays = (plan.blocks, plan.n_blocks, plan.flat, plan.order)
-    for t in (table,) + arrays:
+    if idx.dtype != torch.int32:
+        raise TypeError(f"K10 takes int32 ids, got {idx.dtype}")
+    tensors = [table, idx] + ([n_blocks] if n_blocks is not None else [])
+    for t in tensors:
         if t.device != table.device or not t.is_contiguous():
             raise ValueError("K10 takes contiguous tensors on one device")
-    dim = table.shape[1]
-    if dim % 4 or table.data_ptr() % 16:
-        raise ValueError(f"K10 takes a 16-byte aligned table with D % 4 == "
-                         f"0, got D = {dim}")
-    n_tiles, rpt = plan.flat.shape
-    n_arena = arena_blocks(plan.r_blk, dim)
+    if n_blocks is not None and (n_blocks.dtype != torch.int32
+                                 or tuple(n_blocks.shape) != (n_tiles,)):
+        raise ValueError(f"n_blocks must be ({n_tiles},) int32")
+    rows, dim = table.shape
+    if dim % 4 or table.data_ptr() % 16 or not 0 < rows < 2**31 - 1:
+        raise ValueError(f"K10 takes a 16-byte aligned table of fewer than "
+                         f"2**31 - 1 rows with D % 4 == 0, got "
+                         f"{tuple(table.shape)}")
+    nnz = idx.shape[1]
     if not bindings.entry("coalesce", "coalesced_bag_smem")(
-            dim, plan.nnz, plan.tile_bags, plan.r_blk, n_arena):
-        raise ValueError(f"K10: a tile of {rpt} ids with r_blk {plan.r_blk} "
-                         f"and D {dim} does not fit in shared memory")
-    out = torch.empty((n_tiles * plan.tile_bags, dim), dtype=torch.float32,
+            dim, nnz, tile_bags, r_blk):
+        raise ValueError(
+            f"K10: a tile of {tile_bags} bags x {nnz} ids (at most 4096 ids "
+            f"and 32 bags, fewer at D > 128) with r_blk {r_blk} and D {dim} "
+            f"does not fit")
+    out = torch.empty((n_tiles * tile_bags, dim), dtype=torch.float32,
                       device=table.device)
     fn = bindings.entry("coalesce", "coalesced_bag_f32")
-    rc = fn(table.data_ptr(), *(t.data_ptr() for t in arrays), out.data_ptr(),
-            table.shape[0], dim, n_tiles, plan.nnz, plan.tile_bags, plan.r_blk,
-            n_arena, bindings.stream_of(table))
+    rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            n_blocks.data_ptr() if n_blocks is not None else None, rows, dim,
+            n_tiles, nnz, tile_bags, r_blk,
+            bindings.sm_count(table.device.index or 0),
+            bindings.stream_of(table))
     bindings.check(rc, "coalesced_bag")
     launch_counts["coalesced_bag"] += 1
     return out
@@ -208,12 +216,11 @@ def coalesced_bag_cuda(table: torch.Tensor, plan: CoalescePlan) -> torch.Tensor:
 
 def coalesced_bag(table: torch.Tensor, idx: torch.Tensor, r_blk: int = 8,
                   tile_bags: int = 16) -> torch.Tensor:
-    """The sum-pooled bag of (B, nnz) ids: on the card the pre-pass
-    (:func:`coalesce_plan`) then K10; on the CPU K1's plain version, the
-    same function (the ids' tiling is still checked)."""
+    """The sum-pooled bag of (B, nnz) ids: on the card one launch of K10;
+    on the CPU K1's plain version, the same function (the ids' tiling is
+    still checked)."""
     if table.device.type == "cuda":
-        return coalesced_bag_cuda(
-            table, coalesce_plan(idx, table.shape[0], r_blk, tile_bags))
+        return coalesced_bag_cuda(table, idx, r_blk, tile_bags)
     if table.device.type == "cpu":
         _tiles(idx, r_blk, tile_bags)
         return emb_gather_plain(table, idx)

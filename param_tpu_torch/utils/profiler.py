@@ -62,6 +62,32 @@ def profile_to(log_dir: Optional[str], device="cuda"):
                   f"{totals[1]} device operations; trace in {log_dir}")
 
 
+def kernel_times(run, calls: int = 10):
+    """Device ms a call of ``run`` by kernel name (cut to 80 characters),
+    from ``torch.profiler`` over ``calls`` calls after 3 warm-ups: their
+    sum, and {name: {launches, ms} a call}, the longest first."""
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name[:80]
+            n, ms = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, ms + ev.self_device_time_total / 1e3)
+    kernels = {k: dict(launches=n / calls, ms=ms / calls)
+               for k, (n, ms) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][1])}
+    return sum(v["ms"] for v in kernels.values()), kernels
+
+
 class SizeTriggeredProfiler:
     """Starts tracing once a sweep reaches ``start_size`` bytes
     (``cli.comms --size-start-profiler``); :meth:`stop` writes the trace."""

@@ -26,7 +26,9 @@ collectives over per-rank shards on one card): bitwise equal to their plain
 versions, which walk the same ring (copies, and one add in the input dtype
 per hop in the same order).  K9 (k-row fetch, tile sums) rtol 1e-4 and
 K10 (block-coalesced bag) rtol 1e-5, the coalesced-fetch script's own
-(sums of up to 4096 rows, and bags summed in another order).  Decode
+(sums of up to 4096 rows, and bags summed in another order); K10's block
+copies equal to the plain planning stage's counts, and its output bitwise
+equal from call to call.  Decode
 attention on the card (bf16 cache contracted with f32 accumulation)
 against the reference's output on stored inputs and against the f32
 product of the upcast operands: atol 1e-4, rtol 1e-3 (one bf16 rounding of
@@ -1886,31 +1888,68 @@ def test_desc_fetch_kernel_replays_from_a_graph(cuda_device):
                                rtol=1e-4, atol=0)
 
 
+def _bag_ids(case, rows, nnz, device, gen, batch=1024):
+    """(batch, nnz) int32 ids of a K10 case."""
+    idx = torch.randint(0, rows, (batch, nnz), generator=gen, device=device,
+                        dtype=torch.int32)
+    if case == "dup64":
+        idx = torch.randint(0, 64, (batch, nnz), generator=gen,
+                            device=device, dtype=torch.int32) * 997
+    if case == "invalid":
+        idx[3, 1], idx[40, 0], idx[41, 5] = -5, rows, -rows - 1
+    if case == "ragged-end":
+        idx[:, 0] = rows - 1 - torch.arange(batch, device=device) % 3
+    if case == "one-row":  # tile 2: every id one row
+        idx[32:48] = 12345
+    if case == "all-invalid":  # tile 1: every id outside [-R, R)
+        idx[16:32] = rows + torch.arange(nnz, device=device,
+                                         dtype=torch.int32)
+    return idx
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["uniform", "dup64", "invalid", "ragged-end",
-                                  "r_blk1", "r_blk16", "d64", "nnz30"])
+                                  "r_blk1", "r_blk16", "d64", "nnz30",
+                                  "one-row", "all-invalid", "tb8-nnz30"])
 def test_coalesced_bag_kernel_matches_plain(cuda_device, case):
+    """K10 against K1's plain bag, NaN bags included, and its per-tile
+    block copies against the plain planning stage's block counts."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     rows = (1 << 16) + (3 if case == "ragged-end" else 0)
     dim = 64 if case == "d64" else 128
     r_blk = {"r_blk1": 1, "r_blk16": 16}.get(case, 8)
-    nnz = 30 if case == "nnz30" else 32
+    nnz = 30 if case in ("nnz30", "tb8-nnz30") else 32
+    tile_bags = 8 if case == "tb8-nnz30" else 16
     table = torch.rand((rows, dim), generator=gen, device=cuda_device)
-    idx = torch.randint(0, rows, (1024, nnz), generator=gen,
-                        device=cuda_device, dtype=torch.int32)
-    if case == "dup64":
-        idx = torch.randint(0, 64, (1024, nnz), generator=gen,
-                            device=cuda_device, dtype=torch.int32) * 997
-    if case == "invalid":
-        idx[3, 1], idx[40, 0], idx[41, 5] = -5, rows, -rows - 1
-    if case == "ragged-end":
-        idx[:, 0] = rows - 1 - torch.arange(1024, device=cuda_device) % 3
-    plan = coalesce_plan(idx, rows, r_blk, 16)
-    got = coalesced_bag_cuda(table, plan)
+    idx = _bag_ids(case, rows, nnz, cuda_device, gen)
+    n_blocks = torch.full((1024 // tile_bags,), -1, dtype=torch.int32,
+                          device=cuda_device)
+    got = coalesced_bag_cuda(table, idx, r_blk, tile_bags, n_blocks)
     want = emb_gather_plain(table, idx)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
                                equal_nan=True)
+    plan = coalesce_plan(idx, rows, r_blk, tile_bags)
+    assert torch.equal(n_blocks, plan.n_blocks)
+    if case == "one-row":
+        assert n_blocks[2].item() == 1
+    if case == "all-invalid":
+        assert n_blocks[1].item() == 0 and torch.isnan(got[16:32]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "dup64"])
+def test_coalesced_bag_kernel_repeats_bit_for_bit(cuda_device, case):
+    """Each bag is summed in one fixed order (its rows in arena order), so
+    two calls give the same bits, and so does a call on the ids less their
+    first tile: 1024 tiles outnumber the resident blocks, and each tile
+    then runs on another block at another point of its ring."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    table = torch.rand((1 << 16, 128), generator=gen, device=cuda_device)
+    idx = _bag_ids(case, 1 << 16, 32, cuda_device, gen, batch=16384)
+    first = coalesced_bag_cuda(table, idx)
+    assert torch.equal(first, coalesced_bag_cuda(table, idx))
+    assert torch.equal(first[16:], coalesced_bag_cuda(table, idx[16:]))
 
 
 @pytest.mark.cuda
@@ -1923,12 +1962,21 @@ def test_coalesce_kernels_raise_on_what_they_do_not_take(cuda_device):
         desc_fetch_cuda(table, starts, 3, 1024)
     with pytest.raises(ValueError, match="fit"):
         desc_fetch_cuda(table, starts[:8], 128, 1024)
-    plan = coalesce_plan(torch.zeros((16, 4), dtype=torch.int32,
-                                     device=cuda_device), 1024)
-    with pytest.raises(ValueError, match="rows"):
-        coalesced_bag_cuda(table[:512], plan)
+    ids = torch.zeros((64, 4), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        coalesced_bag_cuda(table.bfloat16(), plan)
+        coalesced_bag_cuda(table.bfloat16(), ids)
+    with pytest.raises(TypeError):
+        coalesced_bag_cuda(table, ids.long())
+    with pytest.raises(ValueError, match="multiple"):
+        coalesced_bag_cuda(table, ids[:20])
+    with pytest.raises(ValueError, match="fit"):
+        coalesced_bag_cuda(table, ids, tile_bags=64)  # 8 bags a warp
+    with pytest.raises(ValueError, match="fit"):
+        coalesced_bag_cuda(table, torch.zeros((16, 512), dtype=torch.int32,
+                                              device=cuda_device))
+    with pytest.raises(ValueError, match="n_blocks"):
+        coalesced_bag_cuda(table, ids, n_blocks=torch.zeros(
+            3, dtype=torch.int32, device=cuda_device))
 
 
 # -------------------------------------------------------- decode attention
