@@ -286,7 +286,41 @@ Phases (any failure exits non-zero):
      card (``replayed 226 ops OK``), ``cli.analyze`` of phase 22's replay
      details, and ``cli.scaling --collective all_reduce --size 64M
      --worlds 2 4 8 16 64`` (the model's rows, not a measurement).
-Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22) use CUDA events after a
+ 25. The operator microbench tier, the launch counts reset before each of
+     its main-path runs and read after: ``cli.run_benchmark`` on
+     ``configs/basic_ops.json`` and ``transformer_ops.json`` (``-b``) and
+     ``llama2.json`` (the llama2-7B projection GEMMs at full width, bf16,
+     forward) in chain mode, and ``basic_ops`` in discrete mode: every
+     record free of errors (BatchedEmbedding's backward is "no
+     differentiable tensor args", as in the JAX package), every latency
+     finite and positive, the run ids those of the config's iterators and
+     of a CPU run, and the config's ``BatchedEmbedding`` (4 x 1,000 x 16
+     f32, 32 bags x 8) rebuilt on the card: 4 K1 launches a forward, its
+     output within phase 2's rtol 1e-5 of the plain bag; ``BatchedEmbedding``
+     at the DLRM trainer's width (8 x 100,000 x 64 f32, batch 2048, nnz 10,
+     an inline config): exactly 8 K1 launches a forward, its output within
+     rtol 1e-5 of the plain bag, and a ``--profile-dir`` run whose device
+     ops name K1's kernel; every registered op but Dropout (the registry's
+     names checked against the phase's specs; the f32-output bf16 matmuls'
+     gradients too), AlexNet and ResNetSmall (32 x 224 x 224 x 3, the CPU
+     model's weights carried to the card) on the card against the CPU on
+     the same inputs (elementwise f32 1e-6, sums 1e-4 of max |out|, 16-bit
+     outputs two bf16 ulps of it); ``cli.cvt`` over all 11 layers at batch
+     32, forward and forward + backward, f32 and bf16, and a conv_proj and
+     a patch_embed layer on the card against the CPU (1e-4 of max |out|);
+     ``tune_matmul`` at (2048, 4096) @ (4096, 4096) bf16, GEMM_C (1024,
+     4096) @ (4096, 1024) f32 and (128, 1024) @ (1024, 1024) bf16: five
+     rounds of graph replays of each candidate in turns (median and
+     spread, the model's estimate, the default schedule's, torch.matmul's),
+     every candidate within phase 7's tolerance of K3's plain version, and
+     a planted fault (B's largest element negated under the best schedule)
+     flagged; the device's busy share (``torch.profiler`` device time over
+     the eager call's time, in a fresh process) of a trainer-width
+     ``BatchedEmbedding`` forward, two ops' backward passes and CvT layers
+     forward and forward + backward.  K1 is timed at both of its
+     ``BatchedEmbedding`` shapes (phase 4's way), and each tuned shape's
+     default schedule (``gemm_schedule``'s pick) as phase 7 times K3.
+Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22, 25) use CUDA events after a
 warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
@@ -1858,6 +1892,613 @@ def pt_et_tier(smi: str, details: str) -> dict:
     return rec
 
 
+# Phase 25: every registered microbench op on the card against the CPU:
+# name -> (build args, input arg specs, tolerance kind); shapes from the
+# configs where they have the op.  "ew": 1e-6 x max|want| (elementwise
+# f32); "sum": 1e-4 x max|want| (f32 sums in another order: matmuls,
+# convolutions, reductions, attention); "bf16": two bf16 ulps of max|want|
+# (16-bit outputs, rounded once on each side from f32 math that may differ
+# in its last bits).
+def _t(shape, dtype="float32", **kw):
+    return {"type": "tensor", "dtype": dtype, "shape": shape, **kw}
+
+
+MICROBENCH_OPS = {
+    "jnp.add": ([], [_t([256, 512, 2]), _t([256, 512, 2])], "ew"),
+    "jnp.mul": ([], [_t([256, 512]), _t([512])], "ew"),
+    "jnp.clamp": ([], [_t([256, 512]), {"type": "float", "value": 0.25},
+                       {"type": "float", "value": 0.75}], "ew"),
+    "jnp.matmul": ([], [_t([8, 512, 512], "bfloat16"),
+                        _t([1, 512, 2048], "bfloat16")], "sum"),
+    "jnp.mm": ([], [_t([128, 128]), _t([128, 128])], "sum"),
+    "jnp.bmm": ([], [_t([32, 128, 64], "bfloat16"),
+                     _t([32, 64, 128], "bfloat16")], "sum"),
+    "jnp.relu": ([], [_t([256, 512])], "ew"),
+    "jnp.gelu": ([], [_t([4096, 2048], "bfloat16")], "bf16"),
+    "jnp.softmax": ([], [_t([32, 128, 128])], "sum"),
+    "nn.sdpa": ([], [_t([4, 256, 8, 64], "bfloat16")] * 3, "bf16"),
+    "jnp.reshape": ([], [_t([64, 96]), {"type": "tuple", "value": [
+        {"type": "int", "value": 96}, {"type": "int", "value": 64}]}], "ew"),
+    "nn.Linear": ([64, 32], [_t([16, 64])], "sum"),
+    "nn.Conv2d": ([3, 64, 3, 2], [_t([8, 56, 56, 3])], "sum"),
+    "jnp.baddbmm": ([], [_t([16, 64, 64]), _t([16, 64, 32]),
+                         _t([16, 32, 64])], "sum"),
+    "jnp.cat": ([], [{"type": "genericlist", "value": [
+        _t([128, 64]), _t([256, 64])]}], "ew"),
+    "jnp.mean": ([], [_t([512, 1024])], "sum"),
+    "nn.MaxPool2d": ([3, 2, 1], [_t([8, 56, 56, 64])], "ew"),
+    "nn.AdaptiveAvgPool2d": ([7], [_t([8, 56, 56, 64])], "sum"),
+    "nn.ReLU": ([], [_t([256, 512])], "ew"),
+}
+# registered names phase 25 holds elsewhere: Dropout by structure only
+# (its mask is drawn on the device it runs on; the CPU tests hold it), the
+# convnets after the ops, BatchedEmbedding in (a) and (b)
+MICROBENCH_ELSEWHERE = {"nn.Dropout", "torch.nn.Dropout", "AlexNet",
+                        "ResNetSmall", "BatchedEmbedding",
+                        "SplitTableBatchedEmbeddingBagsCodegen"}
+
+
+def microbench_op_names() -> dict:
+    """{registered op name: the MICROBENCH_OPS entry it runs under}: each
+    name of the registry (auto-wrapped ``torch.*`` paths aside) runs under
+    the entry that wraps the same function or constructor, the one of the
+    same last name first (``torch.mm`` under ``jnp.mm``).  Fails on a
+    registered name that neither has such an entry nor is held elsewhere."""
+    from param_tpu_torch.microbench.operator import TorchPathOp, op_map
+
+    def impl(op):
+        return getattr(op, "fn", None) or getattr(op, "ctor", None)
+
+    def last(name):
+        return name.rsplit(".", 1)[-1].rstrip("_")
+
+    names, missing = {}, []
+    for name, op in sorted(op_map.items()):
+        if isinstance(op, TorchPathOp) or name in MICROBENCH_ELSEWHERE:
+            continue
+        same = [c for c in MICROBENCH_OPS if impl(op_map[c]) is impl(op)]
+        same.sort(key=lambda c: last(c) != last(name))
+        if not same:
+            missing.append(name)
+        else:
+            names[name] = same[0]
+    if missing:
+        fail(f"phase 25: registered ops with no card-against-CPU spec: "
+             f"{missing}")
+    return names
+
+
+_TOL = {"ew": lambda ref: 1e-6 * ref, "sum": lambda ref: 1e-4 * ref,
+        "bf16": lambda ref: 2.0 ** (math.floor(math.log2(max(ref, 1e-30))) - 6)}
+# phase 25's K3 schedule tuner shapes, (name, m, n, k, dtype name)
+TUNE_SHAPES = [("llama2 q-proj", 2048, 4096, 4096, "bfloat16"),
+               ("GEMM_C", 1024, 1024, 4096, "float32"),
+               ("split K", 128, 1024, 1024, "bfloat16")]
+
+
+# Phase 25: the device's busy share of eager microbench calls, in a fresh
+# process (in chip_smoke's own, after the earlier phases, torch.profiler
+# records no device events; see phase 19): for each call, its time issued
+# eagerly (CUDA events around 20 calls, median of 3 windows) and its device
+# time (torch.profiler, the sum of its device operations' times a call over
+# 10 calls); busy = device / eager.  The ops' calls are OpExecutor's own.
+MICROBENCH_BUSY = """
+import json
+import os
+from param_tpu_torch.microbench.benchmark import (
+    BenchmarkConfig, OpExecutor, RunOptions)
+from param_tpu_torch.microbench.data import DefaultDataGenerator
+from param_tpu_torch.microbench.iterator import get_config_iterator
+from param_tpu_torch.microbench.operator import get_operator, load_workloads
+from param_tpu_torch.ops.cvt_convs import CVT_CONFIGS, layer_call
+from param_tpu_torch.utils.device import resolve_device
+from param_tpu_torch.utils.profiler import kernel_times
+from param_tpu_torch.utils.timer import time_ms
+dev = resolve_device("cuda")
+load_workloads()
+gen = DefaultDataGenerator(dev)
+
+
+def op_call(config, run_id, pass_name):
+    name, b, i = run_id.rsplit(":", 2)
+    cfg = BenchmarkConfig.load_json_file(os.path.join("configs", config))
+    oc = next(o for o in cfg.ops if o.name == name)
+    builds = list(get_config_iterator(oc.build_iterator)(
+        oc.configs, key="build")) or [{"args": [], "kwargs": {}}]
+    inputs = list(get_config_iterator(oc.input_iterator)(
+        oc.configs, key="input"))
+    op = get_operator(name)
+    op.device = dev
+    b_args, b_kw = gen.get_data(builds[int(b)])
+    op.build(*b_args, **b_kw)
+    args, kw = gen.get_data(inputs[int(i)])
+    return OpExecutor(name, op, RunOptions(device="cuda")).calls(
+        args, kw)[pass_name]
+
+
+def bag_forward():
+    op = get_operator("BatchedEmbedding")
+    op.device = dev
+    op.build(8, 100_000, 64)
+    ids = gen.get_data({"args": [{"type": "tensor", "dtype": "int32",
+                                  "shape": [2048, 8, 10], "low": 0,
+                                  "high": 100_000}]})[0][0]
+    return lambda: op.forward(ids)
+
+
+cases = [
+    ("BatchedEmbedding 8 x 100000 x 64 f32, 2048 x 10, forward",
+     bag_forward),
+    ("basic_ops jnp.add:0:0 backward",
+     lambda: op_call("basic_ops.json", "jnp.add:0:0", "backward")),
+    ("transformer_ops jnp.matmul:0:3 backward",
+     lambda: op_call("transformer_ops.json", "jnp.matmul:0:3", "backward")),
+    ("transformer_ops jnp.gelu:0:0 backward",
+     lambda: op_call("transformer_ops.json", "jnp.gelu:0:0", "backward")),
+] + [(f"{CVT_CONFIGS[ci].name} f32 {what}",
+      lambda ci=ci, fo=fo: layer_call(CVT_CONFIGS[ci], ci, fo, device=dev))
+     for ci in (2, 8) for what, fo in (("forward", True),
+                                       ("forward + backward", False))]
+out = {}
+for label, make in cases:
+    call = make()
+    eager = time_ms(call, 20, dev, reps=3)
+    device, by_name = kernel_times(call, calls=10)
+    out[label] = dict(eager_ms=eager, device_ms=device, busy=device / eager,
+                      top=[[k[:60], v["ms"]] for k, v in
+                           list(by_name.items())[:3]])
+print(json.dumps(out))
+"""
+
+
+def microbench_busy() -> dict:
+    """{call: {eager_ms, device_ms, busy, top}} of ``MICROBENCH_BUSY``."""
+    r = subprocess.run([sys.executable, "-c", MICROBENCH_BUSY], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        fail(f"phase 25 busy share: rc {r.returncode}:\n{r.stdout[-3000:]}\n"
+             f"{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def gemm_tolerance(want):
+    """K3's tolerance (phase 7): f32: 1e-4 x max|out| (long sums in another
+    order); bf16: one bf16 ulp of max|out| (one rounding of an f32 sum on
+    each side)."""
+    import torch
+
+    ref = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        return 1e-4 * ref
+    return 2.0 ** (math.floor(math.log2(ref)) - 7)
+
+
+def expected_run_ids(cfg) -> list:
+    """The run ids a config's run gives, from its iterators (build x input,
+    in BuildExecutor's order)."""
+    from param_tpu_torch.microbench.iterator import get_config_iterator
+
+    ids = []
+    for op in cfg.ops:
+        builds = len(list(get_config_iterator(op.build_iterator)(
+            op.configs, key="build"))) or 1
+        inputs = len(list(get_config_iterator(op.input_iterator)(
+            op.configs, key="input")))
+        ids += [f"{op.name}:{b}:{i}" for b in range(builds)
+                for i in range(inputs)]
+    return ids
+
+
+def microbench_tier(smi: str, timings=None, timing_text=None) -> dict:
+    """Phase 25: the operator microbench tier on the card (see the module
+    docstring).  ``timings`` and ``timing_text`` are main's (phase 4);
+    with them, each tuned shape's default K3 schedule is timed for the
+    kernels line (``timed``).
+    Returns the records, with the main path's launches in ``launches``,
+    its K1 launches by shape in ``k1_launches`` and the tuner's K3
+    launches by path in ``tune_launches``."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.cli import cvt, run_benchmark
+    from param_tpu_torch.kernels.emb_gather import emb_gather_plain
+    from param_tpu_torch.kernels.gemm import (
+        aligned_operands, default_schedule, gemm_cuda, gemm_plain,
+    )
+    from param_tpu_torch.microbench.benchmark import (
+        Benchmark, BenchmarkConfig, RunOptions,
+    )
+    from param_tpu_torch.microbench.data import DefaultDataGenerator
+    from param_tpu_torch.microbench.operator import get_operator, load_workloads
+    from param_tpu_torch.ops.cvt_convs import CVT_CONFIGS, layer_inputs
+    from param_tpu_torch.ops.matmul_tune import candidate_blocks, tune_matmul
+    from param_tpu_torch.utils.chip import bound_ms
+    from param_tpu_torch.utils.device import resolve_device
+    from param_tpu_torch.utils.dtypes import dtype_from_name
+    from param_tpu_torch.utils.timer import time_samples
+
+    resolve_device("cuda")  # TF32 off: the card's f32 sums are full f32
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cpu = torch.device("cpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_25_")
+    t_start = time.perf_counter()
+    load_workloads()
+    rec = {"launches": {k: 0 for k in kernels.launch_counts}, "configs": {}}
+
+    def count(fn, main=True):
+        """fn() with the launch counts set to 0 just before and read just
+        after, added to the phase's main-path launches unless ``main`` is
+        false (a call made to compare a kernel with its plain version)."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = dict(kernels.launch_counts)
+        for k, v in got.items():
+            rec["launches"][k] += v if main else 0
+        return out, got
+
+    def check_bag(cfg, label):
+        """The BatchedEmbedding of ``cfg``'s first build and input rebuilt on
+        the card: one K1 launch a table in a forward (not counted as the
+        main path's), its output within phase 2's rtol 1e-5 of the plain
+        bag on the same tables and ids.  Returns (launches a forward, max
+        abs err, tol)."""
+        op = get_operator("BatchedEmbedding")
+        op.device = dev
+        gen_d = DefaultDataGenerator(dev)
+        b_args, b_kw = gen_d.get_data(cfg.ops[0].configs[0]["build"][0])
+        op.build(*b_args, **b_kw)
+        ids = gen_d.get_data(cfg.ops[0].configs[0]["input"][0])[0][0]
+        out, per_call = count(lambda: op.forward(ids), main=False)
+        n_t, _, dim = op.tables.shape
+        if per_call["emb_gather"] != n_t:
+            fail(f"phase 25 BatchedEmbedding {label}: one forward launched "
+                 f"K1 {per_call['emb_gather']} times, not {n_t}")
+        want = torch.stack([emb_gather_plain(op.tables[t],
+                                             ids[:, t].contiguous())
+                            for t in range(n_t)], dim=1)
+        err = (out - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item()
+        if out.shape != (ids.shape[0], n_t, dim) or not err <= tol:
+            fail(f"phase 25 BatchedEmbedding {label}: shape "
+                 f"{tuple(out.shape)}, max abs err {err:.3e} > {tol:.3e} "
+                 f"against the plain bag")
+        op.cleanup()
+        return per_call["emb_gather"], err, tol
+
+    def lat_ok(pass_rec, mode):
+        key = "lat_us" if mode == "chain" else "lat_us_p50"
+        v = pass_rec.get(key)
+        return isinstance(v, float) and math.isfinite(v) and v > 0
+
+    # -- (a) the three configs through cli.run_benchmark
+    cpu_ids = None
+    for name, backward, mode in (("basic_ops", True, "chain"),
+                                 ("transformer_ops", True, "chain"),
+                                 ("llama2", False, "chain"),
+                                 ("basic_ops", True, "discrete")):
+        path = os.path.join(ROOT, "configs", f"{name}.json")
+        out = os.path.join(tmp, f"{name}_{mode}.jsonl")
+        argv = ["-c", path, "-o", out, "--mode", mode] + (
+            ["-b"] if backward else [])
+        (rc, text, wall), got = count(lambda: run_cli(run_benchmark, argv))
+        with open(out) as f:
+            recs = [json.loads(line) for line in f]
+        want_ids = expected_run_ids(BenchmarkConfig.load_json_file(path))
+        if name == "basic_ops" and cpu_ids is None:
+            cpu_ids = [r["run_id"] for r in Benchmark(
+                BenchmarkConfig.load_json_file(path),
+                RunOptions(iters=1, device="cpu")).run()]
+            if cpu_ids != want_ids:
+                fail(f"phase 25 basic_ops CPU run ids {cpu_ids} != {want_ids}")
+        bad = []
+        for r in recs:
+            for p in ("forward", "backward") if backward else ("forward",):
+                pr = r.get(p, {})
+                no_grad = (p == "backward" and r["name"] == "BatchedEmbedding"
+                           and pr == {"error": "no differentiable tensor args"})
+                if not no_grad and ("error" in pr or not lat_ok(pr, mode)):
+                    bad.append((r["run_id"], p, pr))
+        if rc != 0 or [r["run_id"] for r in recs] != want_ids or bad:
+            fail(f"phase 25 cli.run_benchmark {name} {mode}: rc {rc}, run ids "
+                 f"{[r['run_id'] for r in recs]} (want {want_ids}), bad "
+                 f"records {bad}:\n{text[-3000:]}")
+        key = "lat_us" if mode == "chain" else "lat_us_p50"
+        rows = {r["run_id"]: (r["forward"][key],
+                              r.get("backward", {}).get(key))
+                for r in recs}
+        rec["configs"][f"{name} {mode}"] = dict(wall_s=wall, launches={
+            k: v for k, v in got.items() if v}, lat_us=rows)
+        say(f"phase 25 cli.run_benchmark -c configs/{name}.json --mode {mode}"
+            f"{' -b' if backward else ''}: {len(recs)} records, run ids as "
+            f"the CPU run's, none in error (BatchedEmbedding's backward: no "
+            f"differentiable tensor args, as in the JAX package) | {wall:.1f} "
+            f"s | launches {rec['configs'][f'{name} {mode}']['launches']} | "
+            f"{key} (fwd, bwd) " + "; ".join(
+                f"{i} {f:.1f}" + (f" / {b:.1f}" if b else "")
+                for i, (f, b) in rows.items()) + f" | {smi}")
+
+    # the config's BatchedEmbedding (K1 at (1000, 16), 32 bags x 8) on the
+    # card against the plain bag
+    cfg_a = BenchmarkConfig.load_json_file(
+        os.path.join(ROOT, "configs", "basic_ops.json"))
+    cfg_a.ops = [o for o in cfg_a.ops if o.name == "BatchedEmbedding"]
+    n_a, err_a, tol_a = check_bag(cfg_a, "of configs/basic_ops.json")
+    rec["k1_launches"] = {"basic_ops": sum(
+        c["launches"].get("emb_gather", 0) for c in rec["configs"].values())}
+    rec["basic_ops_bag"] = dict(launches_per_forward=n_a, max_abs_err=err_a,
+                                tol=tol_a)
+    say(f"phase 25 BatchedEmbedding of configs/basic_ops.json rebuilt on the "
+        f"card: {n_a} K1 launches a forward, max abs err {err_a:.3e} (tol "
+        f"{tol_a:.3e}) against the plain bag; the config runs launched K1 "
+        f"{rec['k1_launches']['basic_ops']} times at this shape")
+
+    # -- (b) BatchedEmbedding at the DLRM trainer's default width
+    T_, E_, D_, B_, N_ = 8, 100_000, 64, 2048, 10
+    inline = json.dumps({"BatchedEmbedding": {"config": [{
+        "build": [{"args": [{"type": "int", "value": v}
+                            for v in (T_, E_, D_)]}],
+        "input": [{"args": [_t([B_, T_, N_], "int32", low=0, high=E_)]}]}]}})
+    cfg_b = BenchmarkConfig.loads(inline)
+    (res_b,), got_b = count(lambda: Benchmark(
+        cfg_b, RunOptions(iters=20, device="cuda")).run())
+    if "error" in res_b["forward"] or not lat_ok(res_b["forward"], "chain"):
+        fail(f"phase 25 BatchedEmbedding at the trainer's width: {res_b}")
+    rec["k1_launches"]["trainer"] = got_b["emb_gather"]
+    n_b, err, tol = check_bag(cfg_b, "at the trainer's width")
+    # --profile-dir through the CLI in a fresh process (in this process,
+    # after the earlier phases, torch.profiler records no device events;
+    # see phase 19)
+    cfg_path = os.path.join(tmp, "batched_embedding.json")
+    with open(cfg_path, "w") as f:
+        f.write(inline)
+    prof_out = os.path.join(tmp, "batched_embedding_profile.jsonl")
+    r = subprocess.run(
+        [sys.executable, "-m", "param_tpu_torch.cli.run_benchmark", "-c",
+         cfg_path, "-o", prof_out, "-i", "5", "--log", "WARNING",
+         "--profile-dir", os.path.join(tmp, "profile")], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    with open(prof_out) as f:
+        res_p = json.loads(f.readline())
+    names = [d["name"] for d in res_p["forward"].get("profile", {}).get(
+        "device_ops", [])]
+    if r.returncode != 0 or not any("emb_gather" in n for n in names):
+        fail(f"phase 25 cli.run_benchmark --profile-dir: rc {r.returncode}, "
+             f"no K1 kernel among the device ops {names} "
+             f"({res_p['forward'].get('profile')}):\n{r.stderr[-3000:]}")
+    rec["batched_embedding"] = dict(
+        lat_us=res_b["forward"]["lat_us"], launches_per_forward=n_b,
+        max_abs_err=err, tol=tol, device_ops=names[:5])
+    say(f"phase 25 BatchedEmbedding {T_} x {E_} x {D_} f32, batch {B_}, nnz "
+        f"{N_} (inline config): {res_b['forward']['lat_us']:.1f} us a forward "
+        f"(chain of 20; {got_b['emb_gather']} K1 launches in the run), {n_b} "
+        f"K1 launches a forward, max abs err {err:.3e} (tol {tol:.3e}) "
+        f"against the plain bag; --profile-dir device ops {names[:3]} | "
+        f"{smi}")
+
+    # -- (c) every registered op, AlexNet and ResNetSmall: card against CPU
+    worst = {}
+    op_names = microbench_op_names()
+    for name, spec_name in op_names.items():
+        b_args, specs, kind = MICROBENCH_OPS[spec_name]
+        outs, grads = [], []
+        for d in (cpu, dev):
+            o = get_operator(name)
+            o.device = d
+            o.build(*b_args)
+            a, _ = DefaultDataGenerator(d).get_data({"args": specs}, seed=25)
+            with torch.no_grad():
+                outs.append(o.forward(*a).float().cpu())
+            if name in ("jnp.matmul", "jnp.bmm"):  # f32 sums of bf16: grads
+                a = [t.requires_grad_(True) for t in a]
+                grads.append([g.float().cpu() for g in torch.autograd.grad(
+                    o.forward(*a).sum(), a)])
+            o.cleanup()
+        want, got = outs
+        ref = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if got.shape != want.shape or not err <= _TOL[kind](ref):
+            fail(f"phase 25 op {name} on the card against the CPU: shape "
+                 f"{tuple(got.shape)} / {tuple(want.shape)}, max abs err "
+                 f"{err:.3e} > {_TOL[kind](ref):.3e} ({kind})")
+        for gw, gg in zip(*grads) if grads else ():
+            gref = gw.abs().max().item()
+            if not (gg - gw).abs().max().item() <= _TOL["bf16"](gref):
+                fail(f"phase 25 op {name}: its gradient on the card is not "
+                     f"the CPU's within two bf16 ulps")
+        worst[name] = err / max(ref, 1e-30)
+    for name in ("AlexNet", "ResNetSmall"):
+        x = DefaultDataGenerator(cpu).get_data(
+            {"args": [_t([32, 224, 224, 3])]}, seed=25)[0][0]
+        o = get_operator(name)
+        o.device = cpu
+        o.build()
+        with torch.no_grad():
+            want = o.forward(x)  # builds the CPU model
+            # the same weights carried to the card
+            o.model, o.device = copy.deepcopy(o.model).to(dev), dev
+            got = o.forward(x.to(dev)).cpu()
+        o.cleanup()
+        ref = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if got.shape != (32, 1000) or not err <= 1e-4 * ref:
+            fail(f"phase 25 {name} (32 x 224 x 224 x 3) on the card against "
+                 f"the CPU: max abs err {err:.3e} > {1e-4 * ref:.3e}")
+        worst[name] = err / ref
+    rec["card_vs_cpu"] = worst
+    say(f"phase 25 card against CPU, same inputs and weights: "
+        f"{len(op_names)} op names (all registered but Dropout) and AlexNet / "
+        f"ResNetSmall at 32 x 224 x 224 x 3; largest error over max|out| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(
+            worst.items(), key=lambda kv: -kv[1])[:6]) + f" | {smi}")
+
+    # -- (d) cli.cvt: all 11 layers, fwd and fwd+bwd, f32 and bf16
+    rec["cvt"] = {}
+    for flags in (["--forward-only"], []):
+        for dt in ("float32", "bfloat16"):
+            argv = flags + ["--dtype", dt]
+            rc, text, wall = run_cli(cvt, argv)
+            rows = [ln for ln in text.splitlines()
+                    if ln.startswith("CVT-RES cvt.")]
+            vals = [[float(v) for v in ln.split()[-3:]] for ln in rows]
+            if rc != 0 or len(rows) != 11 or not all(
+                    math.isfinite(v) and v >= 0 for r in vals for v in r) \
+                    or not all(r[0] > 0 for r in vals):
+                fail(f"phase 25 cli.cvt {' '.join(argv)}: rc {rc}, "
+                     f"{len(rows)} rows:\n{text[-3000:]}")
+            label = f"{'fwd' if flags else 'fwd+bwd'} {dt}"
+            rec["cvt"][label] = {ln.split()[1]: float(ln.split()[-3])
+                                 for ln in rows}
+            say(f"phase 25 cli.cvt {' '.join(argv)}: 11 CVT-RES rows, elap us "
+                + ", ".join(f"{k.split('cvt.')[1]} {v:.1f}" for k, v in
+                            rec["cvt"][label].items()) + f" | {wall:.1f} s | "
+                f"{smi}")
+    for cfg in (CVT_CONFIGS[2], CVT_CONFIGS[8]):
+        params, fn, x, _ = layer_inputs(cfg, 0, torch.float32, cpu)
+        with torch.no_grad():
+            want = fn(params, x)
+            got = fn({k: v.to(dev) for k, v in params.items()},
+                     x.to(dev)).cpu()
+        ref = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if got.shape != want.shape or not err <= 1e-4 * ref:
+            fail(f"phase 25 {cfg.name} on the card against the CPU: max abs "
+                 f"err {err:.3e} > {1e-4 * ref:.3e}")
+        rec["cvt"][f"{cfg.name} card vs cpu"] = err / ref
+        say(f"phase 25 {cfg.name} {cfg.input_shape} f32 on the card against "
+            f"the CPU: max abs err {err:.3e} (tol {1e-4 * ref:.3e})")
+
+    # -- the device's busy share of eager calls, in a fresh process
+    rec["busy"] = microbench_busy()
+    for label, b in rec["busy"].items():
+        if not b["device_ms"] > 0 or not b["eager_ms"] > 0:
+            fail(f"phase 25 busy share of {label}: no device time recorded "
+                 f"({b})")
+        say(f"phase 25 busy share, {label}: {b['eager_ms']:.4f} ms a call "
+            f"issued eagerly, {b['device_ms']:.4f} ms of device time "
+            f"({100 * b['busy']:.1f}% busy); longest: " + ", ".join(
+                f"{n} {ms:.4f}" for n, ms in b["top"]) + f" | {smi}")
+
+    # -- (e) the K3 schedule tuner
+    rec["tune"], rec["tune_launches"], tuned = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for label, m, n, k, dname in TUNE_SHAPES:
+        dt = dtype_from_name(dname)
+        a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        b = torch.randn((k, n), generator=gen, device=dev).to(dt)
+        want = gemm_plain(a, b)
+        tol = gemm_tolerance(want)
+        # five rounds, each one window per candidate in turns
+        rounds, launched = count(lambda: [
+            tune_matmul(a, b, reps=1, iters=10)[1] for _ in range(5)])
+        med = {sc: statistics.median(r[sc] for r in rounds)
+               for sc in rounds[0]}
+        best = min(med, key=med.get)
+        spread = {sc: (min(r[sc] for r in rounds), max(r[sc] for r in rounds))
+                  for sc in med}
+        est = {c.schedule(): c.est_us for c in candidate_blocks(
+            m, n, k, dt, aligned_operands(a, b), top=10_000,
+            sms=torch.cuda.get_device_properties(dev).multi_processor_count)}
+        for key in ("gemm_wgmma", "gemm_mma_sync", "gemm_f32"):
+            rec["tune_launches"][key] = rec["tune_launches"].get(key, 0) + \
+                launched[key]
+        errs = {}
+        for sched in med:
+            got = gemm_cuda(a, b, schedule=sched)
+            torch.cuda.synchronize(dev)
+            errs[sched] = (got.float() - want.float()).abs().max().item()
+            if not errs[sched] <= tol:
+                fail(f"phase 25 tune {label} {sched}: max abs err "
+                     f"{errs[sched]:.3e} > {tol:.3e}")
+        flat = b.view(-1)
+        i = int(flat.abs().argmax())
+        flat[i] = -flat[i]
+        bad = gemm_cuda(a, b, schedule=best)
+        torch.cuda.synchronize(dev)
+        flat[i] = -flat[i]
+        fault = (bad.float() - want.float()).abs().max().item()
+        if not fault > tol:
+            fail(f"phase 25 tune {label}: a planted fault (B element {i} "
+                 f"negated) under {best} was not flagged: {fault:.3e}")
+        dflt = default_schedule(m, n, k, dt, aligned_operands(a, b),
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count)
+        lib = time_samples(lambda: torch.matmul(a, b), 10, dev, reps=5,
+                           graph=True)
+        lib_ms = statistics.median(lib)
+        es = a.element_size()
+        b_ms, b_by = bound_ms((m * k + k * n + m * n) * es, 2 * m * n * k,
+                              fp32=dt == torch.float32)
+        rec["tune"][label] = dict(
+            shape=f"({m}, {k}) @ ({k}, {n}) {dname}", best=list(best),
+            default=list(dflt), candidates={
+                str(tuple(sc)): dict(median_us=us, min_us=spread[sc][0],
+                                     max_us=spread[sc][1], est_us=est[sc],
+                                     max_abs_err=errs[sc])
+                for sc, us in med.items()},
+            tol=tol, fault_err=fault, torch_matmul_us=lib_ms * 1e3,
+            torch_matmul_spread_us=[min(lib) * 1e3, max(lib) * 1e3],
+            bound_ms=b_ms, bound_by=b_by)
+        tuned[label] = (dflt, a, b, launched[
+            "gemm_" + ("f32" if dflt.path == "simt" else dflt.path)])
+        say(f"phase 25 tune_matmul {label} ({m}, {k}) @ ({k}, {n}) {dname}: "
+            f"path/splits[/rows first]: median us a call (min-max; model "
+            f"us) over 5 rounds of graph replays in turns: " + "; ".join(
+                f"{sc.path}/{sc.splits}{'/rows' if sc.rows_fastest else ''} "
+                f"{us:.2f} ({spread[sc][0]:.2f}-{spread[sc][1]:.2f}; "
+                f"{est[sc]:.2f}){' default' if sc == dflt else ''}"
+                f"{' best' if sc == best else ''}"
+                for sc, us in sorted(med.items(), key=lambda kv: kv[1]))
+            + f" | torch.matmul {lib_ms * 1e3:.2f} ({min(lib) * 1e3:.2f}-"
+            f"{max(lib) * 1e3:.2f}) | bound {b_ms * 1e3:.2f} "
+            f"({b_by}) | every candidate within {tol:.3e} of the plain "
+            f"version (largest {max(errs.values()):.3e}); planted fault "
+            f"{fault:.3e} flagged | launches {launched['gemm_wgmma']} wgmma, "
+            f"{launched['gemm_mma_sync']} mma_sync, {launched['gemm_f32']} "
+            f"f32 | {smi}")
+    # each shape's default schedule (gemm_schedule's pick: the same from
+    # run to run, where the tuner's best changes within its spread), timed
+    # as phase 7 times K3 for the kernels line, with the tuner's launches
+    # of its path at that shape
+    rec["timed"] = {}
+    for label, (sched, a, b, n_launched) in (tuned.items() if timings
+                                             else ()):
+        want = gemm_plain(a, b)
+        got = gemm_cuda(a, b, schedule=sched)
+        err = (got.float() - want.float()).abs().max().item()
+        m, k = a.shape
+        n = b.shape[1]
+        t = timings(lambda: gemm_cuda(a, b, schedule=sched),
+                    lambda: gemm_plain(a, b), lambda: torch.matmul(a, b), 20)
+        es = a.element_size()
+        b_ms, b_by = bound_ms((m * k + k * n + m * n) * es, 2 * m * n * k,
+                              fp32=a.dtype == torch.float32)
+        t.update(shape=f"({m}, {k}) @ ({k}, {n}) {str(a.dtype)[6:]}, "
+                       f"schedule {tuple(sched)}", max_abs_err=err,
+                 bound_ms=b_ms, bound_by=b_by, path=sched.path,
+                 splits=sched.splits, rows_fastest=sched.rows_fastest,
+                 launches=n_launched)
+        rec["timed"][label] = t
+        say(f"phase 25 K3 {label}, default schedule {tuple(sched)}: "
+            f"{t['shape']} max_abs_err {err:.3e} | "
+            f"{timing_text(t, 'torch.matmul')} bound {b_ms:.4f} ms "
+            f"({b_by}) | {smi}")
+    if not rec["launches"].get("emb_gather") or not all(
+            v[3] for v in tuned.values()):
+        fail(f"phase 25: K1 / K3 not launched on the main path "
+             f"({rec['launches']}, tuner {rec['tune_launches']})")
+    rec["wall_s"] = time.perf_counter() - t_start
+    rec["launches"] = {k: v for k, v in rec["launches"].items() if v}
+    say(f"phase 25 done in {rec['wall_s']:.1f} s; main-path launches "
+        f"{rec['launches']}")
+    return rec
+
+
 def main(out_path=None) -> int:
     try:
         import torch
@@ -2164,13 +2805,7 @@ def main(out_path=None) -> int:
         int4_dequant, int4_gemm_cuda, int4_gemm_plain,
     )
 
-    def gemm_tol(want):
-        """f32: 1e-4 x max|out| (long sums in another order); bf16: one
-        bf16 ulp of max|out| (one rounding of an f32 sum on each side)."""
-        ref = want.float().abs().max().item()
-        if want.dtype == torch.float32:
-            return 1e-4 * ref
-        return 2.0 ** (math.floor(math.log2(ref)) - 7)
+    gemm_tol = gemm_tolerance
 
     def check(name, got, want, tol):
         torch.cuda.synchronize()
@@ -3696,6 +4331,23 @@ def main(out_path=None) -> int:
     pt24 = pt_et_tier(smi, rem22["replay"]["basic"]["details"])
     result["phases"]["pt_et_tier"] = pt24
 
+    # ---------------------------------------------------------------- 25
+    # K1 at the two shapes BatchedEmbedding gives it: a table of
+    # configs/basic_ops.json's (1000 x 16 f32, 32 bags x 8: 4 lanes a row,
+    # 8 rows a warp) and one at the trainer's width
+    for name, (MT, MD, MB, MN) in (("microbench_basic_ops_f32",
+                                    (1000, 16, 32, 8)),
+                                   ("microbench_table_f32",
+                                    (100_000, 64, 2048, 10))):
+        mtab = torch.randn((MT, MD), generator=gen, device=dev)
+        mids = torch.randint(0, MT, (MB, MN), generator=gen, device=dev,
+                             dtype=torch.int32)
+        k1_case(name, mtab, [((mids + s) % MT).to(torch.int32)
+                             for s in range(8)], 1e-5, 100, phase="25")
+    del mtab, mids
+    mb25 = microbench_tier(smi, timings, timing_text)
+    result["phases"]["microbench"] = mb25
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -3856,7 +4508,21 @@ def main(out_path=None) -> int:
                k9[k]) for k in coal.KS]
       + [entry(f"coalesced_bag {dist} ids (K10)", src + "coalesce.cu",
                "scripts/coalesce_experiment.py:162", main19["coalesced_bag"],
-               k10[dist]) for dist in ("uniform", "zipf")]}
+               k10[dist]) for dist in ("uniform", "zipf")]
+      + [entry(f"emb_gather, operator microbench BatchedEmbedding {what} "
+               f"(K1)", src + "emb_gather.cu",
+               "param_tpu/ops/embedding.py:185",
+               mb25["k1_launches"][key], k1[case])
+         for what, key, case in (
+             ("of configs/basic_ops.json", "basic_ops",
+              "microbench_basic_ops_f32"),
+             ("at the trainer's width", "trainer", "microbench_table_f32"))]
+      + [entry(f"gemm (K3), schedule tuner at {label}, default schedule "
+               f"{rec['path']}/{rec['splits']}"
+               f"{'/rows' if rec['rows_fastest'] else ''}",
+               src + "gemm.cu", "param_tpu/ops/matmul.py:97",
+               rec["launches"], rec)
+         for label, rec in mb25["timed"].items()]}
     result.update(report)
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)

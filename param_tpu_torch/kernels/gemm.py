@@ -15,7 +15,10 @@ the launch by :func:`gemm_schedule`:
 
 ``wgmma`` and ``simt`` split K when the output tiles do not fill the SMs:
 each split writes an f32 partial into a workspace allocated here, and a
-second kernel adds the splits in a fixed order and casts.  Launch counters:
+second kernel adds the splits in a fixed order and casts.  A caller may
+pick the schedule instead (``schedule=`` a :class:`GemmSchedule`: path, K
+splits, block order; checked by :func:`check_schedule`), as the schedule
+tuner ``ops/matmul_tune`` does.  Launch counters:
 ``gemm_f32`` / ``gemm_bf16`` / ``gemm_f16`` per input dtype (K3),
 ``gemm_wres`` (K4), and ``gemm_wgmma`` / ``gemm_mma_sync`` for the 16-bit
 path taken (K3 and K4).
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,6 +81,54 @@ def k_split(k: int, k_step: int, splits: int) -> int:
     return math.ceil(math.ceil(k / k_step) / splits) * k_step if k else k_step
 
 
+class GemmSchedule(NamedTuple):
+    """What K3 takes at launch: its path, the K split count and the block
+    order (``rows_fastest``: row tiles fastest, K4's order)."""
+
+    path: str
+    splits: int = 1
+    rows_fastest: bool = False
+
+
+def default_schedule(m: int, n: int, k: int, dtype: torch.dtype,
+                     aligned: bool, sms: int) -> GemmSchedule:
+    """:func:`gemm_schedule`'s pick, column tiles fastest (K3's order)."""
+    path, _, splits = gemm_schedule(m, n, k, dtype, aligned, sms)
+    return GemmSchedule(path, splits, False)
+
+
+def check_schedule(schedule, m: int, n: int, k: int, dtype: torch.dtype,
+                   aligned: bool) -> GemmSchedule:
+    """``schedule`` as a :class:`GemmSchedule` if K3 can run it on an (M, K)
+    @ (K, N) product of ``dtype``, else ``ValueError``: ``simt`` exactly for
+    f32; ``wgmma`` only for ``aligned`` operands (what TMA reads) with K >
+    0; ``mma_sync`` with one split; 1 to 65535 splits (grid.z), none
+    empty."""
+    path, splits, rows_fastest = GemmSchedule(*schedule)
+    if path not in _PATHS:
+        raise ValueError(f"unknown K3 path {path!r}; one of {sorted(_PATHS)}")
+    if (path == "simt") != (dtype == torch.float32):
+        raise ValueError(f"the {path} path does not take {dtype} operands")
+    if path == "wgmma" and not (aligned and k > 0):
+        raise ValueError("the wgmma path takes only operands TMA can read "
+                         "(K and N multiples of 8, 16-byte aligned) with K > 0")
+    if not isinstance(splits, int) or not 1 <= splits <= 65535:
+        raise ValueError(f"K splits must be an int in [1, 65535], got {splits!r}")
+    if path == "mma_sync" and splits != 1:
+        raise ValueError("the mma_sync path takes one K split")
+    if splits > 1 and (splits - 1) * k_split(k, _PATHS[path][1][2], splits) >= k:
+        raise ValueError(f"{splits} K splits of K={k} leave a split empty")
+    return GemmSchedule(path, splits, bool(rows_fastest))
+
+
+def aligned_operands(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """K and N multiples of 16 bytes' worth of elements and both bases
+    16-byte aligned: what the 16-bit TMA path reads."""
+    vec = 16 // a.element_size()
+    return (a.shape[1] % vec == 0 and b.shape[1] % vec == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch version: f32 product of the operands, cast once."""
@@ -103,19 +154,23 @@ def _check(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> None:
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
-            rows_fastest: bool) -> torch.Tensor:
-    """Launch the path :func:`gemm_schedule` picks; returns C and counts
-    the path's launch."""
+            rows_fastest: bool, schedule=None) -> torch.Tensor:
+    """Launch ``schedule`` (validated by :func:`check_schedule`), or when it
+    is None the path :func:`gemm_schedule` picks in ``rows_fastest`` order;
+    returns C and counts the path's launch."""
     _check(a, b, out_dtype)
     (m, k), n = a.shape, b.shape[1]
+    aligned = aligned_operands(a, b)
+    if schedule is not None:
+        path, splits, rows_fastest = check_schedule(schedule, m, n, k,
+                                                    a.dtype, aligned)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    vec = 16 // a.element_size()
-    aligned = (k % vec == 0 and n % vec == 0 and a.data_ptr() % 16 == 0
-               and b.data_ptr() % 16 == 0)
-    path, (_, _, bk), splits = gemm_schedule(
-        m, n, k, a.dtype, aligned, bindings.sm_count(a.device.index))
+    if schedule is None:
+        path, _, splits = gemm_schedule(m, n, k, a.dtype, aligned,
+                                        bindings.sm_count(a.device.index))
+    bk = _PATHS[path][1][2]
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
           if splits > 1 else None)
     rc = bindings.entry("gemm", "gemm_launch")(
@@ -131,20 +186,29 @@ def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
 
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Launch K3 on ``a``'s CUDA device."""
-    out = _launch(a, b, out_dtype or a.dtype, rows_fastest=False)
+              out_dtype: Optional[torch.dtype] = None,
+              schedule=None) -> torch.Tensor:
+    """Launch K3 on ``a``'s CUDA device, on ``schedule`` (a
+    :class:`GemmSchedule`, or None for :func:`gemm_schedule`'s pick)."""
+    out = _launch(a, b, out_dtype or a.dtype, rows_fastest=False,
+                  schedule=schedule)
     if out.numel():
         launch_counts[_COUNTER[a.dtype]] += 1
     return out
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor,
-         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """K3 for CUDA operands, the plain version for CPU operands."""
+         out_dtype: Optional[torch.dtype] = None,
+         schedule=None) -> torch.Tensor:
+    """K3 for CUDA operands, the plain version for CPU operands (after
+    checking ``schedule``, when one is given, as the launch would)."""
     if a.device.type == "cuda":
-        return gemm_cuda(a, b, out_dtype)
+        return gemm_cuda(a, b, out_dtype, schedule)
     if a.device.type == "cpu":
+        if schedule is not None:
+            _check(a, b, out_dtype or a.dtype)
+            check_schedule(schedule, a.shape[0], b.shape[1], a.shape[1],
+                           a.dtype, aligned_operands(a, b))
         return gemm_plain(a, b, out_dtype)
     raise ValueError(f"unsupported device {a.device}")
 

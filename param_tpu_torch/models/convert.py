@@ -9,7 +9,13 @@ rank of a sharded model takes its slice of the full tree: a sharded DLRM's
 rank's block (:func:`tp_shard_from_jax`) or MLP
 (:func:`mlp_tp_shard_from_jax`), a pipeline stage's block of the stacked
 tree (:func:`stage_params_from_jax`) and an expert's slab
-(:func:`moe_expert_from_jax`).  Used by the tests and
+(:func:`moe_expert_from_jax`).  The operator microbench's flax modules
+(convnets, ``nn.Linear`` / ``nn.Conv2d``) carry over by their flax names
+(:func:`flax_params_from_jax`: a dense (in, out) kernel becomes ``weight.T``,
+an HWIO conv kernel OIHW), CvT layer parameters by key
+(:func:`cvt_params_from_jax`; a depthwise (kh, kw, 1, C) kernel becomes (C,
+1, kh, kw)) and ``BatchedEmbedding``'s tables as they are
+(:func:`batched_embedding_from_jax`).  Used by the tests and
 ``chip_smoke.py`` so that both packages start from the same numbers.
 """
 
@@ -146,3 +152,45 @@ def mlp_tp_shard_from_jax(np_params, tp_rank: int, tp: int, device="cuda"):
     (:func:`~param_tpu_torch.ops.mlp.mlp_tp_shard`) from the reference's
     list of (W, b) numpy pairs."""
     return mlp_tp_shard(mlp_params_from_jax(np_params, device), tp_rank, tp)
+
+
+def _kernel_to_weight(kernel) -> np.ndarray:
+    """A flax kernel in the port's layout: dense (in, out) -> (out, in),
+    conv HWIO -> OIHW (a depthwise (kh, kw, 1, C) -> (C, 1, kh, kw))."""
+    k = np.asarray(kernel)
+    return k.T if k.ndim == 2 else k.transpose(3, 2, 0, 1)
+
+
+def flax_params_from_jax(np_params, module: torch.nn.Module, device="cuda"):
+    """Load a flax parameter tree (numpy leaves; ``{"params": ...}`` or its
+    inside) into ``module``, whose submodules carry flax's names
+    (``Conv_0.weight`` <- ``Conv_0/kernel``), and move it to ``device``;
+    returns the module."""
+    tree = np_params.get("params", np_params)
+    module = module.to(resolve_device(device))
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            *path, leaf = name.split(".")
+            node = tree
+            for part in path:
+                node = node[part]
+            v = node["bias"] if leaf == "bias" else _kernel_to_weight(
+                node["kernel"])
+            p.copy_(_tensor(v, p.device))
+    return module
+
+
+def cvt_params_from_jax(np_params, device="cuda"):
+    """A CvT layer's parameters (``init_conv_projection`` /
+    ``init_patch_embed``, numpy leaves) as the port's: ``w`` HWIO -> OIHW,
+    the rest copied."""
+    dev = resolve_device(device)
+    return {k: _tensor(_kernel_to_weight(v) if k == "w" else v, dev)
+            for k, v in np_params.items()}
+
+
+def batched_embedding_from_jax(op, np_tables, device="cuda"):
+    """Set a built ``BatchedEmbeddingOp``'s (T, R, D) tables to the JAX
+    op's (numpy)."""
+    op.tables = _tensor(np_tables, resolve_device(device))
+    return op

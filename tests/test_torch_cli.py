@@ -99,7 +99,21 @@ _COMMS_MODULES = ["param_tpu_torch/backend/base.py",
                   "param_tpu_torch/trace/scaling_model.py",
                   "param_tpu_torch/cli/pt_et.py",
                   "param_tpu_torch/cli/analyze.py",
-                  "param_tpu_torch/cli/scaling.py"]
+                  "param_tpu_torch/cli/scaling.py",
+                  "param_tpu_torch/microbench/__init__.py",
+                  "param_tpu_torch/microbench/generator.py",
+                  "param_tpu_torch/microbench/iterator.py",
+                  "param_tpu_torch/microbench/data.py",
+                  "param_tpu_torch/microbench/operator.py",
+                  "param_tpu_torch/microbench/benchmark.py",
+                  "param_tpu_torch/microbench/workloads/__init__.py",
+                  "param_tpu_torch/microbench/workloads/basic_ops.py",
+                  "param_tpu_torch/microbench/workloads/batched_embedding.py",
+                  "param_tpu_torch/microbench/workloads/convnets.py",
+                  "param_tpu_torch/ops/cvt_convs.py",
+                  "param_tpu_torch/ops/matmul_tune.py",
+                  "param_tpu_torch/cli/run_benchmark.py",
+                  "param_tpu_torch/cli/cvt.py"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -201,6 +215,27 @@ def test_comms_remainder_and_trace_modules_load_without_jax():
             "import param_tpu_torch.backend.torchcomms\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'param_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr
+
+
+def test_microbench_modules_load_without_jax():
+    """The operator microbench (its workloads loaded), the CvT layers, the
+    K3 schedule tuner and their CLIs pull in neither JAX nor the reference
+    package."""
+    code = ("import sys\n"
+            "import param_tpu_torch.microbench\n"
+            "from param_tpu_torch.microbench.operator import load_workloads\n"
+            "import param_tpu_torch.microbench.benchmark\n"
+            "load_workloads()\n"
+            "import param_tpu_torch.ops.cvt_convs\n"
+            "import param_tpu_torch.ops.matmul_tune\n"
+            "import param_tpu_torch.cli.run_benchmark, param_tpu_torch.cli.cvt\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'param_tpu')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120,

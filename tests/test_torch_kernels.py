@@ -148,6 +148,7 @@ def test_sparse_update_plain_matches_loop(mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dim", [(torch.float32, 64), (torch.float32, 128),
                                        (torch.float32, 18), (torch.float32, 200),
+                                       (torch.float32, 16),
                                        (torch.bfloat16, 64),
                                        (torch.bfloat16, 20)])
 def test_emb_gather_kernel_matches_plain(cuda_device, dtype, dim):
@@ -412,6 +413,39 @@ def test_gemm_split_k_is_the_same_from_run_to_run(cuda_device, dtype):
     assert torch.equal(first, second)
     err, tol = _max_err_tol(first, gemm_plain(a, b, torch.float32))
     assert err <= tol, (err, tol)
+
+
+# the schedule tuner's shapes (chip_smoke.py phase 25): llama2 q-proj, GEMM_C
+# and a split-K shape, (m, n, k)
+_TUNE_SHAPES = [(2048, 4096, 4096, torch.bfloat16),
+                (1024, 1024, 4096, torch.float32),
+                (128, 1024, 1024, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,dtype", _TUNE_SHAPES)
+def test_gemm_kernel_under_every_legal_schedule(cuda_device, m, n, k, dtype):
+    """K3 under every schedule the tuner may offer (``schedule=``: path,
+    splits, block order) against its plain version; each launch counted on
+    its own path."""
+    from param_tpu_torch.ops.matmul_tune import candidate_blocks
+
+    rng = np.random.default_rng(m + n + k)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    want = gemm_plain(a, b)
+    scheds = [c.schedule() for c in candidate_blocks(m, n, k, dtype, True,
+                                                     top=10_000)]
+    assert scheds
+    for sched in scheds:
+        key = "gemm_" + sched.path if sched.path != "simt" else "gemm_f32"
+        before = kernels.launch_counts[key]
+        got = gemm_cuda(a, b, schedule=sched)
+        torch.cuda.synchronize()
+        err, tol = _max_err_tol(got, want)
+        assert err <= tol, (sched, err, tol)
+        assert kernels.launch_counts[key] == before + 1, sched
 
 
 @pytest.mark.cuda
