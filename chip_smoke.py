@@ -13,7 +13,9 @@ Phases (any failure exits non-zero):
   2. K1 (embedding bag) against its plain PyTorch version on the card: the
      1M x 128 f32 headline shape (B 8192, nnz 30, indices shifted per
      iteration), the DLRM trainer's shape (flat 8 x 100k x 64 table, 2048 x 8
-     bags of 10) in f32 and bf16.
+     bags of 10) in f32 and bf16.  Every K1 shape (here and in phases 22
+     and 25) records the launch shape ``emb_gather_schedule`` gave it and
+     must give the same bits on two launches.
   3. K2 (sparse row update) against its plain version, SGD and Adagrad, on
      the trainer's flat 800k x 64 table with the deduplicated rows of one
      batch (163840 slots, the unused tail dropped as ids >= R).
@@ -58,7 +60,8 @@ Phases (any failure exits non-zero):
  10. The compute-tier CLIs in-process at full width, the launch counts
      reset before each command and read after it: ``cli.compute gemm``
      (GEMM_A bf16 through K3's wgmma path; GEMM_C --compare; --weight-
-     resident 8 through K4), ``emb --dataset baseline`` (K1), ``linear``, and
+     resident 8 through K4), ``emb --dataset baseline`` (K1), ``emb`` at the
+     trainer's width in bf16 (K1; the bf16 entry's launches), ``linear``, and
      ``cli.inference --dtype int4`` (K5, 18 layers, all on the wgmma path;
      beside it the int8 and bf16 rungs, and int4 / int8 at batch 1); one
      int4 forward launches K5 exactly 18 times, all on wgmma, and a small
@@ -2515,9 +2518,9 @@ def main(out_path=None) -> int:
     import torch.nn.functional as F
 
     from param_tpu_torch import kernels
-    from param_tpu_torch.kernels import build
+    from param_tpu_torch.kernels import bindings, build
     from param_tpu_torch.kernels.emb_gather import (
-        emb_gather_cuda, emb_gather_plain,
+        emb_gather_cuda, emb_gather_plain, launch_schedule as k1_schedule,
     )
     from param_tpu_torch.kernels.sparse_update import (
         sparse_update_cuda, sparse_update_plain,
@@ -2614,17 +2617,23 @@ def main(out_path=None) -> int:
 
     def k1_case(name, table, idx_list, rtol, iters, phase="2/4", op=False):
         i0 = idx_list[0]
-        got = emb_gather_cuda(table, i0).float()
+        got = emb_gather_cuda(table, i0)
+        again = emb_gather_cuda(table, i0)
         want = emb_gather_plain(table, i0).float()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"K1 {name}: non-finite output")
-        err = (got - want).abs().max().item()
+        err = (got.float() - want).abs().max().item()
         tol = rtol * want.abs().max().item()
         if not err <= tol:
             fail(f"K1 {name}: max abs err {err:.3e} > tolerance {tol:.3e}")
+        bits = torch.int16 if table.element_size() == 2 else torch.int32
+        if not torch.equal(got.view(bits), again.view(bits)):
+            fail(f"K1 {name}: two launches on the same ids differ")
         nb, nnz = i0.shape
         dim, es = table.shape[1], table.element_size()
+        sched = k1_schedule(table, nb, nnz, bindings.vec_width(
+            dim, es, table, got))._asdict()
         uniq = torch.unique(i0).numel()  # shifts are bijections: same count
         nbytes = uniq * dim * es + nb * nnz * 4 + nb * dim * es
         b_ms, b_by = bound_ms(nbytes, nb * nnz * dim)
@@ -2640,10 +2649,15 @@ def main(out_path=None) -> int:
         rec.update(shape=f"table {tuple(table.shape)} {str(table.dtype)[6:]}, "
                          f"{nb} bags x {nnz}", max_abs_err=err, tol=tol,
                    bound_ms=b_ms, bound_by=b_by, unique_rows=uniq,
-                   bytes=nbytes, gbps=nbytes / rec["ms"] / 1e6)
+                   bytes=nbytes, gbps=nbytes / rec["ms"] / 1e6,
+                   schedule=sched)
         k1[name] = rec
         say(f"phase {phase} K1 {name}: {rec['shape']} max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}) | {timing_text(rec, 'F.embedding_bag')} "
+            f"(tol {tol:.3e}), two launches bitwise equal | schedule "
+            f"{sched['warps_per_bag']} warp(s) a bag, "
+            f"{sched['rows_in_flight']} row load(s) in flight a lane group, "
+            f"{sched['lanes_per_row']} lanes a row, {sched['blocks']} blocks "
+            f"| {timing_text(rec, 'F.embedding_bag')} "
             f"({rec['gbps']:.0f} GB/s) bound {b_ms:.4f} ms ({b_by}) | {smi}")
 
     RH, DH, BH, NH = 1_000_000, 128, 8192, 30  # bench.py's headline shape
@@ -3164,6 +3178,10 @@ def main(out_path=None) -> int:
         "emb_baseline_K1": drive(
             "emb baseline K1", compute_cli.main,
             ["emb", "--dataset", "baseline"], 1, ["emb_gather"]),
+        "emb_trainer_bf16_K1": drive(
+            "emb at the trainer's width, bf16 K1", compute_cli.main,
+            ["emb", "--shape", "800000,64,10,16384", "--dtype", "bfloat16"],
+            1, ["emb_gather"]),
         "linear": drive(
             "linear", compute_cli.main,
             ["linear", "--shape", "18,1024,1024,1024,512"], 1, []),
@@ -4503,6 +4521,10 @@ def main(out_path=None) -> int:
         entry("emb_gather, bench headline shape (K1)", src + "emb_gather.cu",
               "param_tpu/ops/embedding.py:185", main19["emb_gather"],
               k1["headline_f32"]),
+        entry("emb_gather bf16, trainer's width (K1)", src + "emb_gather.cu",
+              "param_tpu/ops/embedding.py:185",
+              cli_launches("emb_trainer_bf16_K1", "emb_gather"),
+              k1["dlrm_bf16"]),
     ] + [entry(f"desc_fetch k={k} (K9)", src + "coalesce.cu",
                "scripts/coalesce_experiment.py:55", main19["desc_fetch"],
                k9[k]) for k in coal.KS]

@@ -22,8 +22,10 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 
 _SIGNATURES = {
     "emb_gather": {
-        "emb_gather_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-        "emb_gather_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+        "emb_gather_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
+        "emb_gather_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     },
     "sparse_update": {
         "sparse_update_sgd_f32": [_P, _P, _P, _L, _I, _I, _I, _P],

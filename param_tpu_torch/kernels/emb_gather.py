@@ -14,17 +14,130 @@ kernel the plain version, its Meta kernel the output's shape.  So a
 dispatcher-level recorder (``make_fx``) sees one ``param_tpu_torch::
 emb_gather`` node, where it could not see a ctypes launch, and the replay
 of that node launches K1 on the card.
+
+:func:`emb_gather_schedule` picks the launch's shape (lanes a row, row
+loads in flight, warps a bag) from the shapes alone; :func:`forced_schedule`
+overrides it within a block (the timings' sweep of the design's steps,
+``experiments/emb_gather_timings.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import math
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from param_tpu_torch.kernels import bindings, launch_counts
 
 _DTYPES = {torch.float32: "emb_gather_f32", torch.bfloat16: "emb_gather_bf16"}
+
+BLOCK_WARPS = 8  # csrc/emb_gather.cu's kBlockThreads / 32
+WARPS_PER_BAG = (1, 2, 4, 8)  # the kernel's k: warps splitting one bag
+ROWS_IN_FLIGHT = (1, 2, 4, 8)  # the kernel's U: compiled row-load depths
+# warps an SM keeps at 8 f32 row loads in flight a lane group (64
+# registers a thread, 4 blocks of 8 warps); at 1 (32 registers) it keeps 64
+WAVE_WARPS = 32
+
+
+class EmbSchedule(NamedTuple):
+    """K1's launch shape.  ``lanes_per_row`` lanes read a row in ``vec``
+    -element loads, so a warp is ``32 // lanes_per_row`` lane groups; each
+    group issues ``rows_in_flight`` row loads before it adds them;
+    ``warps_per_bag`` warps split a bag's ids and add their partial sums
+    through ``smem_bytes`` of shared memory; a block of ``BLOCK_WARPS``
+    warps sums ``bags_per_block`` bags, ``blocks`` blocks in all.  With
+    one warp a bag, at most one id a lane group and a row in one pass of
+    the warp, the launch takes the kernel's short path instead (each group
+    loads its own id and row)."""
+
+    warps_per_bag: int
+    rows_in_flight: int
+    lanes_per_row: int
+    bags_per_block: int
+    blocks: int
+    smem_bytes: int
+
+
+def _launch_shape(batch: int, dim: int, vec: int, warps_per_bag: int,
+                  rows_in_flight: int) -> EmbSchedule:
+    vecs = dim // vec
+    lanes = (vecs if dim % vec == 0 and 0 < vecs <= 32 and 32 % vecs == 0
+             else 32)
+    per_block = BLOCK_WARPS // warps_per_bag
+    return EmbSchedule(warps_per_bag, rows_in_flight, lanes, per_block,
+                       math.ceil(batch / per_block),
+                       4 * per_block * (warps_per_bag - 1) * lanes * vec)
+
+
+@lru_cache(maxsize=None)
+def emb_gather_schedule(batch: int, nnz: int, dim: int, elem_size: int,
+                        sms: int, vec: Optional[int] = None) -> EmbSchedule:
+    """K1's launch shape for ``batch`` bags of ``nnz`` ids over a table of
+    ``dim`` columns of ``elem_size`` bytes on a card of ``sms`` SMs, read in
+    ``vec``-element loads (default: 16-byte loads where ``dim`` allows).
+
+    One wave is ``sms * WAVE_WARPS`` warps.  When the bags are fewer than
+    that, each is split over k warps (a power of two, at most 8) while the warps still
+    fit in that wave and every lane group keeps 4 rows of its slice.  A
+    group issues as many row loads before it adds as its slice's first 32
+    ids give it, rounded up to a compiled depth, at most 8; but where the
+    warps overflow one wave, 16-bit rows take one load at a time, since
+    there 64 warps an SM at 32 registers beat 32 warps at depth 4 or 8
+    (``experiments/emb_gather_timings.py --sweep``; f32 rows are the other
+    way round)."""
+    if vec is None:
+        vec = 16 // elem_size if dim % (16 // elem_size) == 0 else 1
+    lanes = _launch_shape(batch, dim, vec, 1, 1).lanes_per_row
+    groups = 32 // lanes
+    wave = sms * WAVE_WARPS
+    k = 1
+    while (2 * k <= WARPS_PER_BAG[-1] and batch * 2 * k <= wave
+           and nnz >= 2 * k * groups * 4):
+        k *= 2
+    if batch * k > wave and elem_size == 2:
+        return _launch_shape(batch, dim, vec, k, 1)
+    rows = math.ceil(min(math.ceil(nnz / k), 32) / groups)
+    u = min(ROWS_IN_FLIGHT[-1], 1 << max(rows - 1, 0).bit_length())
+    return _launch_shape(batch, dim, vec, k, u)
+
+
+_forced: Optional[Tuple[Optional[int], Optional[int]]] = None
+
+
+@contextlib.contextmanager
+def forced_schedule(warps_per_bag: Optional[int] = None,
+                    rows_in_flight: Optional[int] = None):
+    """Within the block every K1 launch takes these warps a bag and / or
+    rows in flight in place of :func:`emb_gather_schedule`'s (``None``
+    keeps its pick).  For timing the design's steps against each other;
+    the sums are the same function, in another order."""
+    global _forced
+    if warps_per_bag is not None and warps_per_bag not in WARPS_PER_BAG:
+        raise ValueError(f"warps_per_bag must be one of {WARPS_PER_BAG}")
+    if rows_in_flight is not None and rows_in_flight not in ROWS_IN_FLIGHT:
+        raise ValueError(f"rows_in_flight must be one of {ROWS_IN_FLIGHT}")
+    outer, _forced = _forced, (warps_per_bag, rows_in_flight)
+    try:
+        yield
+    finally:
+        _forced = outer
+
+
+def launch_schedule(table: torch.Tensor, batch: int, nnz: int,
+                    vec: int) -> EmbSchedule:
+    """The schedule a K1 launch on ``table``'s card takes: the pick of
+    :func:`emb_gather_schedule`, or what :func:`forced_schedule` sets."""
+    D = table.shape[1]
+    s = emb_gather_schedule(batch, nnz, D, table.element_size(),
+                            bindings.sm_count(table.device.index), vec)
+    if _forced is None:
+        return s
+    k, u = _forced
+    return _launch_shape(batch, D, vec, k or s.warps_per_bag,
+                         u or s.rows_in_flight)
 
 
 def normalize_ids(idx: torch.Tensor, num_rows: int):
@@ -76,10 +189,12 @@ def emb_gather_cuda(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError("K1 takes fewer than 2**31 lookups")
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     vec = bindings.vec_width(D, table.element_size(), table, out)
+    s = launch_schedule(table, B, nnz, vec)
     fn = bindings.entry("emb_gather", _DTYPES[table.dtype])
     rc = fn(table.data_ptr(), idx.data_ptr(),
             weights.data_ptr() if weights is not None else None,
-            out.data_ptr(), R, B, nnz, D, vec, bindings.stream_of(table))
+            out.data_ptr(), R, B, nnz, D, vec, s.lanes_per_row,
+            s.warps_per_bag, s.rows_in_flight, bindings.stream_of(table))
     bindings.check(rc, "emb_gather")
     launch_counts["emb_gather"] += 1
     return out

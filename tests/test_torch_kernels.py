@@ -36,6 +36,7 @@ P may flip where a logit sums in another order).
 """
 
 import contextlib
+import itertools
 import math
 
 import numpy as np
@@ -43,10 +44,14 @@ import pytest
 import torch
 
 from param_tpu_torch import kernels
+from param_tpu_torch.kernels import bindings
 from param_tpu_torch.kernels.coalesce import (
     coalesce_plan, coalesced_bag_cuda, desc_fetch_cuda, desc_fetch_plain,
 )
-from param_tpu_torch.kernels.emb_gather import emb_gather_cuda, emb_gather_plain
+from param_tpu_torch.kernels.emb_gather import (
+    BLOCK_WARPS, ROWS_IN_FLIGHT, WARPS_PER_BAG, emb_gather_cuda,
+    emb_gather_plain, emb_gather_schedule, forced_schedule, launch_schedule,
+)
 from param_tpu_torch.kernels.flash_bwd import (
     flash_bwd_cuda, flash_bwd_plain, flash_bwd_tolerance, kernel_layout,
 )
@@ -145,26 +150,175 @@ def test_sparse_update_plain_matches_loop(mode):
     np.testing.assert_allclose(a.numpy(), wa, rtol=1e-5, atol=1e-6)
 
 
+_SMS_K1 = 132  # an H100's SMs
+# (name, table rows, dim, bytes an element, bags, nnz): the shapes K1's
+# paths launch, and the schedule each takes on an H100 (132 SMs):
+# (warps a bag, rows in flight, lanes a row)
+_K1_SHAPES = [
+    ("comms_compute", 100_000, 128, 4, 2048, 30, (2, 8, 32)),
+    ("microbench_table", 100_000, 64, 4, 2048, 10, (1, 8, 16)),
+    ("trainer", 800_000, 64, 4, 16384, 10, (1, 8, 16)),
+    ("trainer_bf16", 800_000, 64, 2, 16384, 10, (1, 1, 8)),
+    ("headline", 1_000_000, 128, 4, 8192, 30, (1, 8, 32)),
+    ("stage_b", 1_048_576, 128, 4, 8192, 32, (1, 8, 32)),
+    ("basic_ops", 1000, 16, 4, 32, 8, (1, 1, 4)),
+]
+
+
+@pytest.mark.parametrize("shape", _K1_SHAPES, ids=[c[0] for c in _K1_SHAPES])
+def test_emb_gather_schedule_at_the_paths_shapes(shape):
+    _, _, dim, es, batch, nnz, want = shape
+    s = emb_gather_schedule(batch, nnz, dim, es, _SMS_K1)
+    assert (s.warps_per_bag, s.rows_in_flight, s.lanes_per_row) == want
+    assert s.bags_per_block * s.warps_per_bag == BLOCK_WARPS
+    assert s.blocks == math.ceil(batch / s.bags_per_block)
+
+
+def _slices(nnz, k):
+    """The kernel's slices of a bag's ids: warp w takes [w nnz / k, (w + 1)
+    nnz / k)."""
+    return [(w * nnz // k, (w + 1) * nnz // k) for w in range(k)]
+
+
+@pytest.mark.parametrize("dim", [1, 2, 16, 18, 20, 64, 128, 200, 1024])
+@pytest.mark.parametrize("es", [4, 2])
+def test_emb_gather_schedule_invariants(dim, es):
+    for batch, nnz, sms, vec in itertools.product(
+            (0, 1, 8, 100, 256, 2048, 8192, 100_000),
+            (0, 1, 7, 31, 32, 33, 64, 100, 1000), (132, 114), (None, 1)):
+        s = emb_gather_schedule(batch, nnz, dim, es, sms, vec)
+        v = vec or (16 // es if dim % (16 // es) == 0 else 1)
+        k, u, lanes = s.warps_per_bag, s.rows_in_flight, s.lanes_per_row
+        assert k in WARPS_PER_BAG and u in ROWS_IN_FLIGHT
+        assert k <= max(nnz, 1)
+        # the k slices partition the bag's ids, none empty; a warp walks
+        # its slice in rounds of 32 ids, batches of groups x U rows
+        sl = _slices(nnz, k)
+        assert sl[0][0] == 0 and sl[-1][1] == nnz
+        assert all(a == b for (_, a), (b, _) in zip(sl, sl[1:]))
+        assert nnz == 0 or all(b > a for a, b in sl)
+        groups = 32 // lanes
+        assert 32 % lanes == 0 and lanes * v >= min(dim, 32 * v)
+        most = max(b - a for a, b in sl)
+        batches = math.ceil(most / 32) * math.ceil(
+            min(most, 32) / (groups * u)) if most else 0
+        assert k * batches * groups * u >= nnz
+        # the launch: 8 warps a block, every bag in a block, shared memory
+        # within the 48 KB a block takes without opting in (227 KB max)
+        assert s.bags_per_block * k == BLOCK_WARPS
+        assert s.blocks * s.bags_per_block >= batch
+        assert (s.blocks - 1) * s.bags_per_block < batch or batch == 0
+        assert s.blocks < 2**31
+        assert s.smem_bytes == 4 * s.bags_per_block * (k - 1) * lanes * v
+        assert s.smem_bytes <= 48 * 1024 <= 227 * 1024
+
+
+def test_emb_gather_schedule_splits_only_what_fills_the_card():
+    # few bags with many ids split; as many bags as one wave holds do not
+    assert emb_gather_schedule(8, 100, 128, 4, _SMS_K1)[:2] == (8, 8)
+    assert emb_gather_schedule(2112, 100, 128, 4, _SMS_K1)[:2] == (2, 8)
+    assert emb_gather_schedule(2113, 100, 128, 4, _SMS_K1)[:2] == (1, 8)
+    # past one wave, 16-bit rows take one load at a time, f32 rows 8
+    assert emb_gather_schedule(4225, 100, 128, 4, _SMS_K1)[:2] == (1, 8)
+    assert emb_gather_schedule(4225, 100, 128, 2, _SMS_K1)[:2] == (1, 1)
+    assert emb_gather_schedule(4224, 100, 128, 2, _SMS_K1)[:2] == (1, 8)
+    # a split leaves every lane group (2 a warp at D = 64 f32) 4 rows; a
+    # group issues as many loads as its first round gives it
+    assert emb_gather_schedule(8, 15, 64, 4, _SMS_K1)[:2] == (1, 8)
+    assert emb_gather_schedule(8, 16, 64, 4, _SMS_K1)[:2] == (2, 4)
+    assert emb_gather_schedule(8, 3, 64, 4, _SMS_K1)[:2] == (1, 2)
+
+
+def test_forced_schedule_checks_and_nests():
+    with pytest.raises(ValueError):
+        with forced_schedule(3):
+            pass
+    with pytest.raises(ValueError):
+        with forced_schedule(rows_in_flight=3):
+            pass
+    import param_tpu_torch.kernels.emb_gather as k1
+    with forced_schedule(2, 8):
+        with forced_schedule(rows_in_flight=1):
+            assert k1._forced == (None, 1)
+        assert k1._forced == (2, 8)
+    assert k1._forced is None
+
+
+# (bags, nnz) of the card's K1 cases: with the dims below they reach every
+# (warps a bag, rows in flight) the schedule picks
+_K1_BAGS = [(300, 7), (8, 1), (8, 100), (32, 31), (64, 33), (256, 64),
+            (256, 100), (2048, 30), (16, 300), (8, 600), (64, 200)]
+_K1_DIMS = [(torch.float32, d) for d in (1, 8, 16, 18, 64, 128, 200)] + \
+    [(torch.bfloat16, d) for d in (16, 18, 20, 64, 128, 200)]
+
+
+def test_emb_gather_kernel_cases_reach_every_schedule():
+    def picks(shapes):
+        return {emb_gather_schedule(*shape, _SMS_K1)[:2] for shape in shapes}
+    reachable = picks(itertools.product(
+        (1, 8, 32, 100, 256, 1000, 2048, 4096, 8192, 100_000),
+        (0, 1, 2, 3, 5, 7, 10, 16, 30, 33, 64, 100, 300, 1000),
+        (1, 16, 18, 64, 128, 200, 1024), (4, 2)))
+    cases = picks((b, n, d, 4 if dt == torch.float32 else 2)
+                  for (b, n), (dt, d) in itertools.product(_K1_BAGS,
+                                                           _K1_DIMS))
+    assert cases == reachable
+
+
+def _k1_case(dev, dtype, dim, batch, nnz, rows=4096):
+    """A table scaled so that a bag's sum is ~1 (rounding within the
+    tolerances at any nnz), ids with a wrapping id and NaN ids planted,
+    one NaN id in the second warp's slice of a split bag."""
+    table, idx, w = _bags(rows, dim, batch, nnz)
+    table /= math.sqrt(max(nnz, 1))
+    t = torch.from_numpy(table).to(dev, dtype)
+    vec = bindings.vec_width(dim, t.element_size(), t)
+    k = launch_schedule(t, batch, nnz, vec).warps_per_bag
+    idx[5, nnz - 1] = -1  # counts from the end
+    idx[6, 0] = rows  # NaN, first slice
+    idx[7, nnz - 1] = -rows - 1  # NaN, last slice
+    idx[4, nnz // k if k > 1 else 0] = rows + 3  # NaN, second warp's slice
+    return t, torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,dim", [(torch.float32, 64), (torch.float32, 128),
-                                       (torch.float32, 18), (torch.float32, 200),
-                                       (torch.float32, 16),
-                                       (torch.bfloat16, 64),
-                                       (torch.bfloat16, 20)])
-def test_emb_gather_kernel_matches_plain(cuda_device, dtype, dim):
-    table, idx, w = _bags(4096, dim, 300, 7)
-    idx[5, 2], idx[6, 0], idx[7, 6] = -1, 4096, -4097  # wraps, NaN, NaN
-    t = torch.from_numpy(table).to(cuda_device, dtype)
-    i = torch.from_numpy(idx).to(cuda_device)
+@pytest.mark.parametrize("batch,nnz", _K1_BAGS)
+@pytest.mark.parametrize("dtype,dim", _K1_DIMS)
+def test_emb_gather_kernel_matches_plain(cuda_device, dtype, dim, batch, nnz):
+    t, i, w = _k1_case(cuda_device, dtype, dim, batch, nnz)
     before = kernels.launch_counts["emb_gather"]
-    for weights in (None, torch.from_numpy(w).to(cuda_device)):
-        got = emb_gather_cuda(t, i, weights).float()
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    for weights in (None, w):
+        got = emb_gather_cuda(t, i, weights)
+        again = emb_gather_cuda(t, i, weights)
         want = emb_gather_plain(t, i, weights).float()
-        rtol = 1e-5 if dtype == torch.float32 else 8e-3
-        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5,
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5,
                                    equal_nan=True)
-        assert got[6:8].isnan().all() and not got[5].isnan().any()
-    assert kernels.launch_counts["emb_gather"] == before + 2
+        assert got[[4, 6, 7]].isnan().all() and not got[5].isnan().any()
+        assert not got[8:].isnan().any()
+        assert torch.equal(_bits(got), _bits(again))  # repeats bit for bit
+    assert kernels.launch_counts["emb_gather"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps,rows", [(k, u) for k in WARPS_PER_BAG
+                                        for u in ROWS_IN_FLIGHT])
+@pytest.mark.parametrize("dtype,dim,batch,nnz", [
+    (torch.float32, 128, 64, 33), (torch.float32, 16, 300, 7),
+    (torch.bfloat16, 64, 256, 100), (torch.bfloat16, 200, 8, 1)])
+def test_emb_gather_forced_schedules_match_plain(cuda_device, warps, rows,
+                                                 dtype, dim, batch, nnz):
+    t, i, w = _k1_case(cuda_device, dtype, dim, batch, nnz)
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    with forced_schedule(warps, rows):
+        got = emb_gather_cuda(t, i, w)
+        assert torch.equal(_bits(got), _bits(emb_gather_cuda(t, i, w)))
+    torch.testing.assert_close(got.float(), emb_gather_plain(t, i, w).float(),
+                               rtol=rtol, atol=1e-5, equal_nan=True)
 
 
 @pytest.mark.cuda
