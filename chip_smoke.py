@@ -323,6 +323,27 @@ Phases (any failure exits non-zero):
      forward and forward + backward.  K1 is timed at both of its
      ``BatchedEmbedding`` shapes (phase 4's way), and each tuned shape's
      default schedule (``gemm_schedule``'s pick) as phase 7 times K3.
+ 26. The MLP steps (``ops.mlp.make_train_step`` / ``infer_step``): three
+     steps at MLP_A's width (18 layers of 4096, batch 1024) in f32 and
+     bf16 with sgd and adagrad, finite losses and every parameter and loss
+     bitwise equal to the same steps written out by hand (autograd and the
+     optimizer, as ``bench_mlp`` had them inline), no kernel of the port
+     launched (the products are ``torch.matmul``, as in the reference), and
+     the step's ms; ``infer_step`` there bitwise ``mlp_forward`` under
+     ``no_grad``, and its ms; at (3, 256, 512, 64, 128) both optimizers,
+     both losses (MSE, cross-entropy on integer labels) and both dtypes for
+     three steps on the card against the CPU (f32 at the tests' tolerance,
+     1e-5 x max |leaf| beside rtol 1e-5; bf16 two ulps of the layer's max
+     |param|: the tests hold each leaf to its own max, but a bias starts at
+     zero and is three updates made from cancelling bf16 gradient sums,
+     which reached 5 ulps of its own max on the card; the per-leaf ulps are
+     printed), and ``infer_step`` the same way; ``cast_int4_mlp`` then
+     ``mlp_forward_int4`` at the inference bench's (18, 4096, 4096, 4096,
+     512): exactly one K5 launch a layer, all wgmma (the counts reset just
+     before the forward and read just after), the output bitwise the raw
+     carriers' call, and both calls' ms; a ``param_profile`` region around
+     a train step inside a CUDA ``torch.profiler`` session, named in its
+     events, with its host time and the session's device time.
 Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22, 25) use CUDA events after a
 warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
@@ -2502,6 +2523,267 @@ def microbench_tier(smi: str, timings=None, timing_text=None) -> dict:
     return rec
 
 
+# phase 26's widths: MLP_A (layers, din, hidden, dout, batch), the small
+# card-against-CPU MLP, and the inference bench's int4 MLP
+MLP_A = (18, 4096, 4096, 4096, 1024)
+MLP_SMALL = (3, 256, 512, 64, 128)
+MLP_INT4 = (18, 4096, 4096, 4096, 512)
+
+
+def mlp_dims(shape) -> list:
+    layers, din, hidden, dout, _ = shape
+    return [din] + [hidden] * (layers - 1) + [dout]
+
+
+def bf16_ulp(top: float) -> float:
+    """One bf16 ulp at magnitude ``top``."""
+    return 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def mlp_param_tol(want, dtype, top=None) -> float:
+    """The MLP tests' tolerance: f32 1e-5 x max |want| (beside rtol 1e-5),
+    16-bit two bf16 ulps of max |want|, or of ``top`` when given."""
+    top = want.float().abs().max().item() if top is None else top
+    if dtype == "float32":
+        return 1e-5 * top
+    return 2 * bf16_ulp(top)
+
+
+def mlp_steps_tier(smi: str) -> dict:
+    """Phase 26: the MLP train and infer steps, the int4 MLP's one-off cast
+    and a ``param_profile`` region on the card (see the module docstring).
+    Returns the records, with the int4 forward's K5 launches in
+    ``k5_launches``."""
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.ops.inference import (
+        cast_int4_mlp, mlp_forward_int4, quantize_weights_int4,
+    )
+    from param_tpu_torch.ops.mlp import (
+        infer_step, init_mlp, make_optimizer, make_train_step, mlp_forward,
+        tree_leaves,
+    )
+    from param_tpu_torch.utils.device import resolve_device
+    from param_tpu_torch.utils.timer import ParamTimer, param_profile, time_ms
+
+    dev = resolve_device("cuda")  # TF32 off: the card's f32 sums are full f32
+    t_start = time.perf_counter()
+    rec = {"full": {}, "small": {}}
+
+    def hand_steps(params, opt, state, x, y, n):
+        """``n`` steps written out as bench_mlp's inline step was: the
+        leaves themselves require grad, MSE loss, autograd, the update."""
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        losses = []
+        for _ in range(n):
+            loss = torch.mean((mlp_forward(params, x).float() - y) ** 2)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            opt.update(params, grads, state)
+            losses.append(loss.detach())
+        return losses
+
+    # -- MLP_A: 3 steps bitwise equal to the same steps by hand, step ms
+    dims = mlp_dims(MLP_A)
+    batch = MLP_A[-1]
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(26)
+        base = init_mlp(gen, dims, dt, device=dev)
+        x = torch.rand((batch, dims[0]), generator=gen, device=dev).to(dt)
+        y = torch.rand((batch, dims[-1]), generator=gen, device=dev)
+        for name in ("sgd", "adagrad"):
+            label = f"{dtype} {name}"
+            params = [tuple(t.clone() for t in wb) for wb in base]
+            hand = [tuple(t.clone() for t in wb) for wb in base]
+            opt = make_optimizer(name)
+            step, state = make_train_step(opt), opt.init(params)
+            kernels.reset_launch_counts()
+            losses = [step(params, state, x, y)[2] for _ in range(3)]
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.launch_counts.items() if v}
+            want = hand_steps(hand, opt, opt.init(hand), x, y, 3)
+            torch.cuda.synchronize()
+            lv = [float(v) for v in losses]
+            same = all(torch.equal(a, b.detach()) for a, b in zip(
+                tree_leaves(params), tree_leaves(hand)))
+            if launched or not all(map(math.isfinite, lv)) or not same or \
+                    lv != [float(v) for v in want]:
+                fail(f"phase 26 make_train_step {MLP_A} {label}: losses {lv} "
+                     f"against by hand {[float(v) for v in want]}, params "
+                     f"bitwise equal {same}, port kernels launched "
+                     f"{launched} (want none: the products are torch.matmul)")
+            del hand, want
+            ms = time_ms(lambda: step(params, state, x, y), 5, dev, reps=5)
+            flops = 6 * sum(a * b for a, b in zip(dims, dims[1:])) * batch
+            rec["full"][label] = dict(losses=lv, step_ms=ms,
+                                      tflops=flops / ms / 1e9)
+            say(f"phase 26 make_train_step {MLP_A} {label}: 3 steps, losses "
+                f"{lv}, params bitwise equal to the steps by hand (autograd "
+                f"+ {type(opt).__name__}) | step {ms:.3f} ms, "
+                f"{flops / ms / 1e9:.1f} TF/s (CUDA events, median of 5 "
+                f"windows of 5 steps) | {smi}")
+            del params, state
+        with torch.no_grad():
+            want = mlp_forward(base, x)
+        got = infer_step(base, x)
+        if got.requires_grad or not torch.equal(got, want) or \
+                not torch.isfinite(got.float()).all():
+            fail(f"phase 26 infer_step {MLP_A} {dtype}: not bitwise "
+                 f"mlp_forward under no_grad, or not finite")
+        ms = time_ms(lambda: infer_step(base, x), 10, dev, reps=5)
+        rec["full"][f"{dtype} infer"] = dict(ms=ms)
+        say(f"phase 26 infer_step {MLP_A} {dtype}: bitwise mlp_forward under "
+            f"no_grad | {ms:.3f} ms a forward (CUDA events, median of 5 "
+            f"windows of 10) | {smi}")
+        del base, x, y, got, want
+        torch.cuda.empty_cache()
+
+    # -- the small MLP: 3 steps on the card against the CPU, both losses
+    dims = mlp_dims(MLP_SMALL)
+    batch = MLP_SMALL[-1]
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        g = torch.Generator().manual_seed(261)
+        base = init_mlp(g, dims, dt, device="cpu")
+        x = torch.randn((batch, dims[0]), generator=g).to(dt)
+        ys = {"mse": torch.rand((batch, dims[-1]), generator=g),
+              "xent": torch.randint(0, dims[-1], (batch,), generator=g,
+                                    dtype=torch.int32)}
+        for name in ("sgd", "adagrad"):
+            for loss, y in ys.items():
+                runs = {}
+                for where in ("cpu", dev):
+                    params = [tuple(t.to(where, copy=True) for t in wb)
+                              for wb in base]
+                    opt = make_optimizer(name)
+                    step, state = make_train_step(opt, loss), opt.init(params)
+                    ls = [float(step(params, state, x.to(where),
+                                     y.to(where))[2]) for _ in range(3)]
+                    runs[str(where)] = (params, ls)
+                (cpu_p, cpu_l), (gpu_p, gpu_l) = runs["cpu"], runs[str(dev)]
+                err, ulps = 0.0, []
+                for i, (a, b) in enumerate(zip(tree_leaves(gpu_p),
+                                               tree_leaves(cpu_p))):
+                    d = (a.float().cpu() - b.float()).abs()
+                    own = b.float().abs().max().item()
+                    # f32: each leaf at its own scale; bf16: each leaf at its
+                    # layer's (a bias starts at zero and is three updates
+                    # made from cancelling bf16 gradient sums)
+                    layer = max(t.float().abs().max().item()
+                                for t in cpu_p[i // 2])
+                    tol = (mlp_param_tol(b, dtype) + 1e-5 * b.float().abs()
+                           if dtype == "float32"
+                           else mlp_param_tol(b, dtype, layer))
+                    if not bool((d <= tol).all()):
+                        fail(f"phase 26 make_train_step {MLP_SMALL} {dtype} "
+                             f"{name} {loss}: card against CPU, leaf {i} "
+                             f"differs by {d.max().item():.3e} (max |leaf| "
+                             f"{own:.3e}, its layer's {layer:.3e})")
+                    err = max(err, d.max().item())
+                    ulps.append(round(d.max().item() / bf16_ulp(own), 2))
+                rtol = 1e-5 if dtype == "float32" else 2 ** -6
+                if not all(abs(a - b) <= rtol * abs(b)
+                           for a, b in zip(gpu_l, cpu_l)):
+                    fail(f"phase 26 make_train_step {MLP_SMALL} {dtype} "
+                         f"{name} {loss}: losses {gpu_l} on the card, "
+                         f"{cpu_l} on the CPU")
+                worst[f"{dtype} {name} {loss}"] = err
+                rec["small"][f"{dtype} {name} {loss}"] = dict(
+                    losses_card=gpu_l, losses_cpu=cpu_l, max_abs_err=err,
+                    bf16_ulps_of_own_max=ulps)
+                if dtype != "float32":
+                    say(f"phase 26 {MLP_SMALL} {dtype} {name} {loss}: card "
+                        f"against CPU, each leaf's max abs err in bf16 ulps "
+                        f"of its own max |leaf| (W, b per layer): {ulps}")
+        got = infer_step([tuple(t.to(dev) for t in wb) for wb in base],
+                         x.to(dev)).cpu()
+        want = infer_step(base, x)
+        d = (got.float() - want.float()).abs().max().item()
+        if not d <= mlp_param_tol(want, dtype) + (
+                1e-5 * want.float().abs().max().item()):
+            fail(f"phase 26 infer_step {MLP_SMALL} {dtype}: card against CPU "
+                 f"max abs err {d:.3e}")
+        worst[f"{dtype} infer"] = d
+    say(f"phase 26 make_train_step {MLP_SMALL}: sgd / adagrad x mse / "
+        f"cross-entropy x f32 / bf16, 3 steps on the card against the CPU "
+        f"(f32 1e-5 x max|leaf| + rtol 1e-5, bf16 two ulps of the layer's "
+        f"max|param|), "
+        f"and infer_step: max abs err {worst} | {smi}")
+    rec["small_worst"] = worst
+
+    # -- cast_int4_mlp + mlp_forward_int4 at the inference bench's shape
+    dims = mlp_dims(MLP_INT4)
+    gen = torch.Generator(device=dev).manual_seed(262)
+    q = quantize_weights_int4(init_mlp(gen, dims, device=dev))
+    xq = torch.rand((MLP_INT4[-1], dims[0]), generator=gen,
+                    device=dev).bfloat16()
+    cast = cast_int4_mlp(q)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = mlp_forward_int4(cast, xq)
+    torch.cuda.synchronize()
+    k5 = {k: v for k, v in kernels.launch_counts.items() if v}
+    with torch.no_grad():
+        raw = mlp_forward_int4(q, xq)
+    layers = MLP_INT4[0]
+    if k5.get("int4_gemm") != layers or k5.get("int4_gemm_wgmma") != layers \
+            or set(k5) != {"int4_gemm", "int4_gemm_wgmma"} \
+            or not torch.equal(out, raw) \
+            or not torch.isfinite(out.float()).all():
+        fail(f"phase 26 cast_int4_mlp + mlp_forward_int4 {MLP_INT4}: "
+             f"launches {k5} (want {layers} int4_gemm, all wgmma), bitwise "
+             f"the raw carriers' call {torch.equal(out, raw)}")
+    with torch.no_grad():
+        ms_cast = time_ms(lambda: mlp_forward_int4(cast, xq), 10, dev, reps=5)
+        ms_raw = time_ms(lambda: mlp_forward_int4(q, xq), 10, dev, reps=5)
+    rec["int4"] = dict(launches=k5, ms_cast=ms_cast, ms_raw=ms_raw)
+    say(f"phase 26 cast_int4_mlp + mlp_forward_int4 {MLP_INT4}: launches "
+        f"{k5} ({layers} layers: one K5 a layer, wgmma), output bitwise the "
+        f"raw carriers' call | {ms_cast:.3f} ms a forward pre-cast, "
+        f"{ms_raw:.3f} ms packing the carriers each call (CUDA events, "
+        f"median of 5 windows of 10) | {smi}")
+    del q, cast, xq, out, raw
+    torch.cuda.empty_cache()
+
+    # -- a param_profile region inside a CUDA torch.profiler session
+    gen = torch.Generator(device=dev).manual_seed(263)
+    dims = mlp_dims(MLP_SMALL)
+    params = init_mlp(gen, dims, device=dev)
+    x = torch.rand((MLP_SMALL[-1], dims[0]), generator=gen, device=dev)
+    y = torch.rand((MLP_SMALL[-1], dims[-1]), generator=gen, device=dev)
+    opt = make_optimizer("sgd")
+    step, state = make_train_step(opt), opt.init(params)
+    timer = ParamTimer()
+    step(params, state, x, y)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with param_profile(timer, "phase26_train_step"):
+            step(params, state, x, y)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    dev_us = sum(e.self_device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if "phase26_train_step" not in names or timer.elapsed_ns <= 0 or \
+            dev_us <= 0:
+        fail(f"phase 26 param_profile: region in the events "
+             f"{'phase26_train_step' in names}, host time "
+             f"{timer.elapsed_ns} ns, device time {dev_us} us")
+    rec["profile"] = dict(host_us=timer.get_us(), device_us=dev_us)
+    say(f"phase 26 param_profile('phase26_train_step') around a train step "
+        f"in a CUDA torch.profiler session: the region is in its events; "
+        f"host {timer.get_us():.1f} us (ParamTimer), device {dev_us:.1f} us "
+        f"(profiler) | {smi}")
+    rec["k5_launches"] = k5["int4_gemm_wgmma"]
+    rec["wall_s"] = time.perf_counter() - t_start
+    say(f"phase 26 done in {rec['wall_s']:.1f} s")
+    return rec
+
+
 def main(out_path=None) -> int:
     try:
         import torch
@@ -4366,6 +4648,10 @@ def main(out_path=None) -> int:
     mb25 = microbench_tier(smi, timings, timing_text)
     result["phases"]["microbench"] = mb25
 
+    # ---------------------------------------------------------------- 26
+    mlp26 = mlp_steps_tier(smi)
+    result["phases"]["mlp_steps"] = mlp26
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -4434,6 +4720,9 @@ def main(out_path=None) -> int:
               "param_tpu/ops/matmul.py:196",
               cli_launches("inference_int4_K5", "int4_gemm_wgmma"),
               k5["(512, 4096, 4096)"]),
+        entry("int4 gemm, cast_int4_mlp + mlp_forward_int4 (K5), wgmma "
+              "path", src + "int4_gemm.cu", "param_tpu/ops/matmul.py:196",
+              mlp26["k5_launches"], k5["(512, 4096, 4096)"]),
         entry("int4 gemm, serve decode step (K5), stream path",
               src + "int4_gemm.cu", "param_tpu/ops/matmul.py:196", n_stream,
               k5["(1, 4096, 12288)"]),

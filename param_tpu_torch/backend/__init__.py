@@ -4,8 +4,10 @@ over it and the mock backend."""
 
 from param_tpu_torch.backend.base import (  # noqa: F401
     OBJECT_COLLECTIVES,
+    PT2PT_PATTERNS,
     REDUCE_OPS,
     SUPPORTED_COLLECTIVES,
+    SUPPORTED_P2P_OPS,
     Backend,
     CollectiveArgs,
     CommGroup,

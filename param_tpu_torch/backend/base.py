@@ -53,6 +53,9 @@ SUPPORTED_COLLECTIVES = [
 # so they are timed per call
 OBJECT_COLLECTIVES = {"all_gather_object", "broadcast_object_list"}
 
+SUPPORTED_P2P_OPS = ["send", "recv", "isend", "irecv"]
+PT2PT_PATTERNS = ["one2one", "pairwise"]
+
 REDUCE_OPS = ["sum", "max", "min", "prod", "avg"]
 
 

@@ -35,7 +35,7 @@ import argparse
 import logging
 import sys
 
-from param_tpu_torch.backend.base import REDUCE_OPS
+from param_tpu_torch.backend.base import PT2PT_PATTERNS, REDUCE_OPS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dst-rank", type=int, default=0)
     ap.add_argument("--src-ranks", default="", help="comma ranks for incast/pt2pt")
     ap.add_argument("--dst-ranks", default="", help="comma ranks for multicast/pt2pt")
-    ap.add_argument("--pt2pt", default=None, choices=[None, "one2one", "pairwise"])
+    ap.add_argument("--pt2pt", default=None, choices=[None, *PT2PT_PATTERNS])
     ap.add_argument("--window", type=int, default=100, help="pt2pt BW window size")
     ap.add_argument("--bitwidth", type=int, default=32,
                     help="quantized comm bitwidth (16/8)")

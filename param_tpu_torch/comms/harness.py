@@ -116,6 +116,8 @@ class CommsParams:
 
 # collectives whose per-rank input is size/world (the output aggregates)
 _GATHERING = {"all_gather", "all_gather_base", "all_gather_v", "gather"}
+# collectives that mean nothing in a world of one
+NEEDS_WORLD = {"pt2pt", "incast", "multicast"}
 
 
 class CommsBench:

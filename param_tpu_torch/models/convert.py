@@ -93,9 +93,11 @@ def mlp_params_from_jax(np_params, device="cuda"):
 
 def adagrad_state_from_jax(np_acc, device="cuda"):
     """A params-shaped accumulator tree (numpy leaves; e.g. the reference's
-    ``init_adagrad_state`` or optax's ``sum_of_squares``) as the port's
-    Adagrad state."""
-    return _convert(np_acc, resolve_device(device), False)
+    ``init_adagrad_state`` or optax's ``sum_of_squares``), a DLRM's tree or
+    an MLP's list of (W, b) pairs, as the port's Adagrad state."""
+    if isinstance(np_acc, dict):
+        return _convert(np_acc, resolve_device(device), False)
+    return mlp_params_from_jax(np_acc, device)
 
 
 def transformer_params_from_jax(np_params, device="cuda"):

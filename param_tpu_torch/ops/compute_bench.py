@@ -38,8 +38,9 @@ from param_tpu_torch.ops.embedding import embedding_bag, embedding_bytes
 from param_tpu_torch.ops.matmul import (
     gemm_flops, matmul, matmul_pallas, matmul_weight_resident,
 )
-from param_tpu_torch.ops.mlp import init_mlp, make_optimizer, mlp_flops, \
-    mlp_forward
+from param_tpu_torch.ops.mlp import (
+    infer_step, init_mlp, make_optimizer, make_train_step, mlp_flops,
+)
 from param_tpu_torch.utils.chip import (
     attention_roofline_tflops, detect_chip, matmul_roofline_tflops,
 )
@@ -187,21 +188,13 @@ def bench_mlp(configs: List[tuple], dtype: str = "float32",
         y = torch.from_numpy(rng.random((batch, dout), dtype=np.float32)).to(dev)
         if fwd_only:
             def step():
-                with torch.no_grad():
-                    return mlp_forward(params, x)
+                return infer_step(params, x)
         else:
-            for w, b in params:
-                w.requires_grad_(True)
-                b.requires_grad_(True)
             opt = make_optimizer(optimizer)
-            state = opt.init(params)
-            leaves = [t for wb in params for t in wb]
+            train_step, state = make_train_step(opt), opt.init(params)
 
             def step():
-                loss = torch.mean((mlp_forward(params, x).float() - y) ** 2)
-                grads = torch.autograd.grad(loss, leaves)
-                opt.update(params, grads, state)
-                return loss
+                return train_step(params, state, x, y)[2]
 
         per = time_ms(step, iters, dev, reps=reps) / 1e3
         tf = mlp_flops(dims, batch, fwd_only) / per / 1e12

@@ -62,16 +62,20 @@ def quantize_weights_int4(params, group: int = 128):
     return out
 
 
-def pack_int4_mlp(qparams):
-    """int8 carriers -> nibble-packed (din // 2, dout) bytes; call once,
-    ahead of the inference loop (the counterpart of the reference's
-    ``cast_int4_mlp``)."""
+def cast_int4_mlp(qparams):
+    """int8 carriers -> nibble-packed (din // 2, dout) bytes, K5's layout;
+    call once, ahead of the inference loop, so that
+    :func:`mlp_forward_int4` does not pack them on every step (the
+    reference casts its carriers to XLA's ``s4`` here)."""
     return [(pack_nibbles(q), s, b) for q, s, b in qparams]
+
+
+pack_int4_mlp = cast_int4_mlp
 
 
 def mlp_forward_int4(qparams, x: torch.Tensor) -> torch.Tensor:
     """Weight-only int4 inference: K5 for every layer (packed weights from
-    :func:`pack_int4_mlp`, or raw carriers, packed here), f32 output, bias
+    :func:`cast_int4_mlp`, or raw carriers, packed here), f32 output, bias
     in f32, each layer's output rounded to bf16."""
     h = x
     for i, (q, scale, b) in enumerate(qparams):
@@ -109,7 +113,7 @@ def bench_inference(configs: Sequence[tuple], dtype: str = "float32",
             x = x32.to(torch.bfloat16)
             peak = chip.bf16_flops / 1e12  # int8 weights ride the bf16 path
         elif dtype == "int4":
-            params = pack_int4_mlp(quantize_weights_int4(fp_params))
+            params = cast_int4_mlp(quantize_weights_int4(fp_params))
             fwd, x = mlp_forward_int4, x32.to(torch.bfloat16)
             peak = chip.bf16_flops / 1e12
         else:

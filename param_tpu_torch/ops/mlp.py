@@ -7,20 +7,22 @@ reference leaves them to XLA outside any Pallas kernel.
 The optimizers follow optax, not ``torch.optim``: Adagrad starts its
 accumulator at 0.1 and scales by ``where(acc > 0, rsqrt(acc + eps), 0)``
 with eps = 1e-7 inside the square root (``torch.optim.Adagrad`` puts eps
-outside and has no gate).  They update the parameters in place.
+outside and has no gate).  They update the parameters in place, and so
+does :func:`make_train_step`'s step.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import TYPE_CHECKING, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from param_tpu_torch.models.parallel import (
-    MeshGroups, all_reduce_mean, copy_to_group, gather_from_group,
-)
 from param_tpu_torch.ops.sparse_update import adagrad_factor
 from param_tpu_torch.utils.device import resolve_device
+
+if TYPE_CHECKING:
+    from param_tpu_torch.models.parallel import MeshGroups
 
 Params = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -83,6 +85,11 @@ def make_tp_mlp_train_step(groups: MeshGroups, lr: float = 0.01):
     input width (in a tp group of one the two coincide, and so do the
     results).  The loss is mean((logit - y)^2) over the full batch and the
     step SGD with the gradients averaged over dp.  Not in place."""
+    # imported here: the models package imports this module
+    from param_tpu_torch.models.parallel import (
+        all_reduce_mean, copy_to_group, gather_from_group,
+    )
+
     tp, dp = groups.tp, groups.dp
 
     def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -175,3 +182,39 @@ def make_optimizer(name: str, lr: float = 0.01):
     if name == "adagrad":
         return Adagrad(lr)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+def make_train_step(optimizer, loss: str = "mse"):
+    """``train_step(params, opt_state, x, y) -> (params, opt_state, loss)``:
+    the forward (:func:`mlp_forward`, its output upcast to f32), the loss,
+    the backward and ``optimizer``'s update (:class:`Sgd` / :class:`Adagrad`).
+
+    ``loss`` "mse" is ``mean((out - y)**2)``; any other value is softmax
+    cross-entropy of ``out`` against integer labels ``y``, averaged over
+    the batch.  The update is in place: the params and state returned are
+    the caller's own tensors, updated (the reference returns new arrays).
+    The loss is a detached f32 scalar tensor."""
+
+    def loss_fn(params: Params, x: torch.Tensor, y: torch.Tensor):
+        out = mlp_forward(params, x).float()
+        if loss == "mse":
+            return torch.mean((out - y) ** 2)
+        return F.cross_entropy(out, y.long())
+
+    def train_step(params: Params, opt_state, x: torch.Tensor,
+                   y: torch.Tensor):
+        local = [tuple(t.detach().requires_grad_(True) for t in wb)
+                 for wb in params]
+        with torch.enable_grad():
+            value = loss_fn(local, x, y)
+            grads = torch.autograd.grad(value, tree_leaves(local))
+        opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, value.detach()
+
+    return train_step
+
+
+@torch.no_grad()
+def infer_step(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mlp_forward` without autograd."""
+    return mlp_forward(params, x)

@@ -27,6 +27,23 @@ DTYPE_MAP = {
     "float8_e5m2": torch.float8_e5m2,
 }
 
+# dtypes a reduction collective (all_reduce / reduce / reduce_scatter) takes
+REDUCE_DTYPES = {
+    "float32",
+    "float",
+    "float16",
+    "half",
+    "bfloat16",
+    "float64",
+    "double",
+    "int8",
+    "int16",
+    "int32",
+    "int",
+    "int64",
+    "long",
+}
+
 
 def dtype_from_name(name: str) -> torch.dtype:
     try:

@@ -6,7 +6,8 @@ A bench builds a :class:`ComputePerfMetrics`, :class:`CommsCollPerfMetrics`
 :class:`CommsPt2PtPerfMetrics` per result and hands it to
 :func:`emit_metrics`, which passes it to every registered sink (none by
 default): :class:`StdoutJsonLogger` prints one JSON line,
-:class:`FileJsonLogger` appends one to a file.
+:class:`FileJsonLogger` appends one to a file.  :func:`setup_rank_logging`
+tags log records with the rank; :func:`graceful_exit` logs and exits.
 """
 
 from __future__ import annotations
@@ -120,6 +121,10 @@ def unregister_perf_logger(name: str) -> None:
     _PERF_LOGGERS.pop(name, None)
 
 
+def get_perf_loggers() -> List[PerfLogger]:
+    return list(_PERF_LOGGERS.values())
+
+
 def emit_metrics(metrics) -> None:
     """Hand ``metrics`` to every registered sink; a sink that fails is
     logged and the others still run."""
@@ -128,3 +133,21 @@ def emit_metrics(metrics) -> None:
             lg.log_metrics(metrics)
         except Exception:  # noqa: BLE001 — a bad sink must not kill the bench
             log.exception("perf logger failed")
+
+
+def setup_rank_logging(rank: int = 0, level: str = "INFO") -> None:
+    """Log records tagged with the rank, at ``level``, replacing the root
+    logger's handlers."""
+    logging.basicConfig(
+        level=level.upper(),
+        format=f"[%(asctime)s][rank {rank}][%(levelname)s] "
+               "%(name)s: %(message)s",
+        force=True,
+    )
+
+
+def graceful_exit(msg: str = "", code: int = 1):
+    """Log ``msg`` as an error (when given) and raise ``SystemExit(code)``."""
+    if msg:
+        log.error(msg)
+    raise SystemExit(code)

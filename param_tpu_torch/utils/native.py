@@ -112,9 +112,25 @@ class ZipfSampler:
         return ((z - 1) % self.n_rows).astype(np.int32)
 
     def __del__(self):
-        if self._handle is not None and _lib is not None:
-            _lib.pd_zipf_free(self._handle)
+        try:
+            if self._handle is not None and _lib is not None:
+                _lib.pd_zipf_free(self._handle)
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
         self._handle = None
+
+
+def ragged_offsets(seed: int, batch: int, max_nnz: int) -> np.ndarray:
+    """CSR offsets (batch+1,) int64 with uniform bag lengths in
+    [1, max_nnz]."""
+    lib = get_lib()
+    if lib is None:
+        rng = np.random.default_rng(seed)
+        lengths = rng.integers(1, max_nnz + 1, size=batch)
+        return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    out = np.empty(batch + 1, dtype=np.int64)
+    lib.pd_ragged_offsets(seed, batch, max_nnz, out)
+    return out
 
 
 def pad_ragged(indices: np.ndarray, offsets: np.ndarray, max_nnz: int,
@@ -136,3 +152,14 @@ def pad_ragged(indices: np.ndarray, offsets: np.ndarray, max_nnz: int,
     out = np.full((batch, max_nnz), pad_value, dtype=np.int32)
     out[mask] = indices[src[mask]]
     return out
+
+
+def normal(seed: int, shape) -> np.ndarray:
+    """Standard-normal float32 features."""
+    count = int(np.prod(shape))
+    lib = get_lib()
+    if lib is None:
+        return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    out = np.empty(count, dtype=np.float32)
+    lib.pd_normal(seed, count, out)
+    return out.reshape(shape)

@@ -62,6 +62,11 @@ def profile_to(log_dir: Optional[str], device="cuda"):
                   f"{totals[1]} device operations; trace in {log_dir}")
 
 
+def annotate(name: str) -> torch.profiler.record_function:
+    """A named region of a ``torch.profiler`` trace (a context manager)."""
+    return torch.profiler.record_function(name)
+
+
 def kernel_times(run, calls: int = 10):
     """Device ms a call of ``run`` by kernel name (cut to 80 characters),
     from ``torch.profiler`` over ``calls`` calls after 3 warm-ups: their

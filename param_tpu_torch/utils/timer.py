@@ -4,16 +4,76 @@ A host clock around asynchronous CUDA work measures the enqueue, so device
 timing uses ``torch.cuda.Event`` pairs and synchronises before reading.
 One window of calls can be disturbed by its neighbours on the card or the
 host, so a timing is the median of ``reps`` windows.
+
+:class:`ParamTimer`, :func:`param_profile` and :class:`RegionTimers` are
+the benches' accumulating host-clock timers (PARAM's ``paramTimer`` and
+``paramProfile``); they measure the host, not the card.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Callable, List, Optional
 
 import torch
+
+
+@dataclass
+class ParamTimer:
+    """Accumulating nanosecond timer."""
+
+    elapsed_ns: float = 0.0
+
+    def reset(self, new_ns: float = 0.0) -> None:
+        self.elapsed_ns = new_ns
+
+    def inc_ns(self, ns: float) -> None:
+        self.elapsed_ns += ns
+
+    def get_us(self) -> float:
+        return self.elapsed_ns / 1e3
+
+    def get_ms(self) -> float:
+        return self.elapsed_ns / 1e6
+
+    def get_s(self) -> float:
+        return self.elapsed_ns / 1e9
+
+
+@contextmanager
+def param_profile(timer: Optional[ParamTimer] = None, description: str = ""):
+    """A named ``torch.profiler`` region (``record_function``) whose host
+    wall time (``time.monotonic_ns``) is added to ``timer``.  The time is
+    the host's: CUDA work the body only enqueued is not in it."""
+    start = time.monotonic_ns()
+    try:
+        with torch.profiler.record_function(description or "param_profile"):
+            yield
+    finally:
+        if timer is not None:
+            timer.inc_ns(time.monotonic_ns() - start)
+
+
+@dataclass
+class RegionTimers:
+    """A named set of :class:`ParamTimer` (the DLRM bench's timing
+    regions)."""
+
+    timers: dict = field(default_factory=dict)
+
+    def get(self, name: str) -> ParamTimer:
+        return self.timers.setdefault(name, ParamTimer())
+
+    def reset_all(self) -> None:
+        for t in self.timers.values():
+            t.reset()
+
+    def snapshot_us(self) -> dict:
+        return {k: v.get_us() for k, v in self.timers.items()}
 
 
 def time_samples(fn: Callable[[], object], iters: int, device="cuda",

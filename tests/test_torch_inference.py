@@ -97,12 +97,32 @@ def test_forward_int4_matches_reference(m):
     jq = jinf.quantize_weights_int4(jp)
     want = jinf.mlp_forward_int4(jinf.cast_int4_mlp(jq), jx)
     tq = tinf.quantize_weights_int4(tp)
-    got = tinf.mlp_forward_int4(tinf.pack_int4_mlp(tq), tx)
+    got = tinf.mlp_forward_int4(tinf.cast_int4_mlp(tq), tx)
     assert got.dtype == torch.bfloat16
     _assert_close(got, want)
     # raw carriers are packed on the way, as the reference casts them
     torch.testing.assert_close(tinf.mlp_forward_int4(tq, tx), got, rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("m,group", [(1, 128), (64, 128), (5, 64), (96, 64)])
+def test_cast_int4_mlp_forward_matches_reference(m, group):
+    """The once-per-run preparation of both packages feeds their int4
+    forward: the reference's s4 cast, the port's packing into K5's layout
+    (``pack_int4_mlp`` is the same function)."""
+    assert tinf.pack_int4_mlp is tinf.cast_int4_mlp
+    jp, tp = _params()
+    jx, tx = _x(m)
+    want = jinf.mlp_forward_int4(
+        jinf.cast_int4_mlp(jinf.quantize_weights_int4(jp, group)), jx)
+    tq = tinf.quantize_weights_int4(tp, group)
+    cast = tinf.cast_int4_mlp(tq)
+    for (q, s, b), (pq, ps, pb) in zip(tq, cast):
+        assert pq.shape == (q.shape[0] // 2, q.shape[1])
+        assert ps is s and pb is b
+    got = tinf.mlp_forward_int4(cast, tx)
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8",

@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from param_tpu_torch.ops import matmul as tm
-
-# param_tpu.ops re-exports a function named matmul over the module's name
+# both packages' ops/__init__ re-export a function named matmul over the
+# module's name
+tm = importlib.import_module("param_tpu_torch.ops.matmul")
 jm = importlib.import_module("param_tpu.ops.matmul")
 
 
