@@ -133,6 +133,8 @@ def run_bench(model, ns) -> int:
         results = bench.run(reps=ns.reps, chain=ns.chain, regions=regions,
                             max_chain=ns.max_chain)
     if lead:
+        if ns.profile:
+            report_spans(ns.profile, model.device.type == "cuda")
         bench.report(results)
     return 0
 
@@ -146,7 +148,7 @@ def train_e2e(model, cfg, ns) -> int:
 
     from param_tpu_torch.models.dlrm_data import data_loader
     from param_tpu_torch.ops.mlp import make_optimizer
-    from param_tpu_torch.utils.profiler import make_profiler
+    from param_tpu_torch.utils.profiler import make_profiler, reset
     from param_tpu_torch.utils.timer import sync
 
     ds = data_loader(
@@ -188,6 +190,7 @@ def train_e2e(model, cfg, ns) -> int:
             t_first = time.perf_counter()
             if prof is not None:
                 prof.start()
+                reset()
     sync(dev)
     t1 = time.perf_counter()
     if prof is not None:
@@ -226,19 +229,64 @@ def train_e2e(model, cfg, ns) -> int:
 def report_profile(prof, out_dir: str, window_us: float, n_steps: int,
                    on_cuda: bool) -> None:
     """Write the trace of the steps after the first to ``out_dir``; print
-    the top operators by device time and the kernel time per step.  The
-    profiler slows the host, so the window's wall time is not a step time:
-    compare the device time per step with ``step_ms`` of a run without
-    ``--profile``."""
+    the top operators by device time, the spans (:func:`report_spans`) and
+    the device's busy time per step (the union of its operations, so
+    kernels that overlap count once).  The profiler slows the host, so the
+    window's wall time is not a step time: compare the device time per step
+    with ``step_ms`` of a run without ``--profile``."""
     from param_tpu_torch.utils.profiler import write_trace
 
-    totals = write_trace(prof, out_dir, on_cuda)
-    if totals is None:
+    write_trace(prof, out_dir, on_cuda)
+    trace = report_spans(out_dir, on_cuda)
+    if not on_cuda:
         return
-    kernel_us, launches = totals
-    print(f"profile: {n_steps} steps, kernel time {kernel_us / 1e3 / n_steps:.3f}"
-          f" ms/step over {launches / n_steps:.0f} device ops/step; wall "
-          f"under the profiler {window_us / 1e3 / n_steps:.3f} ms/step")
+    busy_ms = trace["busy_us"] / 1e3 / n_steps
+    print(f"profile: {n_steps} steps, device busy {busy_ms:.3f} ms/step over "
+          f"{trace['device_ops'] / n_steps:.0f} device ops/step; wall under "
+          f"the profiler {window_us / 1e3 / n_steps:.3f} ms/step")
+
+
+def report_spans(out_dir: str, on_cuda: bool) -> dict:
+    """Print the spans and counters that the steps recorded while the
+    profiler ran (``utils.profiler``), a step being a ``dlrm.step`` span,
+    and, on the card, the busy and idle time inside each span and the
+    longest idle gaps from ``out_dir/trace.json``
+    (``trace.device_trace.span_idle``); write the totals to
+    ``out_dir/spans.json``.  Returns ``span_idle``'s figures."""
+    import json
+
+    from param_tpu_torch.trace.device_trace import load_chrome_trace, span_idle
+    from param_tpu_torch.utils.profiler import counter_totals, span_totals
+
+    spans, counters = span_totals(), counter_totals()
+    steps = spans.get("dlrm.step", {}).get("count", 0)
+    per = max(steps, 1)
+    row = "{:<20}{:>8}{:>10}{:>10}{:>10}".format
+    clock = "device" if on_cuda else "host clock, CPU run"
+    print(f"spans over {steps} steps, a step ({clock} ms):")
+    print(row("span", "count", "ms", "self ms", "host ms"))
+    for name, t in spans.items():
+        print(row(name, *(f"{t[k] / per:.3f}" for k in (
+            "count", "device_ms", "self_device_ms", "host_ms"))))
+    for name, v in counters.items():
+        print(f"counter {name}: {v / per:.1f} a step")
+    if counters.get("dlrm.lookups") and "dlrm.unique_rows" in counters:
+        share = counters["dlrm.unique_rows"] / counters["dlrm.lookups"]
+        print(f"unique rows: {100.0 * share:.2f}% of lookups")
+    trace = span_idle(load_chrome_trace(os.path.join(out_dir,
+                                                     "trace.json"))[0])
+    if on_cuda:
+        print(row("device in span", "extents", "busy ms", "idle ms", ""))
+        for name, d in trace["spans"].items():
+            print(row(name, f"{d['count'] / per:.3f}",
+                      f"{d['busy_us'] / 1e3 / per:.3f}",
+                      f"{d['idle_us'] / 1e3 / per:.3f}", ""))
+        for g in trace["gaps"]:
+            print(f"idle {g['us']:.1f} us in {g['span']} before {g['before']}")
+    with open(os.path.join(out_dir, "spans.json"), "w") as f:
+        json.dump({"steps": steps, "spans": spans, "counters": counters}, f,
+                  indent=1)
+    return trace
 
 
 if __name__ == "__main__":

@@ -41,6 +41,17 @@ single-device one and runs no collective.  The reference's lane-packed
 table storage (``packed_tables``) is a TPU layout, and its ``table_update``
 choice is the device's here (K2 on the card, its plain version on the CPU):
 neither is ported.
+
+While a ``torch.profiler`` runs, the sparse steps record spans and counters
+(:func:`~param_tpu_torch.utils.profiler.annotate`) that tile the step:
+``dlrm.step`` holds ``dlrm.exchange`` (each collective issued here with a
+group), ``dlrm.lookup`` (K1), ``dlrm.dense_fwd`` (its child
+``dlrm.interaction``), ``dlrm.dense_bwd`` (the interaction's backward, a
+second ``dlrm.interaction``), ``dlrm.dense_update``, ``dlrm.dedup`` (the
+pooled gradient expanded to one row a lookup, then
+:func:`dedup_row_updates`) and ``dlrm.row_update`` (K2).  Counters:
+``dlrm.lookups`` (ids looked up) and ``dlrm.unique_rows`` (the dedup's
+runs).  Without a profiler they do nothing.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from param_tpu_torch.ops.mlp import (
 )
 from param_tpu_torch.ops.sparse_update import dedup_row_updates, sparse_row_update
 from param_tpu_torch.utils.device import resolve_device
+from param_tpu_torch.utils.profiler import annotate, annotate_backward, count
 
 
 @dataclass
@@ -122,11 +134,14 @@ def dot_interaction(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor
     bot_out (B, D); pooled (B, T, D) -> (B, D + (T+1)T/2).  Pairs are the
     strict lower triangle in row-major order, as ``jnp.tril_indices(m,
     k=-1)`` gives them."""
-    z = torch.cat([bot_out[:, None, :], pooled], dim=1)  # (B, m, D)
-    zz = torch.bmm(z, z.transpose(1, 2))
-    m = z.shape[1]
-    li, lj = torch.tril_indices(m, m, offset=-1, device=z.device)
-    return torch.cat([bot_out, zz[:, li, lj]], dim=1)
+    with annotate("dlrm.interaction"):
+        z = torch.cat([bot_out[:, None, :], pooled], dim=1)  # (B, m, D)
+        zz = torch.bmm(z, z.transpose(1, 2))
+        m = z.shape[1]
+        li, lj = torch.tril_indices(m, m, offset=-1, device=z.device)
+        out = torch.cat([bot_out, zz[:, li, lj]], dim=1)
+    annotate_backward("dlrm.interaction", out, z)
+    return out
 
 
 def _forward_local(params, cfg: DlrmConfig, dense, pooled_all):
@@ -262,17 +277,20 @@ class DlrmModel:
         its tables (the identity without a group)."""
         if self.group is None:
             return idx
-        return all_to_all_tables(idx, self.group.pg, self.n)
+        with annotate("dlrm.exchange"):
+            return all_to_all_tables(idx, self.group.pg, self.n)
 
     def _exchange_pooled(self, pooled_local):
         """Comm 3 (and 5 in the backward): (B, T/n, D) -> (b, T, D)."""
         if self.group is None:
             return pooled_local
-        return PooledAllToAll.apply(pooled_local, self.group.pg, self.n)
+        with annotate("dlrm.exchange"):
+            return PooledAllToAll.apply(pooled_local, self.group.pg, self.n)
 
     def mean_over_ranks(self, tensors):
         """Comms 4/6: the mean over the group of each tensor."""
-        return all_reduce_mean(tensors, self.group.pg, self.n)
+        with annotate("dlrm.exchange"):
+            return all_reduce_mean(tensors, self.group.pg, self.n)
 
     def _mean_loss(self, loss):
         if self.group is None:
@@ -366,32 +384,43 @@ class DlrmModel:
         return step
 
     def _sparse_fwd_bwd(self, params, dense, idx, labels):
-        """Forward plus the backward of the dense half.  Returns (loss,
-        per-occurrence row ids (K,) in the flat view of this rank's tables,
-        their gradients (K, D), the dense layers ``{"bot", "top"}``, their
-        gradients).
-
-        Ids and gradients are ordered table-major, as the reference's
-        ``_gather_row_updates`` orders them."""
+        """Forward plus the backward of the dense half.  Returns (loss, this
+        rank's tables' ids (B, T/n, nnz), the pooled gradient (B, T/n, D),
+        the dense layers ``{"bot", "top"}``, their gradients)."""
         cfg = self.cfg
         idx_t = self._exchange_ids(idx)
-        with torch.no_grad():
+        count("dlrm.lookups", idx_t.numel())
+        with annotate("dlrm.lookup"), torch.no_grad():
             pooled = _lookup_local_tables(params["tables"], idx_t)
         pooled = pooled.detach().requires_grad_(True)
         mlps = {"bot": params["bot"], "top": params["top"]}
-        loss = _bce(_forward_local(params, cfg, dense,
-                                   self._exchange_pooled(pooled)), labels)
-        g_pooled, *g_mlps = torch.autograd.grad(
-            loss, [pooled] + tree_leaves(mlps))  # g_pooled (B, T/n, D)
+        pooled_all = self._exchange_pooled(pooled)
+        with annotate("dlrm.dense_fwd"):
+            loss = _bce(_forward_local(params, cfg, dense, pooled_all), labels)
+        with annotate("dlrm.dense_bwd"):
+            g_pooled, *g_mlps = torch.autograd.grad(
+                loss, [pooled] + tree_leaves(mlps))
         if self.group is not None:
-            g_pooled = g_pooled * (1.0 / self.n)
             g_mlps = self._mean_dense_grads(mlps, g_mlps)
-        nnz = idx_t.shape[2]
-        gidx = _global_ids(idx_t, cfg.rows_per_table).transpose(0, 1) \
-            .reshape(-1)
-        rows_g = g_pooled.transpose(0, 1).repeat_interleave(nnz, dim=1)
-        return (self._mean_loss(loss), gidx, rows_g.reshape(-1, cfg.emb_dim),
-                mlps, g_mlps)
+        return self._mean_loss(loss), idx_t, g_pooled, mlps, g_mlps
+
+    def _row_updates(self, idx_t, g_pooled, scale=None):
+        """The dedup: one gradient row a lookup, in the flat view of this
+        rank's tables, ordered table-major as the reference's
+        ``_gather_row_updates`` orders them (times ``scale`` where given),
+        then segment-summed by row (:func:`dedup_row_updates`)."""
+        cfg = self.cfg
+        with annotate("dlrm.dedup"), torch.no_grad():
+            if self.group is not None:
+                g_pooled = g_pooled * (1.0 / self.n)
+            gidx = _global_ids(idx_t, cfg.rows_per_table).transpose(0, 1) \
+                .reshape(-1)
+            rows_g = g_pooled.transpose(0, 1).repeat_interleave(
+                idx_t.shape[2], dim=1).reshape(-1, cfg.emb_dim)
+            if scale is not None:
+                rows_g = scale * rows_g
+            return dedup_row_updates(gidx, rows_g,
+                                     self.local_tables * cfg.rows_per_table)
 
     def make_sparse_sgd_step(self, lr: float = 0.01):
         """Sparse SGD: only the gathered table rows change, by a K2 launch
@@ -401,14 +430,16 @@ class DlrmModel:
         sgd = Sgd(lr)
 
         def step(params, dense, idx, labels):
-            loss, gidx, rows_g, mlps, g_mlps = self._sparse_fwd_bwd(
-                params, dense, idx, labels)
-            sgd.update(mlps, g_mlps, None)
-            with torch.no_grad():
-                rows, totals = dedup_row_updates(gidx, -lr * rows_g, R)
-                tables = params["tables"]
-                sparse_row_update(tables.detach().view(R, -1), rows,
-                                  totals.to(tables.dtype))
+            with annotate("dlrm.step"):
+                loss, idx_t, g_pooled, mlps, g_mlps = self._sparse_fwd_bwd(
+                    params, dense, idx, labels)
+                with annotate("dlrm.dense_update"):
+                    sgd.update(mlps, g_mlps, None)
+                rows, totals = self._row_updates(idx_t, g_pooled, -lr)
+                with annotate("dlrm.row_update"), torch.no_grad():
+                    tables = params["tables"]
+                    sparse_row_update(tables.detach().view(R, -1), rows,
+                                      totals.to(tables.dtype))
             return params, loss
 
         return step
@@ -425,14 +456,17 @@ class DlrmModel:
         adagrad = Adagrad(lr, initial_accumulator, eps)
 
         def step(params, acc, dense, idx, labels):
-            loss, gidx, rows_g, mlps, g_mlps = self._sparse_fwd_bwd(
-                params, dense, idx, labels)
-            adagrad.update(mlps, g_mlps, {"bot": acc["bot"], "top": acc["top"]})
-            with torch.no_grad():
-                rows, totals = dedup_row_updates(gidx, rows_g, R)
-                sparse_row_update(params["tables"].detach().view(R, -1), rows,
-                                  totals, acc["tables"].view(R, -1),
-                                  lr=lr, eps=eps)
+            with annotate("dlrm.step"):
+                loss, idx_t, g_pooled, mlps, g_mlps = self._sparse_fwd_bwd(
+                    params, dense, idx, labels)
+                with annotate("dlrm.dense_update"):
+                    adagrad.update(mlps, g_mlps,
+                                   {"bot": acc["bot"], "top": acc["top"]})
+                rows, totals = self._row_updates(idx_t, g_pooled)
+                with annotate("dlrm.row_update"), torch.no_grad():
+                    sparse_row_update(params["tables"].detach().view(R, -1),
+                                      rows, totals, acc["tables"].view(R, -1),
+                                      lr=lr, eps=eps)
             return params, acc, loss
 
         return step

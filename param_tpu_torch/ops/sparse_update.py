@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from param_tpu_torch.kernels.sparse_update import sparse_update
+from param_tpu_torch.utils.profiler import count, recording
 
 
 def adagrad_factor(acc_new: torch.Tensor, eps: float) -> torch.Tensor:
@@ -36,7 +37,8 @@ def dedup_row_updates(flat_idx: torch.Tensor, rows_g: torch.Tensor,
     Returns (rows, totals): rows (N,) int32 with the unique ids as a prefix
     and ``drop_marker`` in the empty tail, totals (N, D) summed per row
     (zero in the tail).  Static shapes and no host synchronisation: no
-    ``torch.unique``."""
+    ``torch.unique``.  While a profiler runs, the number of runs is added
+    to the counter ``dlrm.unique_rows`` as a device scalar."""
     N = flat_idx.shape[0]
     order = torch.argsort(flat_idx, stable=True)
     sidx = flat_idx[order]
@@ -44,6 +46,8 @@ def dedup_row_updates(flat_idx: torch.Tensor, rows_g: torch.Tensor,
     start = torch.ones(N, dtype=torch.bool, device=flat_idx.device)
     start[1:] = sidx[1:] != sidx[:-1]
     run_id = torch.cumsum(start, 0) - 1  # (N,) in [0, N)
+    if N and recording():
+        count("dlrm.unique_rows", run_id[-1] + 1)
     totals = torch.zeros_like(rows_g).index_add_(0, run_id, sg)
     rows = torch.full((N,), drop_marker, dtype=torch.int32,
                       device=flat_idx.device)

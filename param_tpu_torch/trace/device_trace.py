@@ -18,6 +18,11 @@ quantized collective's device time into comm, quant, dequant and other:
   (``user_annotation``);
 - other: every other kernel, copy and memset.
 
+:func:`span_idle` gives the device's view of the program's spans
+(``utils.profiler.annotate``): the busy and idle time inside each span's
+device extent and the longest idle gaps there, each named by its span and
+by the host op launched after it.
+
 Run:
     python -m param_tpu_torch.cli.comms --bitwidth 8 --profile prof ...
     python -m param_tpu_torch.trace.device_trace prof --top 20
@@ -172,6 +177,125 @@ class _Spans:
         return i >= 0 and self.spans[i][1] >= t1
 
 
+def _busy_in(lane: _Spans, t0: float, t1: float
+             ) -> Tuple[float, List[Tuple[float, float]]]:
+    """(busy time, idle gaps) of ``lane``'s merged spans within [t0, t1]."""
+    i = max(bisect.bisect_right(lane.starts, t0) - 1, 0)
+    busy, gaps, t = 0.0, [], t0
+    for s, e in lane.spans[i:]:
+        if s >= t1:
+            break
+        if e <= t:
+            continue
+        if s > t:
+            gaps.append((t, s))
+        busy += min(e, t1) - max(s, t)
+        t = e
+    if t < t1:
+        gaps.append((t, t1))
+    return busy, gaps
+
+
+def _launches(events: List[dict]) -> Dict[int, dict]:
+    """{correlation id: the host's launch event} of a trace."""
+    return {e["args"]["correlation"]: e for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})}
+
+
+def _innermost(ops: List[dict], t: float) -> Optional[dict]:
+    """The latest-opened of ``ops`` open at time ``t``."""
+    held = [e for e in ops if float(e["ts"]) <= t
+            <= float(e["ts"]) + float(e["dur"])]
+    return max(held, key=lambda e: (float(e["ts"]), -float(e["dur"])),
+               default=None)
+
+
+def span_idle(events: List[dict], prefix: str = "dlrm.",
+              top: int = 10) -> Dict:
+    """The device's view of the spans named ``prefix``...: for each name,
+    its device extents (count, total us), the busy time in them (the union
+    of the device operations there) and the idle rest; ``busy_us``, the
+    union of every device operation of the trace (kernels that overlap
+    count once); and the ``top`` longest idle gaps inside the spans, each
+    named by the innermost span that holds it and by the host op that
+    launched the operation after it.
+
+    A span's extent runs from the start of the first to the end of the last
+    device operation launched, from any thread of its process, while its
+    host range (``user_annotation``) was open.  Kineto's own
+    ``gpu_user_annotation`` extent holds only the launches of the range's
+    own thread outside inner ranges: the backward's kernels launch from
+    autograd's device thread, and a range whose kernels all lie in inner
+    ranges (``dlrm.step``) gets none."""
+    dev = sorted(_device_events(events), key=lambda e: float(e["ts"]))
+    launches = _launches(events)
+    launched = defaultdict(list)  # host pid -> [(launch ts, device op)]
+    for e in dev:
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is not None:
+            launched[launch.get("pid")].append((float(launch["ts"]), e))
+    for v in launched.values():
+        v.sort(key=lambda x: x[0])
+    keys = {pid: [t for t, _ in v] for pid, v in launched.items()}
+    extents = []  # (device pid, start, end, name)
+    for r in events:
+        if r.get("cat") != "user_annotation" or \
+                not r.get("name", "").startswith(prefix) or \
+                r.get("pid") not in launched:
+            continue
+        t0, t1 = float(r["ts"]), float(r["ts"]) + float(r["dur"])
+        ks = keys[r.get("pid")]
+        mine = [e for _, e in launched[r.get("pid")][
+            bisect.bisect_left(ks, t0):bisect.bisect_right(ks, t1)]]
+        if mine:
+            extents.append((mine[0].get("pid"),
+                            min(float(e["ts"]) for e in mine),
+                            max(float(e["ts"]) + float(e["dur"]) for e in mine),
+                            r["name"]))
+    ops_of = defaultdict(list)
+    for e in dev:
+        ops_of[e.get("pid")].append(e)
+    starts = {pid: [float(e["ts"]) for e in ops]
+              for pid, ops in ops_of.items()}
+    lanes = {pid: _Spans([(t, t + float(e["dur"]))
+                          for t, e in zip(starts[pid], ops)])
+             for pid, ops in ops_of.items()}
+    spans: Dict[str, Dict] = {}
+    for pid, t0, t1, name in extents:
+        d = spans.setdefault(name, {"count": 0, "extent_us": 0.0,
+                                    "busy_us": 0.0})
+        d["count"] += 1
+        d["extent_us"] += t1 - t0
+        d["busy_us"] += _busy_in(lanes[pid], t0, t1)[0]
+    for d in spans.values():
+        d["idle_us"] = d["extent_us"] - d["busy_us"]
+    gaps = []
+    for pid in {x[0] for x in extents}:
+        mine = [x for x in extents if x[0] == pid]
+        for r0, r1 in _Spans([(t0, t1) for _, t0, t1, _ in mine]).spans:
+            for g0, g1 in _busy_in(lanes[pid], r0, r1)[1]:
+                inner = min((x for x in mine if x[1] <= g0 and x[2] >= g1),
+                            key=lambda x: x[2] - x[1], default=None)
+                gaps.append((g1 - g0, pid, g1, inner[3] if inner else ""))
+    gaps.sort(key=lambda g: -g[0])
+    host = defaultdict(list)
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            host[(e.get("pid"), e.get("tid"))].append(e)
+    named = []
+    for us, pid, g1, span in gaps[:top]:
+        nxt = ops_of[pid][bisect.bisect_left(starts[pid], g1)]
+        launch = launches.get(nxt.get("args", {}).get("correlation"))
+        op = launch and _innermost(host[(launch.get("pid"), launch.get("tid"))],
+                                   float(launch["ts"]))
+        named.append({"us": us, "span": span,
+                      "before": op["name"] if op else nxt["name"]})
+    busy_us = sum(e - s for lane in lanes.values() for s, e in lane.spans)
+    return {"busy_us": busy_us, "device_ops": len(dev), "spans": spans,
+            "gaps": named}
+
+
 def _lanes(events, keep) -> Dict[tuple, _Spans]:
     """{(pid, tid): _Spans} of the events ``keep`` selects."""
     lanes = defaultdict(list)
@@ -207,9 +331,7 @@ def quant_comm_split(events: List[dict],
            for r in ("quantize", "dequantize")}
     cpu["comm"] = _lanes(events, lambda e: e.get("cat") in (
         "cpu_op", "user_annotation") and _is_comm_op(e.get("name", "")))
-    launches = {e["args"]["correlation"]: e for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and "correlation" in e.get("args", {})}
+    launches = _launches(events)
 
     def inside(region, e) -> bool:
         if region in gpu:

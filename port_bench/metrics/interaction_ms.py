@@ -1,0 +1,25 @@
+"""Device ms a step under the port's ``dlrm.interaction`` spans, forward and
+backward summed: the pairwise dots (``bmm``), the lower-triangle gather and
+the concatenation, and their gradients.  Read from
+``param_tpu_torch.utils.profiler``'s span record (CUDA events), one value a
+``dlrm.step``, and the median taken: the first profiled steps carry the
+profiler's start-up stalls, which a mean spreads over the rest.  None where
+the program recorded no such span, or where the rank ran in another
+process."""
+
+import statistics
+
+NAME = "interaction_ms"
+UNIT = "ms"
+LAYER = "ops: dedup, optimizers, interaction"
+MOVES = "samples_per_s"
+SPAN = "dlrm.interaction"
+
+
+def read(run):
+    try:
+        from param_tpu_torch.utils.profiler import span_trees
+    except ImportError:
+        return None
+    steps = [t for t in span_trees("dlrm.step") if SPAN in t]
+    return statistics.median(t[SPAN] for t in steps) if steps else None

@@ -1,13 +1,15 @@
 """One rank of a gloo world for ``tests/test_torch_dlrm_sharded.py``.
 
-    python tests/torch_dlrm_worker.py STORE_FILE RANK WORLD IN_FILE OUT_DIR
+    python tests/torch_dlrm_worker.py STORE_FILE RANK WORLD IN_FILE OUT_DIR [spans]
 
 Reads the full parameters and batches that the test process wrote to
 IN_FILE (a pickle of numpy arrays), runs the port's sharded DLRM on this
 rank's shard (the sharded loss, value and grad, two steps of each optimizer,
 the ragged loss and exchange on both wires, the comm bench's pattern and a
 short run of every region), and saves the results to
-``OUT_DIR/rank<RANK>.pt``.  It imports torch, numpy and the port only (no
+``OUT_DIR/rank<RANK>.pt``.  With ``spans`` (``tests/test_torch_spans.py``)
+it instead runs the sparse steps under a CPU profiler and saves the span
+record of each optimizer.  It imports torch, numpy and the port only (no
 JAX).
 """
 
@@ -58,7 +60,32 @@ def _train(model, opt_name, params, batches):
     return losses, _np(params), None if acc is None else _np(acc)
 
 
-def main(store, rank, world, in_file, out_dir):
+def _spans(model, fresh, batches):
+    """{optimizer: (span totals, counter totals)} of the sparse steps over
+    ``batches`` under a CPU profiler."""
+    import torch
+
+    from param_tpu_torch.utils import profiler
+
+    out = {}
+    for opt in ("sparse_sgd", "sparse_adagrad"):
+        params = fresh()
+        acc = model.init_adagrad_state(params)
+        step = (model.make_sparse_sgd_step(LR) if opt == "sparse_sgd"
+                else model.make_sparse_adagrad_step(LR))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            profiler.reset()
+            for b in batches:
+                if opt == "sparse_sgd":
+                    step(params, *b)
+                else:
+                    step(params, acc, *b)
+        out[opt] = (profiler.span_totals(), profiler.counter_totals())
+    return out
+
+
+def main(store, rank, world, in_file, out_dir, mode="all"):
     sys.path.insert(0, ROOT)
     import torch
     import torch.distributed as dist
@@ -81,6 +108,11 @@ def main(store, rank, world, in_file, out_dir):
     model = DlrmModel(DlrmConfig(**data["cfg"]), group=group, device="cpu")
     fresh = lambda: params_shard_from_jax(data["params"], rank, world, "cpu")  # noqa: E731
     batches = [model.place_batch(b) for b in data["batches"]]
+    if mode == "spans":
+        torch.save(_spans(model, fresh, batches),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+        return
     res = {}
 
     res["loss"] = float(model.make_sharded_loss()(fresh(), *batches[0]))
@@ -114,5 +146,4 @@ def main(store, rank, world, in_file, out_dir):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-         sys.argv[5])
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:])
