@@ -16,18 +16,32 @@ Phases (any failure exits non-zero):
      bags of 10) in f32 and bf16.  Every K1 shape (here and in phases 22
      and 25) records the launch shape ``emb_gather_schedule`` gave it and
      must give the same bits on two launches.
-  3. K2 (sparse row update) against its plain version, SGD and Adagrad, on
-     the trainer's flat 800k x 64 table with the deduplicated rows of one
-     batch (163840 slots, the unused tail dropped as ids >= R).
+  3. The dedup (``kernels/dedup.py``, ``csrc/dedup.cu``) against its plain
+     version (one gradient row a lookup, then ``dedup_row_updates``) on the
+     same ids and pooled gradient: one batch of the trainer's (2048 x 8
+     bags of 10 over the flat 800k x 64 table), and the benchmark cells'
+     shapes (8 x 1M rows of 64, batch 16384, 100 uniform ids a bag; 26 x
+     4M rows of 128, batch 32768, one zipf(1.15) id a feature, scale
+     -0.01) and the first with zipf(1.15) ids, whose hot rows run over
+     thousands of chunks.  Rows exactly, sums within rtol 1e-4 plus 1e-6
+     of their terms' summed magnitudes, a zero tail, the same bits on two
+     calls; each shape's device time by kernel (``torch.profiler`` in a
+     fresh process).  Then K2 (sparse row update) against its plain
+     version, SGD and Adagrad, on the trainer's table with the first
+     shape's dedup output (163840 slots, the unused tail dropped as ids >=
+     R).
   4. Timings: kernel, plain version, one library call computing the same
-     function, and the least time the card could take.
+     function (none for the dedup), and the least time the card could
+     take (the dedup's: the ids and the pooled gradient read once, its
+     rows and sums written once).
   5. Model parity: a small DLRM's logits and one step of each sparse
      optimizer on the card (kernels) against the same on the CPU (plain
      versions).
   6. The DLRM trainer at the CLI's full default width through
      ``param_tpu_torch.cli.dlrm.main`` for 5 batches each of sparse_adagrad,
      sparse_sgd and dense adagrad, with the launch counts reset just before
-     and read just after: K1 and K2 must have launched.
+     and read just after: K1 must have launched, K2 and the dedup in the
+     sparse steps.
   7. K3 (tiled GEMM) against its plain version (f32 torch.matmul of the
      same inputs, TF32 off) in bf16, f16 and f32 at GEMM_A / GEMM_C shapes
      (with the split-K shapes (128, 1024, 1024) and (1024, 1024, 128)) and
@@ -571,6 +585,62 @@ def comms_world(cards: int, smi: str) -> dict:
 
 DLRM_OPTS = ("adagrad", "sparse_sgd", "sparse_adagrad")
 
+# Phase 3: the dedup's shapes, (name, tables, rows a table, batch, nnz,
+# dim, ids, scale): the benchmark cells' (port_bench's configurations and
+# traffic) and the first with zipf ids
+DEDUP_CASES = [
+    ("rm8x1m.adagrad.uniform", 8, 1_000_000, 16384, 100, 64, "uniform", None),
+    ("tb26.sgd.zipf", 26, 4_000_000, 32768, 1, 128, "zipf", -0.01),
+    ("rm8x1m.zipf", 8, 1_000_000, 16384, 100, 64, "zipf", None),
+]
+
+
+def dedup_case_ids(tables, rows, batch, nnz, ids, seed=0):
+    """(batch * tables, nnz) int32 ids in the flat view of the tables, in
+    the step's (b, t, k) order: uniform, or zipf(1.15) wrapped into each
+    table."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (batch, tables, nnz)
+    local = (rng.integers(0, rows, shape) if ids == "uniform"
+             else (rng.zipf(1.15, shape) - 1) % rows)
+    flat = local + (np.arange(tables) * rows)[None, :, None]
+    return torch.from_numpy(flat.astype(np.int32).reshape(-1, nnz))
+
+
+# Phase 3: the kernels one dedup call runs at each of DEDUP_CASES, from
+# torch.profiler over 5 calls in a fresh process (see phase 19's)
+DEDUP_PROFILE = """
+import json
+import torch
+import chip_smoke as c
+from param_tpu_torch.kernels.dedup import dedup_sum_cuda
+from param_tpu_torch.utils.profiler import kernel_times
+out = {}
+for name, T, E, B, nnz, D, kind, scale in c.DEDUP_CASES:
+    ids = c.dedup_case_ids(T, E, B, nnz, kind).cuda()
+    g = torch.randn((B * T, D), device="cuda")
+    out[name] = kernel_times(lambda: dedup_sum_cuda(ids, g, scale, T * E),
+                             calls=5)[1]
+    del ids, g
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def dedup_profile() -> dict:
+    """{case: {kernel name: {launches, ms} a call}} of ``DEDUP_PROFILE``."""
+    r = subprocess.run([sys.executable, "-c", DEDUP_PROFILE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        fail(f"phase 3 dedup profile: rc {r.returncode}:\n{r.stdout}\n"
+             f"{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 # Phase 19: the kernels one coalesced_bag call runs on stage B's uniform
 # and zipf ids, from torch.profiler over 5 calls in a fresh process (in
 # this process, after the earlier phases, such a profile recorded no
@@ -709,9 +779,11 @@ def sharded_dlrm(smi: str, breakdown) -> dict:
         delta = dict(kernels.launch_counts)
         for k, v in delta.items():
             launches[k] += v
-        if delta["emb_gather"] <= 0 or (opt.startswith("sparse") and delta[
-                f"sparse_update_{opt[len('sparse_'):]}"] <= 0):
-            fail(f"phase 20 sharded {opt}: K1 / K2 not launched ({delta})")
+        if delta["emb_gather"] <= 0 or (opt.startswith("sparse") and (
+                delta[f"sparse_update_{opt[len('sparse_'):]}"] <= 0
+                or delta["dedup_sum"] <= 0)):
+            fail(f"phase 20 sharded {opt}: K1 / K2 / the dedup not launched "
+                 f"({delta})")
         err = max(abs(a - b) for a, b in zip(got_losses, want_losses))
         if not all(math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-6)
                    for a, b in zip(got_losses, want_losses)):
@@ -1418,6 +1490,7 @@ def et_tier(smi: str) -> dict:
     iters, warmup = 3, 1
     k1_node = "param_tpu_torch::emb_gather.default"
     k2_node = "param_tpu_torch::sparse_update.default"
+    dd_node = "param_tpu_torch::dedup_sum.default"
     cfg = DlrmConfig()
     model = DlrmModel(cfg, device=dev)
     params = model.init_params(0)
@@ -1460,6 +1533,7 @@ def et_tier(smi: str) -> dict:
         sync()
         d_k1 = kernels.launch_counts["emb_gather"]
         d_k2 = kernels.launch_counts[k2] if k2 else 0
+        d_dd = kernels.launch_counts["dedup_sum"]
         host = []
         for _ in range(5):
             sync()
@@ -1471,10 +1545,12 @@ def et_tier(smi: str) -> dict:
         et = capture_execution_trace(fn, *args())
         names = [n.name for n in et.get_nodes()]
         n_k1, n_k2 = names.count(k1_node), names.count(k2_node)
-        if d_k1 <= 0 or n_k1 != d_k1 or n_k2 != d_k2 or (k2 and d_k2 <= 0):
+        n_dd = names.count(dd_node)
+        if d_k1 <= 0 or n_k1 != d_k1 or n_k2 != d_k2 or n_dd != d_dd or (
+                k2 and (d_k2 <= 0 or d_dd <= 0)):
             fail(f"phase 23 {name}: the direct call launched K1 {d_k1} / K2 "
-                 f"{d_k2} times, its graph holds {n_k1} / {n_k2} kernel "
-                 f"nodes")
+                 f"{d_k2} / the dedup {d_dd} times, its graph holds {n_k1} / "
+                 f"{n_k2} / {n_dd} kernel nodes")
         mgr = EtReplayManager(et, inputs=inputs_for(et, *args()), device=dev)
         kernels.reset_launch_counts()
         out = mgr.replay(iters=iters, warmup=warmup)
@@ -1482,10 +1558,11 @@ def et_tier(smi: str) -> dict:
         n = iters + warmup
         if out["errors"] or out["num_skipped"] or (
                 launched.get("emb_gather", 0) != n * d_k1
-                or (k2 and launched.get(k2, 0) != n * d_k2)):
+                or (k2 and launched.get(k2, 0) != n * d_k2)
+                or launched.get("dedup_sum", 0) != n * d_dd):
             fail(f"phase 23 {name} replay: errors {out['errors']}, "
                  f"{out['num_skipped']} skipped, launches {launched} against "
-                 f"{n} x (K1 {d_k1}, K2 {d_k2})")
+                 f"{n} x (K1 {d_k1}, K2 {d_k2}, the dedup {d_dd})")
         got = mgr.outputs()
         if len(got) != len(want):
             fail(f"phase 23 {name}: {len(got)} replayed outputs against "
@@ -2807,7 +2884,9 @@ def main(out_path=None) -> int:
     from param_tpu_torch.kernels.sparse_update import (
         sparse_update_cuda, sparse_update_plain,
     )
-    from param_tpu_torch.ops.sparse_update import dedup_row_updates
+    from param_tpu_torch.kernels.dedup import (
+        dedup_sum, dedup_sum_cuda, dedup_sum_plain,
+    )
     from param_tpu_torch.utils.chip import bound_ms
     from param_tpu_torch.utils.device import require_sm90, resolve_device
     from param_tpu_torch.utils.timer import time_samples
@@ -2956,10 +3035,58 @@ def main(out_path=None) -> int:
     result["phases"]["k1"] = k1
 
     # ---------------------------------------------------------------- 3 + 4
+    dedup = {}
+
+    def dedup_case(name, ids, g, scale, R, iters):
+        """The dedup kernel against its plain version on the same (M, nnz)
+        ids and pooled gradient ``g`` (module docstring), then timed;
+        returns its (rows, totals)."""
+        rows, tot = dedup_sum_cuda(ids, g, scale, R)
+        rows2, tot2 = dedup_sum_cuda(ids, g, scale, R)
+        same_bits = bool(torch.equal(rows, rows2) and torch.equal(
+            tot.view(torch.int32), tot2.view(torch.int32)))
+        del rows2, tot2
+        want_rows, want = dedup_sum_plain(ids, g, scale, R)
+        u = int((want_rows != R).sum().item())
+        rows_ok = bool(torch.equal(rows, want_rows))
+        del want_rows
+        mag = dedup_sum_plain(ids, g.abs(), None if scale is None
+                              else abs(scale), R)[1]
+        err = (tot - want).abs_()
+        bound = want.abs_().mul_(1e-4).add_(mag, alpha=1e-6)
+        del want, mag
+        worst = float((err - bound).max().item())
+        max_err = float(err.max().item())
+        del err, bound
+        tail_zero = not bool(tot[u:].any().item())
+        if not (same_bits and rows_ok and worst <= 0 and tail_zero):
+            fail(f"dedup {name}: same bits on two calls {same_bits}, rows "
+                 f"exact {rows_ok}, sums over their bound by {worst:.3e}, "
+                 f"zero tail {tail_zero}")
+        M, nnz = ids.shape
+        N, dim = M * nnz, g.shape[1]
+        nbytes = 4 * N + 4 * M * dim + 4 * N + 4 * N * dim
+        b_ms, b_by = bound_ms(nbytes)
+        rec = timings(lambda: dedup_sum_cuda(ids, g, scale, R),
+                      lambda: dedup_sum_plain(ids, g, scale, R), None, iters,
+                      lambda: dedup_sum(ids, g, scale, R))
+        rec.update(shape=f"{M} bags x {nnz} ids over {R} rows of {dim} f32, "
+                         f"scale {scale}, {u} distinct",
+                   max_abs_err=max_err, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, gbps=nbytes / rec["ms"] / 1e6,
+                   unique_rows=u)
+        dedup[name] = rec
+        say(f"phase 3/4 dedup {name}: {rec['shape']} max_abs_err "
+            f"{max_err:.3e} (within rtol 1e-4 + 1e-6 x summed magnitudes), "
+            f"rows exact, tail zero, two calls bitwise equal | "
+            f"{timing_text(rec, '')} ({rec['gbps']:.0f} GB/s) bound "
+            f"{b_ms:.4f} ms ({b_by}) | {smi}")
+        return rows, tot
+
     R = T * E
-    gidx = main_path_ids().reshape(B, T, NNZ).transpose(0, 1).reshape(-1)
-    rows_g = torch.randn((gidx.numel(), D), generator=gen, device=dev) * 1e-3
-    rows, totals = dedup_row_updates(gidx, rows_g, R)
+    g_pooled = torch.randn((B * T, D), generator=gen, device=dev) * 1e-3
+    rows, totals = dedup_case("dlrm_f32", main_path_ids(), g_pooled, None,
+                              R, 100)
     n_valid = int((rows < R).sum().item())
     valid_rows = rows[:n_valid].long()
     lr, eps = 0.01, 1e-7
@@ -3003,8 +3130,22 @@ def main(out_path=None) -> int:
             f"({rec['gbps']:.0f} GB/s) bound {b_ms:.4f} ms ({b_by}) | {smi}")
         del t_k, t_p, a_k, a_p
     result["phases"]["k2"] = k2
-    del flat, ids, rows_g, rows, totals, valid_rows
+    del flat, ids, g_pooled, rows, totals, valid_rows
     torch.cuda.empty_cache()
+    for name, TT, EE, BB, nnz, DD, kind, scale in DEDUP_CASES:
+        ids = dedup_case_ids(TT, EE, BB, nnz, kind).to(dev)
+        g = torch.randn((BB * TT, DD), generator=gen, device=dev)
+        dedup_case(name, ids, g, scale, TT * EE, 5 if nnz > 1 else 20)
+        del ids, g
+        torch.cuda.empty_cache()
+    by_kernel = dedup_profile()
+    for name, kernels_ms in by_kernel.items():
+        dedup[name]["by_kernel"] = kernels_ms
+        say(f"phase 3 dedup {name}: device ms a call by kernel (launches a "
+            f"call) " + "; ".join(
+                f"{k} {v['ms']:.4f} ({v['launches']:g})"
+                for k, v in kernels_ms.items()))
+    result["phases"]["dedup"] = dedup
 
     # ---------------------------------------------------------------- 5
     from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel
@@ -3074,9 +3215,10 @@ def main(out_path=None) -> int:
         delta = {k: kernels.launch_counts[k] - before[k] for k in before}
         if delta["emb_gather"] <= 0:
             fail(f"trainer {opt}: K1 was not launched ({delta})")
-        if opt.startswith("sparse") and \
-                delta[f"sparse_update_{opt[len('sparse_'):]}"] <= 0:
-            fail(f"trainer {opt}: K2 was not launched ({delta})")
+        if opt.startswith("sparse") and (
+                delta[f"sparse_update_{opt[len('sparse_'):]}"] <= 0
+                or delta["dedup_sum"] <= 0):
+            fail(f"trainer {opt}: K2 / the dedup not launched ({delta})")
         fields = dict(re.findall(r"(\w[\w-]*)=(\S+)", e2e[0]))
         runs[opt] = dict(losses=losses, launches=delta, wall_s=wall,
                          step_ms=float(fields["step_ms"]),
@@ -4707,6 +4849,9 @@ def main(out_path=None) -> int:
         entry("sparse_update sgd (K2)", src + "sparse_update.cu",
               "param_tpu/ops/sparse_update.py:117",
               launches["sparse_update_sgd"], k2["sgd"]),
+        entry("dedup_sum (dedup; no TPU kernel)", src + "dedup.cu",
+              "param_tpu/ops/sparse_update.py:44 (XLA)",
+              launches["dedup_sum"], dedup["dlrm_f32"]),
         entry("gemm f32 (K3)", src + "gemm.cu", "param_tpu/ops/matmul.py:97",
               cli_launches("gemm_C_compare", "gemm_f32"),
               k3["float32 (1024, 1024, 4096)"]),
@@ -4773,6 +4918,9 @@ def main(out_path=None) -> int:
         entry("sparse_update sgd, sharded DLRM (K2)", src + "sparse_update.cu",
               "param_tpu/ops/sparse_update.py:117",
               main20["sparse_update_sgd"], k2["sgd"]),
+        entry("dedup_sum, sharded DLRM (dedup)", src + "dedup.cu",
+              "param_tpu/ops/sparse_update.py:44 (XLA)",
+              main20["dedup_sum"], dedup["dlrm_f32"]),
         entry("flash attention forward, parallel tier: ring attention, tp "
               "and pp steps (K6), wgmma path", src + "flash_fwd.cu",
               "param_tpu/ops/attention.py:251", k6_par_launches,
@@ -4793,6 +4941,9 @@ def main(out_path=None) -> int:
         entry("sparse_update adagrad, ET replay (K2)",
               src + "sparse_update.cu", "param_tpu/ops/sparse_update.py:117",
               main23.get("sparse_update_adagrad", 0), k2["adagrad"]),
+        entry("dedup_sum, ET replay (dedup)", src + "dedup.cu",
+              "param_tpu/ops/sparse_update.py:44 (XLA)",
+              main23.get("dedup_sum", 0), dedup["dlrm_f32"]),
         entry("flash attention forward, PyTorch-ET op replay (K6), tf32x3 "
               "path", src + "flash_fwd.cu", "param_tpu/ops/attention.py:251",
               k6_pt_f32, k6["f32_llama2_causal"]),

@@ -61,6 +61,10 @@ _SIGNATURES = {
         "flash_bwd_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _LP, _F, _I, _P],
     },
+    "dedup": {
+        "dedup_sum_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _I, _P, _P, _P, _P, _P, _P],
+    },
     "coalesce": {
         "desc_fetch_smem": [_I, _I, _I],
         "coalesced_bag_smem": [_I, _I, _I, _I],

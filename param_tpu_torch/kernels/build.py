@@ -33,6 +33,7 @@ SOURCES = {
     "flash_bwd": "flash_bwd.cu",
     "ring": "ring.cu",
     "coalesce": "coalesce.cu",
+    "dedup": "dedup.cu",
 }
 
 NVCC_FLAGS = [

@@ -13,8 +13,9 @@ The embedding lookup of all tables is one K1 launch over the flat (T*E, D)
 view of the stacked tables, with each table's ids offset by t*E.  The
 sparse steps take the pooled-embedding gradient from autograd on a
 detached ``pooled`` tensor (the reference's ``jax.vjp`` of the dense half),
-segment-sum duplicate rows (:func:`dedup_row_updates`) and apply one K2
-launch to the flat table view.
+segment-sum it by row id (:func:`dedup_sum`: each lookup's row is its
+bag's row of the pooled gradient) and apply one K2 launch to the flat table
+view.
 
 Built with a group (a :class:`~param_tpu_torch.backend.base.CommGroup` of
 n ranks), the model is the reference's hybrid-parallel one: rank r holds
@@ -47,11 +48,11 @@ While a ``torch.profiler`` runs, the sparse steps record spans and counters
 ``dlrm.step`` holds ``dlrm.exchange`` (each collective issued here with a
 group), ``dlrm.lookup`` (K1), ``dlrm.dense_fwd`` (its child
 ``dlrm.interaction``), ``dlrm.dense_bwd`` (the interaction's backward, a
-second ``dlrm.interaction``), ``dlrm.dense_update``, ``dlrm.dedup`` (the
-pooled gradient expanded to one row a lookup, then
-:func:`dedup_row_updates`) and ``dlrm.row_update`` (K2).  Counters:
-``dlrm.lookups`` (ids looked up) and ``dlrm.unique_rows`` (the dedup's
-runs).  Without a profiler they do nothing.
+second ``dlrm.interaction``), ``dlrm.dense_update``, ``dlrm.dedup``
+(:func:`dedup_sum`) and ``dlrm.row_update`` (K2).  Counters:
+``dlrm.lookups`` (ids looked up), ``dlrm.unique_rows`` (the dedup's runs)
+and ``dlrm.dedup_carried_runs`` (runs that cross the end of one of the
+dedup kernel's chunks).  Without a profiler they do nothing.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ from param_tpu_torch.ops.embedding import embedding_bag
 from param_tpu_torch.ops.mlp import (
     Adagrad, Sgd, init_mlp, mlp_forward, tree_leaves, tree_map,
 )
-from param_tpu_torch.ops.sparse_update import dedup_row_updates, sparse_row_update
+from param_tpu_torch.ops.sparse_update import dedup_sum, sparse_row_update
 from param_tpu_torch.utils.device import resolve_device
 from param_tpu_torch.utils.profiler import annotate, annotate_backward, count
 
@@ -405,22 +406,20 @@ class DlrmModel:
         return self._mean_loss(loss), idx_t, g_pooled, mlps, g_mlps
 
     def _row_updates(self, idx_t, g_pooled, scale=None):
-        """The dedup: one gradient row a lookup, in the flat view of this
-        rank's tables, ordered table-major as the reference's
-        ``_gather_row_updates`` orders them (times ``scale`` where given),
-        then segment-summed by row (:func:`dedup_row_updates`)."""
+        """The dedup: each lookup's gradient row (its bag's row of
+        ``g_pooled``, times ``scale`` where given) segment-summed by row id
+        in the flat view of this rank's tables (:func:`dedup_sum`).  The ids
+        stay in their (B, T, nnz) order: a stable sort keeps each id's
+        lookups in (b, k) order, as the reference's table-major
+        ``_gather_row_updates`` orders them."""
         cfg = self.cfg
         with annotate("dlrm.dedup"), torch.no_grad():
             if self.group is not None:
                 g_pooled = g_pooled * (1.0 / self.n)
-            gidx = _global_ids(idx_t, cfg.rows_per_table).transpose(0, 1) \
-                .reshape(-1)
-            rows_g = g_pooled.transpose(0, 1).repeat_interleave(
-                idx_t.shape[2], dim=1).reshape(-1, cfg.emb_dim)
-            if scale is not None:
-                rows_g = scale * rows_g
-            return dedup_row_updates(gidx, rows_g,
-                                     self.local_tables * cfg.rows_per_table)
+            gidx = _global_ids(idx_t, cfg.rows_per_table)
+            return dedup_sum(gidx.reshape(-1, idx_t.shape[2]),
+                             g_pooled.reshape(-1, cfg.emb_dim).contiguous(),
+                             scale, self.local_tables * cfg.rows_per_table)
 
     def make_sparse_sgd_step(self, lr: float = 0.01):
         """Sparse SGD: only the gathered table rows change, by a K2 launch

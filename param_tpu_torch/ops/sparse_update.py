@@ -10,6 +10,9 @@ which answer the TPU's DMA alignment, are not ported.
 Contract: ``idx`` holds each row id at most once (:func:`dedup_row_updates`
 segment-sums duplicates first, which Adagrad needs anyway: duplicate
 gradients sum before squaring).  Ids outside [0, R) are dropped.
+:func:`dedup_sum` (:mod:`param_tpu_torch.kernels.dedup`) gives the same
+result for lookups that share their bag's gradient row, without building
+one row a lookup: the DLRM sparse steps' dedup.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from param_tpu_torch.kernels.dedup import dedup_sum  # noqa: F401
 from param_tpu_torch.kernels.sparse_update import sparse_update
 from param_tpu_torch.utils.profiler import count, recording
 

@@ -28,7 +28,10 @@ per hop in the same order).  K9 (k-row fetch, tile sums) rtol 1e-4 and
 K10 (block-coalesced bag) rtol 1e-5, the coalesced-fetch script's own
 (sums of up to 4096 rows, and bags summed in another order); K10's block
 copies equal to the plain planning stage's counts, and its output bitwise
-equal from call to call.  Decode
+equal from call to call.  The dedup's segment sum (``kernels/dedup.py``)
+rtol 1e-4 plus 1e-6 of each sum's summed magnitudes (up to 30000 terms
+in another order), its rows and counters exactly, its output bitwise equal
+from call to call.  Decode
 attention on the card (bf16 cache contracted with f32 accumulation)
 against the reference's output on stored inputs and against the f32
 product of the upcast operands: atol 1e-4, rtol 1e-3 (one bf16 rounding of
@@ -78,9 +81,14 @@ from param_tpu_torch.kernels.ring import (
     ring_loopback_plain, ring_plan, ring_reduce_scatter_cuda,
     ring_reduce_scatter_plain,
 )
+from param_tpu_torch.kernels.dedup import (
+    CHUNK, GROUP, carried_runs, dedup_lanes, dedup_sum, dedup_sum_cuda,
+    dedup_sum_plain,
+)
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
 )
+from param_tpu_torch.utils import profiler
 from param_tpu_torch.ops.datasets import (
     ATTN_GPT2, ATTN_LLAMA2, GEMM_A, GEMM_B, GEMM_C,
 )
@@ -349,6 +357,177 @@ def test_kernels_on_empty_inputs(cuda_device):
                        torch.zeros((0, 8), device=cuda_device))
     torch.cuda.synchronize()
     assert not t.any()
+
+
+DEDUP_SETS = ["uniform", "all_same", "zipf", "chunk_edge"]
+LEVEL_SETS = ["hot", "long_runs"]  # carries added up three levels
+
+
+def dedup_ids(kind, nnz, seed=0):
+    """(M, nnz) int32 row ids and the drop marker.  DEDUP_SETS, about 12
+    chunks of lookups: uniform ids with repeats; one id throughout;
+    zipf(1.15) ids with one id longer than four chunks; runs that end
+    exactly on chunk ends (one of a chunk, one of two chunks).  LEVEL_SETS,
+    more than GROUP**2 chunks, so the kernel adds the carries up three
+    levels: one id in 30000 lookups among uniform ones ("hot"), or runs of
+    1100 lookups, which end at shifting offsets in chunks and groups."""
+    rng = np.random.default_rng(seed)
+    if kind in LEVEL_SETS:
+        M = -(-(CHUNK * GROUP * GROUP + 3 * CHUNK * GROUP + 5) // nnz)
+        N = M * nnz
+        if kind == "hot":
+            flat = rng.integers(0, 3000, N)
+            flat[rng.permutation(N)[:30000]] = 77
+        else:
+            flat = rng.permutation(np.arange(N) // 1100)
+        return flat.astype(np.int32).reshape(M, nnz), 1 + int(flat.max())
+    M = -(-12 * CHUNK // nnz)
+    N = M * nnz
+    R = 1000 + N
+    if kind == "uniform":
+        flat = rng.integers(0, N // 2, N)
+    elif kind == "all_same":
+        flat = np.full(N, 5)
+    elif kind == "zipf":
+        flat = (rng.zipf(1.15, N) - 1) % R
+        flat[rng.permutation(N)[:4 * CHUNK + 7]] = 17
+    else:
+        rest = N - 3 * CHUNK
+        flat = np.concatenate([np.zeros(CHUNK), np.ones(2 * CHUNK),
+                               2 + rng.permutation(rest) % (rest // 3)])
+        flat = flat[rng.permutation(N)]
+    return flat.astype(np.int32).reshape(M, nnz), R
+
+
+def dedup_runs_np(ids):
+    """(distinct ids, runs that cross a chunk's end) of ``ids``, in NumPy."""
+    s = np.sort(ids.ravel(), kind="stable")
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    ends = np.r_[starts[1:], s.size] - 1
+    return starts.size, int(np.sum(starts // CHUNK != ends // CHUNK))
+
+
+def assert_sums_close(got, want, ids, g, scale, R):
+    """Each sum within rtol 1e-4 of ``want``, plus 1e-6 of its terms'
+    summed magnitudes: sums of up to 30000 terms taken in another order,
+    whose cancellation leaves small sums with a larger relative error."""
+    mag = dedup_sum_plain(ids, g.abs(), None if scale is None else
+                          abs(scale), R)[1][:got.shape[0]]
+    want = want[:got.shape[0]]
+    err = (got.cpu() - want).abs()
+    bound = 1e-4 * want.abs() + 1e-6 * mag
+    assert (err <= bound).all(), float((err - bound).max())
+
+
+def test_dedup_ids_make_the_runs_they_name():
+    """The id sets hold what the dedup tests need: a run longer than four
+    chunks, runs that end on a chunk's end, runs that cross one."""
+    s = np.sort(dedup_ids("zipf", 7)[0].ravel())
+    assert np.max(np.unique(s, return_counts=True)[1]) > 4 * CHUNK
+    s = np.sort(dedup_ids("chunk_edge", 7)[0].ravel())
+    assert s[CHUNK - 1] != s[CHUNK] and s[3 * CHUNK - 1] != s[3 * CHUNK]
+    assert s[2 * CHUNK - 1] == s[2 * CHUNK]
+    for kind in DEDUP_SETS:
+        assert dedup_runs_np(dedup_ids(kind, 1)[0])[1] > 0, kind
+
+
+@pytest.mark.parametrize("kind", LEVEL_SETS)
+def test_dedup_level_ids_take_three_levels(kind):
+    """The sets hold runs across more than GROUP chunks and more chunks
+    than two levels of the carries' tree add up."""
+    ids, _ = dedup_ids(kind, 7)
+    assert -(-ids.size // CHUNK) > GROUP * GROUP
+    assert np.max(np.unique(ids, return_counts=True)[1]) > CHUNK * GROUP
+    assert dedup_runs_np(ids)[1] > GROUP
+
+
+@pytest.mark.parametrize("kind", DEDUP_SETS)
+def test_carried_runs_matches_numpy(kind):
+    ids, _ = dedup_ids(kind, 7)
+    sidx = torch.sort(torch.from_numpy(ids).reshape(-1), stable=True).values
+    assert int(carried_runs(sidx)) == dedup_runs_np(ids)[1]
+
+
+@pytest.mark.parametrize("dim,vec,lanes", [(64, 4, 16), (128, 4, 32),
+                                           (8, 4, 2), (13, 1, 16),
+                                           (256, 4, 32), (1, 1, 1)])
+def test_dedup_lanes(dim, vec, lanes):
+    assert dedup_lanes(dim, vec) == lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", DEDUP_SETS + LEVEL_SETS)
+@pytest.mark.parametrize("scale", [None, -0.01])
+@pytest.mark.parametrize("dim", [64, 128, 8])
+@pytest.mark.parametrize("nnz", [1, 7, 100])
+def test_dedup_sum_kernel_matches_plain(cuda_device, nnz, dim, scale, kind):
+    """The kernel against its plain version (one row a lookup, then
+    ``dedup_row_updates``) in f64: rows exactly, sums rtol 1e-4 (taken in
+    another order; :func:`assert_sums_close`), zeros in the tail, the same
+    bits from call to call, and the counters (distinct ids, runs across a
+    chunk's end) as NumPy counts them.  In f64, because the f32 plain
+    version's own error on the hot row's 30000-term sum in order (0.19 at
+    D 128, nnz 100) passes the tolerance, where the kernel's is 0.0013."""
+    ids, R = dedup_ids(kind, nnz)
+    ids, g = torch.from_numpy(ids), torch.from_numpy(
+        np.random.default_rng(1).standard_normal(
+            (ids.shape[0], dim)).astype(np.float32))
+    want_rows, want_tot = dedup_sum_plain(ids, g.double(), scale, R)
+    i, gd = ids.to(cuda_device), g.to(cuda_device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiler.reset()
+        rows, tot = dedup_sum(i, gd, scale, R)
+        counters = profiler.counter_totals()
+    rows2, tot2 = dedup_sum_cuda(i, gd, scale, R)
+    torch.cuda.synchronize()
+    u, carried = dedup_runs_np(ids.numpy())
+    assert counters == {"dlrm.unique_rows": u,
+                        "dlrm.dedup_carried_runs": carried}
+    assert torch.equal(rows.cpu(), want_rows)
+    assert_sums_close(tot[:u], want_tot, ids, g, scale, R)
+    assert not tot[u:].any()
+    assert torch.equal(rows, rows2) and torch.equal(tot, tot2)
+
+
+@pytest.mark.cuda
+def test_dedup_sum_does_not_wait_for_the_card(cuda_device):
+    """No call in the dedup's CUDA path synchronises with the host (CUDA's
+    sync debug mode raises on one), so the step's host runs ahead."""
+    ids, R = dedup_ids("zipf", 7)
+    i = torch.from_numpy(ids).to(cuda_device)
+    g = torch.randn((ids.shape[0], 64), device=cuda_device)
+    dedup_sum(i, g, -0.01, R)  # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dedup_sum(i, g, -0.01, R)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dedup_sum_kernel_on_unaligned_and_empty_inputs(cuda_device):
+    """A gradient 4 bytes off a 16-byte boundary takes the one-float path;
+    no lookups give empty outputs."""
+    ids, R = dedup_ids("zipf", 7)
+    M, D = ids.shape[0], 64
+    g = np.random.default_rng(2).standard_normal((M, D)).astype(np.float32)
+    buf = torch.empty(M * D + 1, device=cuda_device)
+    gd = buf[1:].view(M, D)
+    gd.copy_(torch.from_numpy(g))
+    assert bindings.vec_width(D, 4, gd) == 1
+    ids, g = torch.from_numpy(ids), torch.from_numpy(g)
+    rows, tot = dedup_sum(ids.to(cuda_device), gd, -0.5, R)
+    want_rows, want_tot = dedup_sum_plain(ids, g, -0.5, R)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), want_rows)
+    assert_sums_close(tot, want_tot, ids, g, -0.5, R)
+    rows, tot = dedup_sum(torch.zeros((0, 3), dtype=torch.int32,
+                                      device=cuda_device),
+                          torch.zeros((0, 8), device=cuda_device))
+    assert rows.shape == (0,) and tot.shape == (0, 8)
 
 
 def _max_err_tol(got, want):

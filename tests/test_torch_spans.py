@@ -5,11 +5,12 @@ reader's idle-by-span view (``trace.device_trace.span_idle``).
 
 Off (no profiler): nothing is recorded and no ``record_function`` is
 entered.  On (a CPU profiler here): the spans tile the step with the
-parents the model's notes give, the counters count, and parameters,
-accumulators and loss are bitwise those of a run without a profiler.  The
-``cuda`` case checks on the card that the children's CUDA-event time
-covers ``dlrm.step``'s and that ``dlrm.step`` agrees with the step's own
-CUDA-event interval.
+parents the model's notes give, the counters count (the dedup's runs, and
+its runs that cross the end of a chunk of the dedup kernel, as NumPy
+counts them), and parameters, accumulators and loss are bitwise those of
+a run without a profiler.  The ``cuda`` case checks on the card that the
+children's CUDA-event time covers ``dlrm.step``'s and that ``dlrm.step``
+agrees with the step's own CUDA-event interval.
 
     python -m pytest tests/test_torch_spans.py -q
     python -m pytest --noconftest tests/test_torch_spans.py -m cuda   # on the card
@@ -31,6 +32,7 @@ from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel, init_dlrm_params
 from param_tpu_torch.ops.mlp import tree_leaves
 from param_tpu_torch.trace import device_trace
 from param_tpu_torch.utils import profiler
+from test_torch_kernels import dedup_runs_np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(num_tables=4, rows_per_table=64, emb_dim=16, nnz=4, dense_dim=16,
@@ -154,6 +156,23 @@ def test_unique_rows_counter_is_the_distinct_ids():
     assert counters["dlrm.lookups"] == STEPS * TINY["batch"] * \
         TINY["num_tables"] * TINY["nnz"]
     assert want < counters["dlrm.lookups"]  # the batches repeat rows
+
+
+def _dedup_runs(cfg, idx):
+    """(distinct ids, runs that cross the end of a chunk of the dedup
+    kernel) of one batch's ids in the flat view of the tables."""
+    return dedup_runs_np(idx + np.arange(cfg["num_tables"])[None, :, None]
+                         * cfg["rows_per_table"])
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adagrad"])
+def test_carried_runs_counter_counts_runs_across_chunk_ends(opt):
+    _run(opt, profiled=True)
+    counters = profiler.counter_totals()
+    runs = [_dedup_runs(TINY, idx) for _, idx, _ in _batches(TINY, STEPS)]
+    assert counters["dlrm.dedup_carried_runs"] == sum(c for _, c in runs)
+    assert counters["dlrm.dedup_carried_runs"] > 0
+    assert counters["dlrm.unique_rows"] == sum(u for u, _ in runs)
 
 
 def test_count_adds_host_ints_and_device_scalars():
@@ -364,22 +383,27 @@ def test_exchange_spans_in_a_world_of_two(tmp_path):
 
 # ------------------------------------------------------------- the card
 @pytest.mark.cuda
-def test_spans_cover_the_step_on_the_card():
-    """On the card, at a size where the device and not the host sets the
-    step: the children's CUDA-event time covers at least 97% of
-    ``dlrm.step``'s, and ``dlrm.step`` is within 3% of the step's interval
-    between CUDA events at consecutive step ends."""
+@pytest.mark.parametrize("batch", [16384, 32768])
+def test_spans_cover_the_step_on_the_card(batch):
+    """On the card, at ``rm8x1m.adagrad.uniform``'s size (batch 16384) and
+    at twice its batch: the children's CUDA-event time covers at least 97%
+    of ``dlrm.step``'s, ``dlrm.step`` is within 3% of the step's interval
+    between CUDA events at consecutive step ends, and the dedup kernel's
+    counters (distinct ids, runs across a chunk's end) are NumPy's.  Both
+    checks hold where the device, not the host, sets the step under the
+    profiler."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA events)")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dict(num_tables=8, rows_per_table=1_000_000, emb_dim=64, nnz=100,
                dense_dim=512, bot_mlp=[512, 64], top_mlp=[1024, 1],
-               batch=16384)
+               batch=batch)
     model = DlrmModel(DlrmConfig(**cfg), device="cuda")
     params = model.init_params(0)
     acc = model.init_adagrad_state(params)
     step = model.make_sparse_adagrad_step(0.01)
-    batches = [model.place_batch(b) for b in _batches(cfg, 2)]
+    batches_np = _batches(cfg, 2)
+    batches = [model.place_batch(b) for b in batches_np]
     for i in range(3):
         step(params, acc, *batches[i % 2])
     n = 6
@@ -397,9 +421,15 @@ def test_spans_cover_the_step_on_the_card():
     s = profiler.span_totals()
     interval = sum(a.elapsed_time(b) for a, b in zip(ends, ends[1:]))
     whole = s["dlrm.step"]
+    seen = {k: (v["count"], round(v["device_ms"], 3), round(v["host_ms"], 3))
+            for k, v in s.items()}
     assert whole["count"] == n
     assert whole["device_ms"] - whole["self_device_ms"] >= \
-        0.97 * whole["device_ms"]
-    assert abs(whole["device_ms"] - interval) <= 0.03 * interval
+        0.97 * whole["device_ms"], seen
+    assert abs(whole["device_ms"] - interval) <= 0.03 * interval, \
+        (interval, seen)
     assert s["dlrm.interaction"]["count"] == 2 * n
-    assert profiler.counter_totals()["dlrm.unique_rows"] > 0
+    runs = [_dedup_runs(cfg, batches_np[i % 2][1]) for i in range(n)]
+    counters = profiler.counter_totals()
+    assert counters["dlrm.unique_rows"] == sum(u for u, _ in runs)
+    assert counters["dlrm.dedup_carried_runs"] == sum(c for _, c in runs)

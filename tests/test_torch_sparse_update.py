@@ -3,7 +3,11 @@ the reference's ``dedup_row_updates`` and ``sparse_row_update`` (the Pallas
 kernel in interpret mode).
 
 f32 tolerance rtol=1e-5, atol=1e-6; segment sums of duplicate rows are
-taken in another order, so those compare with rtol=1e-4.
+taken in another order, so those compare with rtol=1e-4 (the dedup op's
+sums of up to ~800 terms also with 1e-6 of their summed magnitudes,
+``test_torch_kernels.assert_sums_close``).  The dedup op's CUDA kernel is
+held to the same cases on the card in ``test_torch_kernels.py``, which
+imports no JAX.
 """
 
 import jax.numpy as jnp
@@ -21,8 +25,9 @@ from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda,
 )
 from param_tpu_torch.ops.sparse_update import (
-    adagrad_factor, dedup_row_updates, sparse_row_update,
+    adagrad_factor, dedup_row_updates, dedup_sum, sparse_row_update,
 )
+from test_torch_kernels import DEDUP_SETS, assert_sums_close, dedup_ids
 
 
 @pytest.mark.parametrize("num_rows,n", [(1000, 256), (7, 300), (1, 64)],
@@ -41,6 +46,36 @@ def test_dedup_matches_jax(num_rows, n):
     n_unique = len(np.unique(idx))
     assert (rows.numpy()[n_unique:] == 12345).all()
     assert not tot.numpy()[n_unique:].any()
+
+
+@pytest.mark.parametrize("kind", DEDUP_SETS)
+@pytest.mark.parametrize("scale", [None, -0.01])
+@pytest.mark.parametrize("dim", [64, 128, 8])
+@pytest.mark.parametrize("nnz", [1, 7, 100])
+def test_dedup_sum_matches_expanded_dedup(nnz, dim, scale, kind):
+    """The dedup op on the CPU (its plain version) against
+    ``dedup_row_updates`` on one row a lookup (its bag's row of g, times
+    ``scale``), bitwise, and against the reference's dedup: rows exactly,
+    sums rtol 1e-4, zeros in the tail, the same bits from call to call."""
+    ids, R = dedup_ids(kind, nnz)
+    g = np.random.default_rng(1).standard_normal(
+        (ids.shape[0], dim)).astype(np.float32)
+    rows_g = np.repeat(g, nnz, axis=0) * np.float32(
+        1.0 if scale is None else scale)
+    ti, tg = torch.from_numpy(ids), torch.from_numpy(g)
+    rows, tot = dedup_sum(ti, tg, scale, R)
+    want_rows, want_tot = dedup_row_updates(ti.reshape(-1),
+                                            torch.from_numpy(rows_g), R)
+    assert torch.equal(rows, want_rows) and torch.equal(tot, want_tot)
+    j_rows, j_tot = jax_dedup(jnp.asarray(ids.reshape(-1)),
+                              jnp.asarray(rows_g), R)
+    u = len(np.unique(ids))
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(j_rows))
+    assert_sums_close(tot[:u], torch.from_numpy(np.array(j_tot)), ti, tg,
+                      scale, R)
+    assert (rows.numpy()[u:] == R).all() and not tot[u:].any()
+    rows2, tot2 = dedup_sum(ti, tg, scale, R)
+    assert torch.equal(rows, rows2) and torch.equal(tot, tot2)
 
 
 def test_adagrad_factor_matches_jax():
