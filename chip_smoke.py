@@ -358,7 +358,23 @@ Phases (any failure exits non-zero):
      carriers' call, and both calls' ms; a ``param_profile`` region around
      a train step inside a CUDA ``torch.profiler`` session, named in its
      events, with its host time and the session's device time.
-Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22, 25) use CUDA events after a
+ 27. Per-feature bags (DLRM-DCNv2's multi-hot features, port_bench's
+     ``dcnv2.adagrad.multihot``: 26 features of the published sizes, 214
+     ids a sample, batch 8192, over its flat 54,184,588 x 128 f32 tables,
+     each feature's ids uniform over its table): K1 in one launch over the
+     B x 214 real ids against its plain version (rtol 1e-5 of max |want|,
+     the same bits on two launches, one launch a call), and the dedup on
+     those ids and a pooled gradient against its plain version (phase 3's
+     checks); each timed as phase 4 times them, with the launch shape K1
+     took, and bounded by bytes (K1: unique rows, ids and pooled rows; the
+     dedup: ids, the pooled gradient, rows and sums written once); K1
+     beside ``F.embedding_bag`` over the same layout (the flattened ids, a
+     bag starting at each feature's offset of each sample), which it must
+     match; then ``DlrmModel``'s DCN sparse Adagrad step at the cell's
+     widths, bag sizes and batch (tables capped at 1M rows), the launch
+     counts reset just before four steps: one K1, one dedup and one K2
+     Adagrad launch a step and no other kernel of the port, or it fails.
+Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22, 25, 27) use CUDA events after a
 warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
@@ -2861,6 +2877,245 @@ def mlp_steps_tier(smi: str) -> dict:
     return rec
 
 
+# Phase 27: port_bench's dlrm-dcnv2-mlperf configuration (the five 40M
+# tables capped at 10M rows) and its published bag sizes
+DCN_ROWS = [10_000_000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
+            10_000_000, 3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14,
+            10_000_000, 10_000_000, 10_000_000, 590152, 12973, 108, 36]
+DCN_SIZES = [3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1]
+
+
+DCN_STEP_ROWS = 1_000_000  # phase 27's step: tables capped to share the card
+
+
+def dcn_ids(batch: int, gen, dev, rows=DCN_ROWS, flat=True):
+    """(batch, 214) int32 ids of the DCN tables of ``rows``: each feature's
+    uniform over its table, plus the table's first row in their flat view
+    where ``flat`` (as the model's ids are the table's own without)."""
+    import torch
+
+    cols, start = [], 0
+    for n, size in zip(rows, DCN_SIZES):
+        cols.append(torch.randint(0, n, (batch, size), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                    + (start if flat else 0))
+        start += n
+    return torch.cat(cols, dim=1)
+
+
+def dcn_step_launches(gen, dev, smi: str, steps: int = 4) -> dict:
+    """Phase 27's main path: ``DlrmModel``'s sparse Adagrad step at the
+    DCN cell's widths, bag sizes and batch (tables capped at
+    ``DCN_STEP_ROWS`` rows), the launch counts reset just before
+    ``steps`` steps and read just after: each step has to launch K1, the
+    dedup and K2's Adagrad once, and no other kernel of the port."""
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel
+
+    B, rows = 8192, [min(n, DCN_STEP_ROWS) for n in DCN_ROWS]
+    cfg = DlrmConfig(emb_dim=128, dense_dim=13, bot_mlp=[512, 256, 128],
+                     top_mlp=[1024, 1024, 512, 256, 1], batch=B,
+                     arch_interaction="dcn", num_embeddings_per_feature=rows,
+                     multi_hot_sizes=DCN_SIZES, dcn_num_layers=3,
+                     dcn_low_rank_dim=512)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32, as the cell runs
+    try:
+        model = DlrmModel(cfg, device=dev)
+        params = model.init_params(27)
+        acc = model.init_adagrad_state(params, 0.0)
+        step = model.make_sparse_adagrad_step(0.004, eps=1e-8,
+                                              initial_accumulator=0.0)
+        batches = [(torch.randn((B, 13), generator=gen, device=dev),
+                    dcn_ids(B, gen, dev, rows, flat=False),
+                    torch.randint(0, 2, (B,), generator=gen,
+                                  device=dev).float()) for _ in range(2)]
+        for i in range(2):
+            step(params, acc, *batches[i])
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        kernels.reset_launch_counts()
+        t0.record()
+        losses = [step(params, acc, *batches[i % 2])[2]
+                  for i in range(steps)]
+        t1.record()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = dict.fromkeys(("emb_gather", "dedup_sum",
+                          "sparse_update_adagrad"), steps)
+    losses = [float(x) for x in losses]
+    if launches != want or not all(math.isfinite(x) for x in losses):
+        fail(f"phase 27 DCN sparse Adagrad step: {steps} steps launched "
+             f"{launches}, want {want}; losses {losses}")
+    rec = dict(launches=launches, steps=steps, losses=losses,
+               ms_a_step=t0.elapsed_time(t1) / steps, table_rows=sum(rows))
+    say(f"phase 27 DCN sparse Adagrad step (DlrmModel, batch {B}, 26 "
+        f"per-feature bags, 214 ids a sample, {sum(rows)} table rows of "
+        f"128, 3 cross layers of rank 512): counts reset just before "
+        f"{steps} steps, then {launches}: K1, the dedup and K2 once a "
+        f"step | {rec['ms_a_step']:.3f} ms a step, losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)} | {smi}")
+    del model, params, acc, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def multihot_tier(smi: str, iters: int = 50) -> dict:
+    """Phase 27: K1 and the dedup over per-feature bags at the DCN cell's
+    shape (module docstring)."""
+    import torch
+
+    from param_tpu_torch import kernels
+    from param_tpu_torch.kernels import bindings
+    from param_tpu_torch.kernels.dedup import (
+        dedup_sum, dedup_sum_cuda, dedup_sum_plain,
+    )
+    from param_tpu_torch.kernels.emb_gather import (
+        bag_layout, emb_gather, emb_gather_cuda, emb_gather_plain,
+        launch_schedule,
+    )
+    from param_tpu_torch.utils.chip import bound_ms
+    from param_tpu_torch.utils.timer import time_samples
+    from torch.nn import functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    B, D, T, L = 8192, 128, len(DCN_SIZES), sum(DCN_SIZES)
+    R = sum(DCN_ROWS)
+
+    def timed(fn, n, graph=True):
+        t = time_samples(fn, n, reps=5, graph=graph)
+        return dict(ms=statistics.median(t), min=min(t), max=max(t))
+
+    rec = {}
+    table = torch.rand((R, D), generator=gen, device=dev)
+    ids = [dcn_ids(B, gen, dev) for _ in range(4)]
+    i0 = ids[0]
+    before = kernels.launch_counts["emb_gather"]
+    got = emb_gather_cuda(table, i0, None, DCN_SIZES)
+    again = emb_gather_cuda(table, i0, None, DCN_SIZES)
+    launches = kernels.launch_counts["emb_gather"] - before
+    want = emb_gather_plain(table, i0, None, DCN_SIZES)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    if not (err <= tol and torch.equal(got.view(torch.int32),
+                                       again.view(torch.int32))
+            and launches == 2 and got.shape == (B * T, D)):
+        fail(f"phase 27 K1 per-feature bags: max abs err {err:.3e} (tol "
+             f"{tol:.3e}), launches {launches} for 2 calls, shape "
+             f"{tuple(got.shape)}")
+    del want
+    uniq = int(torch.unique(i0).numel())
+    nbytes = uniq * D * 4 + B * L * 4 + B * T * D * 4
+    b_ms, b_by = bound_ms(nbytes)
+    # the library's one call over the same layout: the flattened ids, a
+    # bag starting at each feature's offset in each sample's row
+    offsets, _ = bag_layout(DCN_SIZES, dev)
+    lib_offsets = (torch.arange(B, device=dev)[:, None] * L
+                   + offsets[:-1].long()).reshape(-1)
+    lib_ids = [i.reshape(-1).long() for i in ids]
+    lib = F.embedding_bag(lib_ids[0], table, lib_offsets, mode="sum")
+    lib_err = float((lib - got).abs().max())
+    if not lib_err <= tol:
+        fail(f"phase 27 F.embedding_bag over the per-feature layout: max "
+             f"abs err {lib_err:.3e} against K1 (tol {tol:.3e})")
+    del lib
+    nk, nl = itertools.cycle(ids), itertools.cycle(lib_ids)
+    sched = launch_schedule(table, B * T, -(-L // T), bindings.vec_width(
+        D, 4, table, got))._asdict()
+    k1 = {"t_kernel": timed(lambda: emb_gather_cuda(table, next(nk), None,
+                                                    DCN_SIZES), iters),
+          "t_kernel_eager": timed(lambda: emb_gather_cuda(
+              table, next(nk), None, DCN_SIZES), iters, graph=False),
+          "t_op_eager": timed(lambda: emb_gather(table, next(nk), None,
+                                                 DCN_SIZES), iters,
+                              graph=False),
+          "t_plain": timed(lambda: emb_gather_plain(table, next(nk), None,
+                                                    DCN_SIZES), 3,
+                           graph=False),
+          "t_library": timed(lambda: F.embedding_bag(
+              next(nl), table, lib_offsets, mode="sum"), iters)}
+    k1.update(ms=k1["t_kernel"]["ms"], plain_ms=k1["t_plain"]["ms"],
+              library_ms=k1["t_library"]["ms"], library_max_abs_err=lib_err,
+              max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+              unique_rows=uniq, bytes=nbytes, schedule=sched,
+              gbps=nbytes / k1["t_kernel"]["ms"] / 1e6,
+              shape=f"table ({R}, {D}) float32, {B} samples x {T} bags "
+                    f"of {L} ids")
+    rec["k1"] = k1
+    say(f"phase 27 K1 per-feature bags: {k1['shape']} max_abs_err "
+        f"{err:.3e} (tol {tol:.3e}), one launch a call, two launches "
+        f"bitwise equal | schedule {sched['warps_per_bag']} warp(s) a bag, "
+        f"{sched['rows_in_flight']} row load(s) in flight | kernel "
+        f"{k1['t_kernel']['ms']:.4f} ms ({k1['t_kernel']['min']:.4f}-"
+        f"{k1['t_kernel']['max']:.4f}) [issued eagerly "
+        f"{k1['t_kernel_eager']['ms']:.4f}; through the op, eagerly "
+        f"{k1['t_op_eager']['ms']:.4f}] plain {k1['t_plain']['ms']:.4f} "
+        f"F.embedding_bag (1-D ids, offsets) {k1['library_ms']:.4f} "
+        f"({k1['t_library']['min']:.4f}-{k1['t_library']['max']:.4f}; "
+        f"max abs err against K1 {lib_err:.3e}) ({k1['gbps']:.0f} GB/s) "
+        f"bound {b_ms:.4f} ms ({b_by}) | {smi}")
+    del table, got, again, lib_ids, lib_offsets
+    torch.cuda.empty_cache()
+
+    g = torch.randn((B * T, D), generator=gen, device=dev)
+    rows, tot = dedup_sum_cuda(i0, g, None, R, DCN_SIZES)
+    rows2, tot2 = dedup_sum_cuda(i0, g, None, R, DCN_SIZES)
+    same = bool(torch.equal(rows, rows2) and torch.equal(
+        tot.view(torch.int32), tot2.view(torch.int32)))
+    del rows2, tot2
+    want_rows, want = dedup_sum_plain(i0, g, None, R, DCN_SIZES)
+    mag = dedup_sum_plain(i0, g.abs(), None, R, DCN_SIZES)[1]
+    err = (tot - want).abs_()
+    bound = want.abs_().mul_(1e-4).add_(mag, alpha=1e-6)
+    worst = float((err - bound).max())
+    max_err = float(err.max())
+    rows_ok = bool(torch.equal(rows, want_rows))
+    tail_zero = not bool(tot[uniq:].any())
+    del want, mag, err, bound, want_rows
+    if not (same and rows_ok and worst <= 0 and tail_zero):
+        fail(f"phase 27 dedup per-feature bags: same bits {same}, rows exact "
+             f"{rows_ok}, sums over their bound by {worst:.3e}, zero tail "
+             f"{tail_zero}")
+    N = B * L
+    nbytes = 4 * N + 4 * B * T * D + 4 * N + 4 * N * D
+    b_ms, b_by = bound_ms(nbytes)
+    nd = itertools.cycle(ids)
+    dd = {"t_kernel": timed(lambda: dedup_sum_cuda(next(nd), g, None, R,
+                                                   DCN_SIZES), iters),
+          "t_kernel_eager": timed(lambda: dedup_sum_cuda(
+              next(nd), g, None, R, DCN_SIZES), iters, graph=False),
+          "t_op_eager": timed(lambda: dedup_sum(next(nd), g, None, R,
+                                                DCN_SIZES), iters,
+                              graph=False),
+          "t_plain": timed(lambda: dedup_sum_plain(next(nd), g, None, R,
+                                                   DCN_SIZES), 3,
+                           graph=False)}
+    dd.update(ms=dd["t_kernel"]["ms"], plain_ms=dd["t_plain"]["ms"],
+              library_ms=None, max_abs_err=max_err, bound_ms=b_ms, bound_by=b_by,
+              unique_rows=uniq, bytes=nbytes,
+              shape=f"{B} samples x {T} bags of {L} ids over {R} rows of "
+                    f"{D} f32, {uniq} distinct")
+    rec["dedup"] = dd
+    say(f"phase 27 dedup per-feature bags: {dd['shape']} max_abs_err "
+        f"{max_err:.3e} (within rtol 1e-4 + 1e-6 x summed magnitudes), rows "
+        f"exact, tail zero, two calls bitwise equal | kernel "
+        f"{dd['t_kernel']['ms']:.4f} ms ({dd['t_kernel']['min']:.4f}-"
+        f"{dd['t_kernel']['max']:.4f}) [issued eagerly "
+        f"{dd['t_kernel_eager']['ms']:.4f}; through the op, eagerly "
+        f"{dd['t_op_eager']['ms']:.4f}] plain {dd['t_plain']['ms']:.4f} "
+        f"bound {b_ms:.4f} ms ({b_by}) | {smi}")
+    del g, rows, tot, ids, i0
+    torch.cuda.empty_cache()
+    rec["step"] = dcn_step_launches(gen, dev, smi)
+    return rec
+
+
 def main(out_path=None) -> int:
     try:
         import torch
@@ -4794,6 +5049,10 @@ def main(out_path=None) -> int:
     mlp26 = mlp_steps_tier(smi)
     result["phases"]["mlp_steps"] = mlp26
 
+    # ---------------------------------------------------------------- 27
+    mh27 = multihot_tier(smi)
+    result["phases"]["multihot"] = mh27
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -4965,6 +5224,16 @@ def main(out_path=None) -> int:
               "param_tpu/ops/embedding.py:185",
               cli_launches("emb_trainer_bf16_K1", "emb_gather"),
               k1["dlrm_bf16"]),
+        entry("emb_gather per-feature bags, DCN sparse Adagrad step (K1)",
+              src + "emb_gather.cu", "param_tpu/ops/embedding.py:185",
+              mh27["step"]["launches"]["emb_gather"], mh27["k1"]),
+        entry("dedup_sum per-feature bags, DCN sparse Adagrad step (dedup)",
+              src + "dedup.cu", "param_tpu/ops/sparse_update.py:44 (XLA)",
+              mh27["step"]["launches"]["dedup_sum"], mh27["dedup"]),
+        entry("sparse_update adagrad, DCN sparse Adagrad step (K2)",
+              src + "sparse_update.cu", "param_tpu/ops/sparse_update.py:117",
+              mh27["step"]["launches"]["sparse_update_adagrad"],
+              k2["adagrad"]),
     ] + [entry(f"desc_fetch k={k} (K9)", src + "coalesce.cu",
                "scripts/coalesce_experiment.py:55", main19["desc_fetch"],
                k9[k]) for k in coal.KS]

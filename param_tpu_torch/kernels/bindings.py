@@ -23,9 +23,9 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "emb_gather": {
         "emb_gather_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+                           _P, _I, _P],
         "emb_gather_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _P, _I, _P],
     },
     "sparse_update": {
         "sparse_update_sgd_f32": [_P, _P, _P, _L, _I, _I, _I, _P],
@@ -63,7 +63,7 @@ _SIGNATURES = {
     },
     "dedup": {
         "dedup_sum_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _I, _P, _P, _P, _P, _P, _P],
+                          _I, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "coalesce": {
         "desc_fetch_smem": [_I, _I, _I],

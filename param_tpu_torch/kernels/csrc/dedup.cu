@@ -15,6 +15,13 @@
 // and fills rows[U:N] with drop_marker and totals[U:N] with zeros, where
 // U = run_no[N - 1] is the number of runs.
 //
+// Bags of per-feature sizes (multi-hot features of fixed, unequal sizes;
+// RG = true): the lookups come as rows of nnz ids, one a sample, each
+// feature's bag a slice of its sample's row, and g holds nfeat bags a
+// sample.  Lookup i = b * nnz + j then carries bag b * nfeat + feat[j]
+// (`col_feat`, nnz entries) in place of i / nnz.  The fixed-nnz kernels
+// (RG = false) are built apart, so their code is what it was.
+//
 // Replaces no TPU kernel: the JAX package's dedup (param_tpu/ops/
 // sparse_update.py::dedup_row_updates) is XLA's sort and segment sum over
 // one gradient row a lookup.  Built from PyTorch's ops, that chain expanded
@@ -77,14 +84,15 @@ __device__ __forceinline__ void store_row(float* p, const float* v) {
   }
 }
 
-template <int VEC>
+template <int VEC, bool RG>
 __global__ void __launch_bounds__(kThreads)
 dedup_sum_chunks(const float* __restrict__ g, const int64_t* __restrict__ order,
                  const int32_t* __restrict__ sidx,
                  const int32_t* __restrict__ run_no, int n, int nnz, int dim,
                  int chunk, int lanes, float scale, int32_t drop_marker,
                  int32_t* __restrict__ rows, float* __restrict__ totals,
-                 float* __restrict__ carry, int32_t* __restrict__ key) {
+                 float* __restrict__ carry, int32_t* __restrict__ key,
+                 const int32_t* __restrict__ col_feat, int nfeat) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   const int c = t / lanes;
   const int lane = t % lanes;
@@ -109,7 +117,9 @@ dedup_sum_chunks(const float* __restrict__ g, const int64_t* __restrict__ order,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (p + u < p1) {
-          const int bag = static_cast<int>(order[p + u]) / nnz;
+          const int at = static_cast<int>(order[p + u]);
+          int bag = at / nnz;
+          if constexpr (RG) bag = bag * nfeat + col_feat[at - bag * nnz];
           load_row<VEC>(g + static_cast<int64_t>(bag) * dim + col, v[u]);
         }
       }
@@ -221,13 +231,20 @@ int launch(const float* g, const int64_t* order, const int32_t* sidx,
            const int32_t* run_no, int n, int nnz, int dim, int chunk,
            int group, int lanes, float scale, int32_t drop_marker,
            int32_t* rows, float* totals, float* carry, int32_t* key,
-           int32_t* carried, cudaStream_t stream) {
+           int32_t* carried, const int32_t* col_feat, int nfeat,
+           cudaStream_t stream) {
   const int chunks = (n + chunk - 1) / chunk;
   const int64_t threads = static_cast<int64_t>(chunks) * lanes;
-  dedup_sum_chunks<VEC><<<(threads + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>(g, order, sidx, run_no, n, nnz, dim, chunk,
-                                    lanes, scale, drop_marker, rows, totals,
-                                    carry, key);
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (col_feat) {
+    dedup_sum_chunks<VEC, true><<<blocks, kThreads, 0, stream>>>(
+        g, order, sidx, run_no, n, nnz, dim, chunk, lanes, scale, drop_marker,
+        rows, totals, carry, key, col_feat, nfeat);
+  } else {
+    dedup_sum_chunks<VEC, false><<<blocks, kThreads, 0, stream>>>(
+        g, order, sidx, run_no, n, nnz, dim, chunk, lanes, scale, drop_marker,
+        rows, totals, carry, key, nullptr, 1);
+  }
   // levels alternate between carry[0, chunks) and carry[chunks, ...)
   float* vals = carry;
   int32_t* keys = key;
@@ -256,14 +273,18 @@ extern "C" {
 // g (M, dim) f32; order (n,) int64, sidx and run_no (n,) int32, n >= 1;
 // rows (n,) int32, totals (n, dim) f32; carry (C + ceil(C / group), dim)
 // f32 and key (C + ceil(C / group),) int32 with C = ceil(n / chunk);
-// carried: an int32 the carried runs are added to, or null.  chunk a
+// carried: an int32 the carried runs are added to, or null; col_feat: null
+// for bags of nnz ids (lookup i's bag i / nnz), or nnz int32 features on
+// the device for rows of nnz per-feature ids (bag (i / nnz) * nfeat +
+// col_feat[i % nnz]; the notes at the top).  chunk a
 // multiple of kUnroll, group >= 2; vec 4 needs dim % 4 == 0 and 16-byte
 // aligned g, totals and carry; lanes a power of two from 1 to 32.
 int dedup_sum_f32(const void* g, const void* order, const void* sidx,
                   const void* run_no, int n, int nnz, int dim, int chunk,
                   int group, int vec, int lanes, float scale,
                   int drop_marker, void* rows, void* totals, void* carry,
-                  void* key, void* carried, void* stream) {
+                  void* key, void* carried, const void* col_feat, int nfeat,
+                  void* stream) {
   auto f = vec == 4 ? &launch<4> : &launch<1>;
   return f(static_cast<const float*>(g), static_cast<const int64_t*>(order),
            static_cast<const int32_t*>(sidx),
@@ -271,6 +292,7 @@ int dedup_sum_f32(const void* g, const void* order, const void* sidx,
            lanes, scale, drop_marker, static_cast<int32_t*>(rows),
            static_cast<float*>(totals), static_cast<float*>(carry),
            static_cast<int32_t*>(key), static_cast<int32_t*>(carried),
+           static_cast<const int32_t*>(col_feat), nfeat,
            static_cast<cudaStream_t>(stream));
 }
 

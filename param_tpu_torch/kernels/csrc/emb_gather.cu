@@ -35,6 +35,14 @@
 //    memory and warp 0 adds them in slice order.  No atomics: a bag's sum
 //    order depends on the launch's shape only, so a launch repeats bit
 //    for bit.
+//  - Bags of per-feature sizes (multi-hot features of fixed, unequal
+//    sizes; RG = true): the ids come as rows of nnz, one a sample, and bag
+//    b * nfeat + f is ids [off[f], off[f + 1]) of sample b's row
+//    (`bag_offsets`, nfeat + 1 of them, off[nfeat] = nnz).  A warp reads
+//    its bag's bounds from that table once, before its walk, and every id
+//    it reads is a real one: no pad slots.  Such launches never take the
+//    short path.  The fixed-nnz kernels (RG = false) are built apart, so
+//    their code is what it was.
 // kernels/emb_gather.py::emb_gather_schedule picks k, U and the lanes a
 // row from the shapes.  Indices are int32; as in the reference's jnp.take,
 // an id in [-rows, 0) counts from the end and any other id outside [0,
@@ -143,12 +151,13 @@ struct RowIO<__nv_bfloat16, 1> {
 template <int U>
 constexpr int kMinBlocks = U == 1 ? 8 : U == 2 ? 6 : 4;
 
-template <typename T, int VEC, int U, bool W>
+template <typename T, int VEC, int U, bool W, bool RG>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocks<U>)
 emb_gather_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
                   const float* __restrict__ weights, T* __restrict__ out,
                   int64_t num_rows, int batch, int nnz, int dim,
-                  int log2_lanes, int log2_warps) {
+                  int log2_lanes, int log2_warps,
+                  const int32_t* __restrict__ bag_offsets, int nfeat) {
   using IO = RowIO<T, VEC>;
   extern __shared__ float partials[];  // [bag slot][warp 1..k-1][chunk]
   const int lane = threadIdx.x & 31;
@@ -163,11 +172,20 @@ emb_gather_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
   const int group = lane >> log2_lanes;
   const int sub = lane & (lanes_per_row - 1);
   const int chunk = lanes_per_row * VEC;
-  const int j0 = static_cast<int>((static_cast<int64_t>(part) * nnz) >>
+  // this bag's ids are idx[first, first + bag_nnz) (RG: its feature's
+  // slice of its sample's row)
+  int64_t first = static_cast<int64_t>(bag) * nnz;
+  int bag_nnz = nnz;
+  if constexpr (RG) {
+    const int b = bag / nfeat;
+    const int f = bag - b * nfeat;
+    first = static_cast<int64_t>(b) * nnz + (live ? bag_offsets[f] : 0);
+    bag_nnz = live ? bag_offsets[f + 1] - bag_offsets[f] : 0;
+  }
+  const int j0 = static_cast<int>((static_cast<int64_t>(part) * bag_nnz) >>
                                   log2_warps);
-  const int j1 = static_cast<int>((static_cast<int64_t>(part + 1) * nnz) >>
-                                  log2_warps);
-  const int64_t first = static_cast<int64_t>(bag) * nnz;
+  const int j1 = static_cast<int>(
+      (static_cast<int64_t>(part + 1) * bag_nnz) >> log2_warps);
   float* mine = partials + (slot * (warps_per_bag - 1) + max(part - 1, 0)) *
                                chunk + sub * VEC;
   const float* theirs =
@@ -292,19 +310,35 @@ emb_gather_small_kernel(const T* __restrict__ table,
   }
 }
 
+template <typename T, int VEC, int U, bool RG>
+void launch_w(const T* table, const int32_t* idx, const float* weights,
+              T* out, int64_t num_rows, int batch, int nnz, int dim,
+              int log2_lanes, int log2_warps, const int32_t* bag_offsets,
+              int nfeat, dim3 grid, size_t smem, cudaStream_t s) {
+  if (weights) {
+    emb_gather_kernel<T, VEC, U, true, RG><<<grid, kBlockThreads, smem, s>>>(
+        table, idx, weights, out, num_rows, batch, nnz, dim, log2_lanes,
+        log2_warps, bag_offsets, nfeat);
+  } else {
+    emb_gather_kernel<T, VEC, U, false, RG><<<grid, kBlockThreads, smem, s>>>(
+        table, idx, weights, out, num_rows, batch, nnz, dim, log2_lanes,
+        log2_warps, bag_offsets, nfeat);
+  }
+}
+
 template <typename T, int VEC, int U>
 void launch_u(const T* table, const int32_t* idx, const float* weights,
               T* out, int64_t num_rows, int batch, int nnz, int dim,
-              int log2_lanes, int log2_warps, dim3 grid, size_t smem,
-              cudaStream_t s) {
-  if (weights) {
-    emb_gather_kernel<T, VEC, U, true><<<grid, kBlockThreads, smem, s>>>(
-        table, idx, weights, out, num_rows, batch, nnz, dim, log2_lanes,
-        log2_warps);
+              int log2_lanes, int log2_warps, const int32_t* bag_offsets,
+              int nfeat, dim3 grid, size_t smem, cudaStream_t s) {
+  if (bag_offsets) {
+    launch_w<T, VEC, U, true>(table, idx, weights, out, num_rows, batch, nnz,
+                              dim, log2_lanes, log2_warps, bag_offsets, nfeat,
+                              grid, smem, s);
   } else {
-    emb_gather_kernel<T, VEC, U, false><<<grid, kBlockThreads, smem, s>>>(
-        table, idx, weights, out, num_rows, batch, nnz, dim, log2_lanes,
-        log2_warps);
+    launch_w<T, VEC, U, false>(table, idx, weights, out, num_rows, batch, nnz,
+                               dim, log2_lanes, log2_warps, nullptr, 1, grid,
+                               smem, s);
   }
 }
 
@@ -317,15 +351,19 @@ int log2_of(int x) {  // log2 of a power of two in [1, 32], else -1
 template <typename T, int VEC>
 int launch(const T* table, const int32_t* idx, const float* weights, T* out,
            int64_t num_rows, int batch, int nnz, int dim, int lanes,
-           int warps_per_bag, int rows_in_flight, cudaStream_t stream) {
+           int warps_per_bag, int rows_in_flight,
+           const int32_t* bag_offsets, int nfeat, cudaStream_t stream) {
   const int log2_lanes = log2_of(lanes);
   const int log2_warps = log2_of(warps_per_bag);
   if (log2_lanes < 0 || log2_warps < 0 || warps_per_bag > 8)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bag_offsets && (nfeat <= 0 || batch % nfeat != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return static_cast<int>(cudaGetLastError());
   const int bags_per_block = kBlockThreads / 32 / warps_per_bag;
   const dim3 grid((batch + bags_per_block - 1) / bags_per_block);
-  if (warps_per_bag == 1 && nnz <= 32 / lanes && dim <= lanes * VEC) {
+  if (!bag_offsets && warps_per_bag == 1 && nnz <= 32 / lanes &&
+      dim <= lanes * VEC) {
     if (weights) {
       emb_gather_small_kernel<T, VEC, true><<<grid, kBlockThreads, 0,
                                               stream>>>(
@@ -341,7 +379,8 @@ int launch(const T* table, const int32_t* idx, const float* weights, T* out,
                       lanes * VEC;
 #define K1_LAUNCH(U)                                                        \
   launch_u<T, VEC, U>(table, idx, weights, out, num_rows, batch, nnz, dim,  \
-                      log2_lanes, log2_warps, grid, smem, stream)
+                      log2_lanes, log2_warps, bag_offsets, nfeat, grid, smem, \
+                      stream)
   switch (rows_in_flight) {
     case 1: K1_LAUNCH(1); break;
     case 2: K1_LAUNCH(2); break;
@@ -361,37 +400,45 @@ extern "C" {
 // D % that == 0 and 16-byte aligned table and out).  lanes, warps_per_bag
 // and rows_in_flight: emb_gather_schedule's launch shape (lanes a row, a
 // power of two up to 32; warps a bag 1, 2, 4 or 8; row loads in flight a
-// lane group 1, 2, 4 or 8).
+// lane group 1, 2, 4 or 8).  bag_offsets: null for `batch` bags of nnz ids
+// each; else nfeat + 1 int32 offsets on the device, `batch` a multiple of
+// nfeat, and the ids batch / nfeat rows of nnz per-feature bags (the notes
+// at the top).
 int emb_gather_f32(const void* table, const void* idx, const void* weights,
                    void* out, long long num_rows, int batch, int nnz, int dim,
                    int vec, int lanes, int warps_per_bag, int rows_in_flight,
-                   void* stream) {
+                   const void* bag_offsets, int nfeat, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const float*>(table);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* w = static_cast<const float*>(weights);
   auto* o = static_cast<float*>(out);
+  const auto* off = static_cast<const int32_t*>(bag_offsets);
   if (vec == 4)
     return launch<float, 4>(t, i, w, o, num_rows, batch, nnz, dim, lanes,
-                            warps_per_bag, rows_in_flight, s);
+                            warps_per_bag, rows_in_flight, off, nfeat, s);
   return launch<float, 1>(t, i, w, o, num_rows, batch, nnz, dim, lanes,
-                          warps_per_bag, rows_in_flight, s);
+                          warps_per_bag, rows_in_flight, off, nfeat, s);
 }
 
 int emb_gather_bf16(const void* table, const void* idx, const void* weights,
                     void* out, long long num_rows, int batch, int nnz,
                     int dim, int vec, int lanes, int warps_per_bag,
-                    int rows_in_flight, void* stream) {
+                    int rows_in_flight, const void* bag_offsets, int nfeat,
+                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const __nv_bfloat16*>(table);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* w = static_cast<const float*>(weights);
   auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto* off = static_cast<const int32_t*>(bag_offsets);
   if (vec == 8)
     return launch<__nv_bfloat16, 8>(t, i, w, o, num_rows, batch, nnz, dim,
-                                    lanes, warps_per_bag, rows_in_flight, s);
+                                    lanes, warps_per_bag, rows_in_flight, off,
+                                    nfeat, s);
   return launch<__nv_bfloat16, 1>(t, i, w, o, num_rows, batch, nnz, dim,
-                                  lanes, warps_per_bag, rows_in_flight, s);
+                                  lanes, warps_per_bag, rows_in_flight, off,
+                                  nfeat, s);
 }
 
 }  // extern "C"

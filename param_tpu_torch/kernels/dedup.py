@@ -8,6 +8,12 @@ for each id of bag m): ``rows`` (N,) int32, the distinct ids in ascending
 order as a prefix and ``drop_marker`` in the tail, and ``totals`` (N, D)
 f32, each id's rows summed, zero in the tail (N = M * nnz).
 
+With ``bag_sizes`` (T per-feature sizes, L their sum; the layout of
+:mod:`~param_tpu_torch.kernels.emb_gather`'s per-feature bags), ``ids`` is
+(B, L), one row a sample, ``g`` (B * T, D), and lookup (b, j) carries bag
+``b * T + t`` of its column's feature t: the ids are the B * L real ones,
+with no pad slot.
+
 On the card the per-lookup rows are never built: a stable sort of the ids,
 the run numbers from a cumulative sum of run starts, then the kernel sums
 rows of ``g`` in sorted order, chunk by chunk (:data:`CHUNK` sorted
@@ -25,11 +31,14 @@ to the counter ``dlrm.unique_rows`` and the runs that cross a chunk's end
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from param_tpu_torch.kernels import bindings, launch_counts
+from param_tpu_torch.kernels.emb_gather import (
+    bag_layout, check_bag_sizes, per_feature,
+)
 from param_tpu_torch.utils.profiler import count, recording
 
 CHUNK = 32  # sorted positions a lane group of the kernel walks
@@ -52,15 +61,31 @@ def carried_runs(sidx: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
     return (cross & ~later).sum()
 
 
+def _check_bags(ids: torch.Tensor, g: torch.Tensor,
+                bag_sizes: Optional[Sequence[int]]) -> None:
+    if ids.dim() != 2 or g.dim() != 2:
+        raise ValueError("ids (M, nnz) and g (M, D) expected")
+    bags = ids.shape[0] * (1 if bag_sizes is None else len(bag_sizes))
+    if g.shape[0] != bags:
+        raise ValueError(f"g must hold {bags} bags, got {g.shape[0]}")
+    if bag_sizes is not None:
+        check_bag_sizes(bag_sizes, ids.shape[1])
+
+
 def dedup_sum_plain(ids: torch.Tensor, g: torch.Tensor,
-                    scale: Optional[float], drop_marker: int
+                    scale: Optional[float], drop_marker: int,
+                    bag_sizes: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: one gradient row a lookup, then
     ``dedup_row_updates``."""
     from param_tpu_torch.ops.sparse_update import dedup_row_updates
 
+    _check_bags(ids, g, bag_sizes)
     flat = ids.reshape(-1)
-    rows_g = g.repeat_interleave(ids.shape[1], dim=0)
+    if bag_sizes is None:
+        rows_g = g.repeat_interleave(ids.shape[1], dim=0)
+    else:
+        rows_g = per_feature(g, bag_sizes).reshape(-1, g.shape[1])
     if scale is not None:
         rows_g = scale * rows_g
     if flat.numel() and recording():
@@ -70,12 +95,12 @@ def dedup_sum_plain(ids: torch.Tensor, g: torch.Tensor,
 
 
 def dedup_sum_cuda(ids: torch.Tensor, g: torch.Tensor,
-                   scale: Optional[float], drop_marker: int
+                   scale: Optional[float], drop_marker: int,
+                   bag_sizes: Optional[Sequence[int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sort, the run numbers and the kernel's launches (the chunks,
     then the carries' levels) on ``g``'s CUDA device."""
-    if ids.dim() != 2 or g.dim() != 2 or g.shape[0] != ids.shape[0]:
-        raise ValueError("ids (M, nnz) and g (M, D) expected")
+    _check_bags(ids, g, bag_sizes)
     if ids.device != g.device:
         raise ValueError("ids and g must share a device")
     if not (ids.is_contiguous() and g.is_contiguous()):
@@ -107,14 +132,16 @@ def dedup_sum_cuda(ids: torch.Tensor, g: torch.Tensor,
     carried = (torch.zeros((), dtype=torch.int32, device=dev)
                if recording() else None)
     vec = bindings.vec_width(D, 4, g, totals, carry)
+    feats = (None if bag_sizes is None
+             else bag_layout(bag_sizes, dev)[1].data_ptr())
     fn = bindings.entry("dedup", "dedup_sum_f32")
     rc = fn(g.data_ptr(), order.data_ptr(), sidx.data_ptr(),
             run_no.data_ptr(), N, nnz, D, CHUNK, GROUP, vec,
             dedup_lanes(D, vec), 1.0 if scale is None else float(scale),
             drop_marker, rows.data_ptr(), totals.data_ptr(),
             carry.data_ptr(), key.data_ptr(),
-            None if carried is None else carried.data_ptr(),
-            bindings.stream_of(g))
+            None if carried is None else carried.data_ptr(), feats,
+            1 if bag_sizes is None else len(bag_sizes), bindings.stream_of(g))
     bindings.check(rc, "dedup_sum")
     launch_counts["dedup_sum"] += 1
     if carried is not None:
@@ -123,25 +150,31 @@ def dedup_sum_cuda(ids: torch.Tensor, g: torch.Tensor,
     return rows, totals
 
 
-def _dedup_sum_meta(ids, g, scale, drop_marker):
+def _dedup_sum_meta(ids, g, scale, drop_marker, bag_sizes=None):
     N = ids.shape[0] * ids.shape[1]
     return (ids.new_empty((N,), dtype=torch.int32),
             g.new_empty((N, g.shape[1])))
 
 
 _LIB = torch.library.Library("param_tpu_torch", "FRAGMENT")
-_LIB.define("dedup_sum(Tensor ids, Tensor g, float? scale, int drop_marker) "
-            "-> (Tensor, Tensor)")
+_LIB.define("dedup_sum(Tensor ids, Tensor g, float? scale, int drop_marker, "
+            "int[]? bag_sizes=None) -> (Tensor, Tensor)")
 _LIB.impl("dedup_sum", dedup_sum_cuda, "CUDA")
 _LIB.impl("dedup_sum", dedup_sum_plain, "CPU")
 _LIB.impl("dedup_sum", _dedup_sum_meta, "Meta")
 
 
 def dedup_sum(ids: torch.Tensor, g: torch.Tensor,
-              scale: Optional[float] = None, drop_marker: int = -1
+              scale: Optional[float] = None, drop_marker: int = -1,
+              bag_sizes: Optional[Sequence[int]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(rows, totals)`` of the lookups ``ids`` (M, nnz) whose rows are
-    ``scale * g[m]`` (module notes): the kernel for CUDA tensors, the plain
-    version for CPU ones, through the op ``param_tpu_torch::dedup_sum``."""
+    ``scale * g[m]``, or of per-feature bags with ``bag_sizes`` (module
+    notes): the kernel for CUDA tensors, the plain version for CPU ones,
+    through the op ``param_tpu_torch::dedup_sum``."""
+    scale = None if scale is None else float(scale)
+    if bag_sizes is None:
+        return torch.ops.param_tpu_torch.dedup_sum.default(
+            ids, g, scale, int(drop_marker))
     return torch.ops.param_tpu_torch.dedup_sum.default(
-        ids, g, None if scale is None else float(scale), int(drop_marker))
+        ids, g, scale, int(drop_marker), [int(n) for n in bag_sizes])

@@ -7,6 +7,13 @@ reference's ``jnp.take``, an id in [-R, 0) counts from the end and any other
 id outside [0, R) makes its bag NaN.  Counterpart of
 ``param_tpu/ops/embedding.py::_emb_gather_kernel`` (``embedding_bag_pallas``).
 
+Bags of per-feature sizes: with ``bag_sizes`` (T sizes, L = their sum),
+``idx`` is (B, L), one row of ids a sample, feature t's bag its slice
+``[o_t, o_t + size_t)``, o_t the sizes before it; the output is (B * T, D),
+bag ``b * T + t`` at row ``b * T + t``.  One launch reads exactly the B * L
+real ids, with no pad slot (:func:`bag_layout` holds the offsets on the
+device).
+
 K1 is the PyTorch op ``torch.ops.param_tpu_torch.emb_gather`` (registered
 with ``torch.library.Library``, not ``custom_op``, whose Python dispatch
 costs several times more a call): its CUDA kernel is the launch, its CPU
@@ -26,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import math
 from functools import lru_cache
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,6 +147,46 @@ def launch_schedule(table: torch.Tensor, batch: int, nnz: int,
                          u or s.rows_in_flight)
 
 
+_LAYOUTS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def check_bag_sizes(bag_sizes: Sequence[int], ids_a_sample: int) -> None:
+    if not bag_sizes or min(bag_sizes) < 0:
+        raise ValueError(f"bag sizes must be one or more sizes >= 0, got "
+                         f"{list(bag_sizes)}")
+    if sum(bag_sizes) != ids_a_sample:
+        raise ValueError(f"bag sizes {list(bag_sizes)} sum to "
+                         f"{sum(bag_sizes)}, not the {ids_a_sample} ids a "
+                         f"sample")
+
+
+def bag_layout(bag_sizes: Sequence[int], device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(offsets (T + 1,) int32, features (L,) int32) of per-feature bags
+    of ``bag_sizes`` on ``device``: feature t's bag is ids [offsets[t],
+    offsets[t + 1]) of a sample's row, and column j of the row belongs to
+    feature features[j].  Made once a layout and device (a copy from the
+    host), then cached."""
+    key = (tuple(int(n) for n in bag_sizes), str(torch.device(device)))
+    out = _LAYOUTS.get(key)
+    if out is None:
+        sizes = torch.tensor(key[0], dtype=torch.int32)
+        offsets = torch.zeros(len(key[0]) + 1, dtype=torch.int32)
+        torch.cumsum(sizes, 0, out=offsets[1:])
+        feats = torch.repeat_interleave(
+            torch.arange(len(key[0]), dtype=torch.int32), sizes.long())
+        out = _LAYOUTS[key] = (offsets.to(device), feats.to(device))
+    return out
+
+
+def per_feature(x: torch.Tensor, bag_sizes: Sequence[int]) -> torch.Tensor:
+    """(B * T, ...) rows of per-feature bags -> (B, L, ...): each id's
+    column takes its bag's row."""
+    T = len(bag_sizes)
+    feats = bag_layout(bag_sizes, x.device)[1]
+    return x.reshape(-1, T, *x.shape[1:]).index_select(1, feats.long())
+
+
 def normalize_ids(idx: torch.Tensor, num_rows: int):
     """(ids wrapped into [0, R) where they were in [-R, R), valid mask)."""
     i = idx.long()
@@ -156,17 +203,30 @@ def emb_gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def emb_gather_plain(table: torch.Tensor, idx: torch.Tensor,
-                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version: gather, optional weighting, f32 sum over nnz."""
+                     weights: Optional[torch.Tensor] = None,
+                     bag_sizes: Optional[Sequence[int]] = None
+                     ) -> torch.Tensor:
+    """Plain PyTorch version: gather, optional weighting, f32 sum over
+    each bag's ids (with ``bag_sizes``, each feature's columns in order)."""
     rows = emb_gather_rows(table, idx)  # (B, nnz, D)
     if weights is not None:
         rows = rows * weights[..., None]
-    return rows.float().sum(dim=1).to(table.dtype)
+    if bag_sizes is None:
+        return rows.float().sum(dim=1).to(table.dtype)
+    check_bag_sizes(bag_sizes, idx.shape[1])
+    B, T, D = idx.shape[0], len(bag_sizes), table.shape[1]
+    feats = bag_layout(bag_sizes, idx.device)[1].long()
+    out = torch.zeros((B, T, D), dtype=torch.float32, device=table.device)
+    return out.index_add_(1, feats, rows.float()).reshape(B * T, D).to(
+        table.dtype)
 
 
 def emb_gather_cuda(table: torch.Tensor, idx: torch.Tensor,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 on ``table``'s CUDA device."""
+                    weights: Optional[torch.Tensor] = None,
+                    bag_sizes: Optional[Sequence[int]] = None
+                    ) -> torch.Tensor:
+    """Launch K1 on ``table``'s CUDA device.  With ``bag_sizes`` (module
+    notes) the launch shape is picked for bags of the mean size."""
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"table (R, D) and idx (B, nnz) expected, got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
@@ -187,35 +247,51 @@ def emb_gather_cuda(table: torch.Tensor, idx: torch.Tensor,
     R, D = table.shape
     if B * nnz >= 2**31:
         raise ValueError("K1 takes fewer than 2**31 lookups")
-    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+    offsets, nfeat, bags, bag_nnz = None, 1, B, nnz
+    if bag_sizes is not None:
+        check_bag_sizes(bag_sizes, nnz)
+        nfeat = len(bag_sizes)
+        bags, bag_nnz = B * nfeat, -(-nnz // nfeat)
+        offsets = bag_layout(bag_sizes, table.device)[0]
+    out = torch.empty((bags, D), dtype=table.dtype, device=table.device)
     vec = bindings.vec_width(D, table.element_size(), table, out)
-    s = launch_schedule(table, B, nnz, vec)
+    s = launch_schedule(table, bags, bag_nnz, vec)
     fn = bindings.entry("emb_gather", _DTYPES[table.dtype])
     rc = fn(table.data_ptr(), idx.data_ptr(),
             weights.data_ptr() if weights is not None else None,
-            out.data_ptr(), R, B, nnz, D, vec, s.lanes_per_row,
-            s.warps_per_bag, s.rows_in_flight, bindings.stream_of(table))
+            out.data_ptr(), R, bags, nnz, D, vec, s.lanes_per_row,
+            s.warps_per_bag, s.rows_in_flight,
+            None if offsets is None else offsets.data_ptr(), nfeat,
+            bindings.stream_of(table))
     bindings.check(rc, "emb_gather")
     launch_counts["emb_gather"] += 1
     return out
 
 
 def _emb_gather_meta(table: torch.Tensor, idx: torch.Tensor,
-                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return table.new_empty((idx.shape[0], table.shape[1]))
+                     weights: Optional[torch.Tensor] = None,
+                     bag_sizes: Optional[Sequence[int]] = None
+                     ) -> torch.Tensor:
+    bags = idx.shape[0] * (1 if bag_sizes is None else len(bag_sizes))
+    return table.new_empty((bags, table.shape[1]))
 
 
 _LIB = torch.library.Library("param_tpu_torch", "FRAGMENT")
-_LIB.define("emb_gather(Tensor table, Tensor idx, Tensor? weights=None) "
-            "-> Tensor")
+_LIB.define("emb_gather(Tensor table, Tensor idx, Tensor? weights=None, "
+            "int[]? bag_sizes=None) -> Tensor")
 _LIB.impl("emb_gather", emb_gather_cuda, "CUDA")
 _LIB.impl("emb_gather", emb_gather_plain, "CPU")
 _LIB.impl("emb_gather", _emb_gather_meta, "Meta")
 
 
 def emb_gather(table: torch.Tensor, idx: torch.Tensor,
-               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weights: Optional[torch.Tensor] = None,
+               bag_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """K1 for a CUDA table, the plain version for a CPU table, through the
     op ``param_tpu_torch::emb_gather``; another device has no kernel and
     raises."""
-    return torch.ops.param_tpu_torch.emb_gather.default(table, idx, weights)
+    if bag_sizes is None:
+        return torch.ops.param_tpu_torch.emb_gather.default(table, idx,
+                                                            weights)
+    return torch.ops.param_tpu_torch.emb_gather.default(
+        table, idx, weights, [int(n) for n in bag_sizes])

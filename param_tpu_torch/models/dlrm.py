@@ -17,6 +17,21 @@ segment-sum it by row id (:func:`dedup_sum`: each lookup's row is its
 bag's row of the pooled gradient) and apply one K2 launch to the flat table
 view.
 
+DLRM-DCNv2 (torchrec's ``dlrm_main.py``, MLPerf's recommender) widens
+this on one device, each by an argument named as that script names it:
+``num_embeddings_per_feature`` gives each table its own rows, and the
+tables are then stored flat, ``"tables"`` (sum of rows, D), each table's
+ids offset by the rows before it; ``multi_hot_sizes`` gives each feature
+its own bag size, and a batch's ids are then (B, L), one row of L = their
+sum a sample, feature t's bag the t-th slice of it (K1's and the dedup's
+per-feature layout: no pad slot); ``arch_interaction="dcn"`` puts the
+low-rank cross net (``dcn_num_layers`` layers of rank
+``dcn_low_rank_dim``) in place of the dot, its layers under ``"cross"``,
+[(V (F, r), W (r, F), b (F,)), ...], dense leaves like the MLPs'.  Equal
+rows and sizes keep the (T, E, D) tables and (B, T, nnz) ids above; any
+other model looks up and deduplicates in the per-feature layout, which
+reads a (B, T, nnz) batch of tables of their own rows as (B, T * nnz).
+
 Built with a group (a :class:`~param_tpu_torch.backend.base.CommGroup` of
 n ranks), the model is the reference's hybrid-parallel one: rank r holds
 tables [r*T/n, (r+1)*T/n) and batch rows [r*B/n, (r+1)*B/n), the MLPs are
@@ -49,16 +64,18 @@ While a ``torch.profiler`` runs, the sparse steps record spans and counters
 group), ``dlrm.lookup`` (K1), ``dlrm.dense_fwd`` (its child
 ``dlrm.interaction``), ``dlrm.dense_bwd`` (the interaction's backward, a
 second ``dlrm.interaction``), ``dlrm.dense_update``, ``dlrm.dedup``
-(:func:`dedup_sum`) and ``dlrm.row_update`` (K2).  Counters:
-``dlrm.lookups`` (ids looked up), ``dlrm.unique_rows`` (the dedup's runs)
-and ``dlrm.dedup_carried_runs`` (runs that cross the end of one of the
-dedup kernel's chunks).  Without a profiler they do nothing.
+(:func:`dedup_sum`) and ``dlrm.row_update`` (K2); under each DCN
+``dlrm.interaction``, one ``dlrm.cross`` a cross layer.  Counters:
+``dlrm.lookups`` (ids looked up), ``dlrm.bags`` (bags looked up),
+``dlrm.unique_rows`` (the dedup's runs) and ``dlrm.dedup_carried_runs``
+(runs that cross the end of one of the dedup kernel's chunks).  Without a
+profiler they do nothing.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,7 +93,10 @@ from param_tpu_torch.utils.profiler import annotate, annotate_backward, count
 
 @dataclass
 class DlrmConfig:
-    """Model dimensions (same fields and defaults as the reference)."""
+    """Model dimensions (same fields and defaults as the reference), and
+    DLRM-DCNv2's arguments under ``dlrm_main.py``'s names (module notes).
+    Where ``num_embeddings_per_feature`` or ``multi_hot_sizes`` is given it
+    sets ``num_tables``; equal entries set ``rows_per_table`` / ``nnz``."""
 
     num_tables: int = 8
     rows_per_table: int = 100_000
@@ -86,14 +106,64 @@ class DlrmConfig:
     bot_mlp: List[int] = field(default_factory=lambda: [512, 256, 64])
     top_mlp: List[int] = field(default_factory=lambda: [512, 256, 1])
     batch: int = 2048
-    arch_interaction: str = "dot"  # dot | cat
+    arch_interaction: str = "dot"  # dot | cat | dcn
     dtype: Any = torch.float32
+    num_embeddings_per_feature: Optional[List[int]] = None
+    multi_hot_sizes: Optional[List[int]] = None
+    dcn_num_layers: int = 3
+    dcn_low_rank_dim: int = 512
 
     def __post_init__(self):
         if self.bot_mlp[-1] != self.emb_dim:
             raise ValueError(
                 f"bot MLP output {self.bot_mlp[-1]} must equal emb_dim {self.emb_dim}"
             )
+        if self.arch_interaction not in ("dot", "cat", "dcn"):
+            raise ValueError(f"unknown interaction {self.arch_interaction!r}")
+        given = [list(x) for x in (self.num_embeddings_per_feature,
+                                   self.multi_hot_sizes) if x is not None]
+        if given:
+            if len({len(x) for x in given}) != 1 or not given[0]:
+                raise ValueError("num_embeddings_per_feature and "
+                                 "multi_hot_sizes need one entry a feature")
+            self.num_tables = len(given[0])
+        for name in ("num_embeddings_per_feature", "multi_hot_sizes"):
+            x = getattr(self, name)
+            if x is None:
+                continue
+            x = [int(n) for n in x]
+            if min(x) < 1:
+                raise ValueError(f"{name} must be positive, got {x}")
+            setattr(self, name, x)
+            if len(set(x)) == 1:
+                if name == "multi_hot_sizes":
+                    self.nnz = x[0]
+                else:
+                    self.rows_per_table = x[0]
+        if self.arch_interaction == "dcn" and (self.dcn_num_layers < 0 or
+                                               self.dcn_low_rank_dim < 1):
+            raise ValueError("the cross net needs layers >= 0 and rank >= 1")
+
+    @property
+    def table_rows(self) -> List[int]:
+        """Rows of each table."""
+        return list(self.num_embeddings_per_feature
+                    or [self.rows_per_table] * self.num_tables)
+
+    @property
+    def bag_sizes(self) -> List[int]:
+        """Ids of each feature's bag."""
+        return list(self.multi_hot_sizes or [self.nnz] * self.num_tables)
+
+    @property
+    def equal_tables(self) -> bool:
+        """Every table has the same rows: stored (T, E, D)."""
+        return len(set(self.table_rows)) == 1
+
+    @property
+    def fixed_nnz(self) -> bool:
+        """Every bag has the same size: ids (B, T, nnz)."""
+        return len(set(self.bag_sizes)) == 1
 
     @property
     def num_sparse_plus_dense(self) -> int:
@@ -116,17 +186,47 @@ class DlrmConfig:
 def init_dlrm_params(seed: int, cfg: DlrmConfig, device="cuda") -> Dict[str, Any]:
     """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``;
     the numbers differ from the reference's ``jax.random`` ones).  Tables are
-    N(0, 1/E), MLPs He-initialised."""
+    N(0, 1/E) (tables of unequal rows flat, each drawn in place), MLPs
+    He-initialised, cross layers Xavier-normal with zero biases
+    (:func:`init_cross`)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     T, E, D = cfg.num_tables, cfg.rows_per_table, cfg.emb_dim
-    tables = torch.randn((T, E, D), generator=gen, dtype=cfg.dtype,
-                         device=dev) / float(np.sqrt(E))
-    return {
+    if cfg.equal_tables:
+        tables = torch.randn((T, E, D), generator=gen, dtype=cfg.dtype,
+                             device=dev) / float(np.sqrt(E))
+    else:
+        rows = cfg.table_rows
+        tables = torch.empty((sum(rows), D), dtype=cfg.dtype, device=dev)
+        for start, n in zip(np.cumsum([0] + rows[:-1]), rows):
+            tables[start:start + n].normal_(0.0, float(n) ** -0.5,
+                                            generator=gen)
+    params = {
         "tables": tables,
         "bot": init_mlp(gen, cfg.bot_mlp_dims(), cfg.dtype, dev),
         "top": init_mlp(gen, cfg.top_mlp_dims(), cfg.dtype, dev),
     }
+    if cfg.arch_interaction == "dcn":
+        params["cross"] = init_cross(gen, cfg.interaction_dim,
+                                     cfg.dcn_low_rank_dim, cfg.dcn_num_layers,
+                                     cfg.dtype, dev)
+    return params
+
+
+def init_cross(generator: torch.Generator, width: int, rank: int,
+               layers: int, dtype=torch.float32, device="cuda"):
+    """Low-rank cross layers [(V (width, rank), W (rank, width), b
+    (width,)), ...]: V and W Xavier-normal (std sqrt(2 / (width + rank)),
+    torchrec's ``LowRankCrossNet``), b zero."""
+    std = (2.0 / (width + rank)) ** 0.5
+    out = []
+    for _ in range(layers):
+        v = torch.randn((width, rank), generator=generator, dtype=dtype,
+                        device=device) * std
+        w = torch.randn((rank, width), generator=generator, dtype=dtype,
+                        device=device) * std
+        out.append((v, w, torch.zeros((width,), dtype=dtype, device=device)))
+    return out
 
 
 def dot_interaction(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
@@ -145,11 +245,62 @@ def dot_interaction(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor
     return out
 
 
+class _LowRankCross(torch.autograd.Function):
+    """One cross layer, ``x0 * (x V W + b) + x``, in cuBLAS GEMMs and
+    elementwise passes, with its backward written out (four GEMMs) inside
+    a ``dlrm.cross`` span."""
+
+    @staticmethod
+    def forward(ctx, x0, x, v, w, b):
+        u = torch.matmul(x, v)  # (B, r)
+        h = torch.addmm(b, u, w)  # (B, F)
+        ctx.save_for_backward(x0, x, v, w, u, h)
+        return torch.addcmul(x, x0, h)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x0, x, v, w, u, h = ctx.saved_tensors
+        with annotate("dlrm.cross"):
+            gh = gy * x0
+            gu = torch.matmul(gh, w.t())
+            gx = torch.addmm(gy, gu, v.t())
+            gv = torch.matmul(x.t(), gu)
+            gw = torch.matmul(u.t(), gh)
+            gb = gh.sum(0)
+            gx0 = gy * h
+        return gx0, gx, gv, gw, gb
+
+
+def low_rank_cross(x0: torch.Tensor, x: torch.Tensor, layer) -> torch.Tensor:
+    """One layer ``(V, W, b)`` of the low-rank cross net (torchrec's
+    ``LowRankCrossNet``): ``x0 * (W (V x) + b) + x`` for each row, with V
+    (F, r) and W (r, F) in the MLPs' (din, dout) layout."""
+    with annotate("dlrm.cross"):
+        return _LowRankCross.apply(x0, x, *layer)
+
+
+def dcn_interaction(bot_out: torch.Tensor, pooled: torch.Tensor,
+                    cross) -> torch.Tensor:
+    """DCNv2's interaction: x0 = the bottom output then the pooled
+    features, flattened, (B, (T+1) D); then each cross layer in turn.  Its
+    backward is a second ``dlrm.interaction``, from a hook on its output
+    to one on x0."""
+    with annotate("dlrm.interaction"):
+        x0 = torch.cat([bot_out, pooled.reshape(pooled.shape[0], -1)], dim=1)
+        x = x0
+        for layer in cross:
+            x = low_rank_cross(x0, x, layer)
+    annotate_backward("dlrm.interaction", x, x0)
+    return x
+
+
 def _forward_local(params, cfg: DlrmConfig, dense, pooled_all):
     """Dense half of the model: bottom MLP, interaction, top MLP -> (b,)."""
     bot_out = mlp_forward(params["bot"], dense)
     if cfg.arch_interaction == "dot":
         feat = dot_interaction(bot_out, pooled_all)
+    elif cfg.arch_interaction == "dcn":
+        feat = dcn_interaction(bot_out, pooled_all, params["cross"])
     else:
         feat = torch.cat([bot_out, pooled_all.reshape(pooled_all.shape[0], -1)],
                          dim=1)
@@ -241,10 +392,33 @@ class DlrmModel:
             raise ValueError(
                 f"num_tables={cfg.num_tables} and batch={cfg.batch} must "
                 f"divide the mesh size {self.n}")
+        if group is not None and not cfg.equal_tables:
+            raise ValueError(
+                "tables of unequal rows run on one device only: sharding "
+                "them over ranks is ROADMAP C4's other half, not ported")
+        if group is not None and not cfg.fixed_nnz:
+            raise ValueError(
+                "bags of per-feature sizes run on one device only: their "
+                "exchange between ranks is ROADMAP C2's other half, not "
+                "ported")
         self.device = resolve_device(device)
         self.local_tables = cfg.num_tables // self.n
         self.local_batch = cfg.batch // self.n
         self.rank = 0 if group is None else dist.get_rank(group.pg)
+        rows = cfg.table_rows[self.rank * self.local_tables:
+                              (self.rank + 1) * self.local_tables]
+        self.local_rows = sum(rows)
+        # equal tables and bags keep the (T, E, D) tables and (B, T, nnz)
+        # ids; any other model takes the per-feature layout, a (B, T, nnz)
+        # batch read as (B, T * nnz), and adds each column's table's first
+        # row in the flat view of the tables to its ids
+        self._per_feature = not (cfg.equal_tables and cfg.fixed_nnz)
+        self._row_offsets = None
+        if self._per_feature:
+            starts = np.cumsum([0] + rows[:-1])
+            self._row_offsets = torch.tensor(
+                np.repeat(starts, cfg.bag_sizes), dtype=torch.int32,
+                device=self.device)
 
     def init_params(self, seed: int = 0):
         """The full parameters from ``seed`` (:func:`init_dlrm_params`), of
@@ -306,9 +480,35 @@ class DlrmModel:
         top = self.mean_over_ranks(g_mlps[nb:])
         return self.mean_over_ranks(g_mlps[:nb]) + top
 
+    # ------------------------------------------------------- the lookup
+    def _global_ids(self, idx_t: torch.Tensor) -> torch.Tensor:
+        """This rank's tables' ids -> rows of the tables' flat (R, D)
+        view: equal tables and bags (B, T, nnz) by the module's
+        :func:`_global_ids`, the per-feature layout (B, L) each id plus
+        its table's first row."""
+        if not self._per_feature:
+            return _global_ids(idx_t, self.cfg.rows_per_table)
+        return idx_t.reshape(idx_t.shape[0], -1) + self._row_offsets
+
+    def _lookup(self, tables: torch.Tensor, idx_t: torch.Tensor
+                ) -> torch.Tensor:
+        """Pooled lookup of every table of this rank, one K1 launch:
+        (B, T, D).  The per-feature layout reads its (B, L) ids, no pad
+        slot.  Equal tables and bags take :func:`_lookup_local_tables`,
+        which reads the rows a table from ``tables`` (the ragged loss's
+        carry a pad row)."""
+        if not self._per_feature:
+            return _lookup_local_tables(tables, idx_t)
+        flat = tables.reshape(-1, tables.shape[-1])
+        if flat.shape[0] >= 2**31:
+            raise ValueError(f"{flat.shape[0]} rows do not fit int32 row ids")
+        out = embedding_bag(flat, self._global_ids(idx_t),
+                            bag_sizes=self.cfg.bag_sizes)
+        return out.reshape(idx_t.shape[0], -1, flat.shape[1])
+
     def forward(self, params, dense, idx):
         """Logits of this rank's rows."""
-        pooled = _lookup_local_tables(params["tables"], self._exchange_ids(idx))
+        pooled = self._lookup(params["tables"], self._exchange_ids(idx))
         return _forward_local(params, self.cfg, dense,
                               self._exchange_pooled(pooled))
 
@@ -344,7 +544,7 @@ class DlrmModel:
                 _, idx_t = ragged_sparse_dist(
                     lengths, idx_padded, self.group,
                     pad_row=cfg.rows_per_table, wire=wire)
-                pooled = _lookup_local_tables(params["tables"], idx_t)
+                pooled = self._lookup(params["tables"], idx_t)
                 logits = _forward_local(params, cfg, dense,
                                         self._exchange_pooled(pooled))
                 return self._mean_loss(_bce(logits, labels))
@@ -357,7 +557,7 @@ class DlrmModel:
         grads = _rebuild(params, torch.autograd.grad(loss,
                                                      tree_leaves(params)))
         if self.group is not None:
-            g_mlps = {"bot": grads["bot"], "top": grads["top"]}
+            g_mlps = _dense_part(grads)
             g_mlps = _rebuild(g_mlps, self._mean_dense_grads(
                 g_mlps, tree_leaves(g_mlps)))
             grads = {**grads, **g_mlps,
@@ -391,10 +591,11 @@ class DlrmModel:
         cfg = self.cfg
         idx_t = self._exchange_ids(idx)
         count("dlrm.lookups", idx_t.numel())
+        count("dlrm.bags", idx_t.shape[0] * self.local_tables)
         with annotate("dlrm.lookup"), torch.no_grad():
-            pooled = _lookup_local_tables(params["tables"], idx_t)
+            pooled = self._lookup(params["tables"], idx_t)
         pooled = pooled.detach().requires_grad_(True)
-        mlps = {"bot": params["bot"], "top": params["top"]}
+        mlps = _dense_part(params)
         pooled_all = self._exchange_pooled(pooled)
         with annotate("dlrm.dense_fwd"):
             loss = _bce(_forward_local(params, cfg, dense, pooled_all), labels)
@@ -409,23 +610,26 @@ class DlrmModel:
         """The dedup: each lookup's gradient row (its bag's row of
         ``g_pooled``, times ``scale`` where given) segment-summed by row id
         in the flat view of this rank's tables (:func:`dedup_sum`).  The ids
-        stay in their (B, T, nnz) order: a stable sort keeps each id's
+        stay in their (B, T, nnz) order (the per-feature layout: (B, L),
+        each lookup's bag read from that layout): a stable sort keeps each id's
         lookups in (b, k) order, as the reference's table-major
         ``_gather_row_updates`` orders them."""
         cfg = self.cfg
         with annotate("dlrm.dedup"), torch.no_grad():
             if self.group is not None:
                 g_pooled = g_pooled * (1.0 / self.n)
-            gidx = _global_ids(idx_t, cfg.rows_per_table)
-            return dedup_sum(gidx.reshape(-1, idx_t.shape[2]),
-                             g_pooled.reshape(-1, cfg.emb_dim).contiguous(),
-                             scale, self.local_tables * cfg.rows_per_table)
+            gidx = self._global_ids(idx_t)
+            g = g_pooled.reshape(-1, cfg.emb_dim).contiguous()
+            if not self._per_feature:
+                return dedup_sum(gidx.reshape(-1, idx_t.shape[2]), g, scale,
+                                 self.local_rows)
+            return dedup_sum(gidx, g, scale, self.local_rows, cfg.bag_sizes)
 
     def make_sparse_sgd_step(self, lr: float = 0.01):
         """Sparse SGD: only the gathered table rows change, by a K2 launch
         with the deduplicated ``-lr * g`` rows; dense layers take plain SGD.
         ``step(params, dense, idx, labels) -> (params, loss)``."""
-        R = self.local_tables * self.cfg.rows_per_table
+        R = self.local_rows
         sgd = Sgd(lr)
 
         def step(params, dense, idx, labels):
@@ -451,7 +655,7 @@ class DlrmModel:
         layers take dense Adagrad.  ``initial_accumulator`` only documents
         the state :meth:`init_adagrad_state` made.
         ``step(params, acc, dense, idx, labels) -> (params, acc, loss)``."""
-        R = self.local_tables * self.cfg.rows_per_table
+        R = self.local_rows
         adagrad = Adagrad(lr, initial_accumulator, eps)
 
         def step(params, acc, dense, idx, labels):
@@ -459,8 +663,7 @@ class DlrmModel:
                 loss, idx_t, g_pooled, mlps, g_mlps = self._sparse_fwd_bwd(
                     params, dense, idx, labels)
                 with annotate("dlrm.dense_update"):
-                    adagrad.update(mlps, g_mlps,
-                                   {"bot": acc["bot"], "top": acc["top"]})
+                    adagrad.update(mlps, g_mlps, _dense_part(acc))
                 rows, totals = self._row_updates(idx_t, g_pooled)
                 with annotate("dlrm.row_update"), torch.no_grad():
                     sparse_row_update(params["tables"].detach().view(R, -1),
@@ -485,6 +688,12 @@ class DlrmModel:
         out = x.new_empty((self.n * x.shape[0], *x.shape[1:]))
         dist.all_gather_into_tensor(out, x, group=self.group.pg)
         return out
+
+
+def _dense_part(tree):
+    """The dense layers of a parameter-shaped tree: the MLPs, then the
+    cross layers where the model has them."""
+    return {k: tree[k] for k in ("bot", "top", "cross") if k in tree}
 
 
 def _rebuild(tree, leaves):

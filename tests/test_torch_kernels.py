@@ -85,6 +85,7 @@ from param_tpu_torch.kernels.dedup import (
     CHUNK, GROUP, carried_runs, dedup_lanes, dedup_sum, dedup_sum_cuda,
     dedup_sum_plain,
 )
+from param_tpu_torch.kernels.emb_gather import bag_layout
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
 )
@@ -170,6 +171,9 @@ _K1_SHAPES = [
     ("headline", 1_000_000, 128, 4, 8192, 30, (1, 8, 32)),
     ("stage_b", 1_048_576, 128, 4, 8192, 32, (1, 8, 32)),
     ("basic_ops", 1000, 16, 4, 32, 8, (1, 1, 4)),
+    # DLRM-DCNv2's per-feature bags: 26 a sample of 8192, of 214 / 26 ids
+    # on average (the schedule's nnz)
+    ("dcnv2_multihot", 54_184_588, 128, 4, 8192 * 26, 9, (1, 8, 32)),
 ]
 
 
@@ -528,6 +532,154 @@ def test_dedup_sum_kernel_on_unaligned_and_empty_inputs(cuda_device):
                                       device=cuda_device),
                           torch.zeros((0, 8), device=cuda_device))
     assert rows.shape == (0,) and tot.shape == (0, 8)
+
+
+# DLRM-DCNv2's published bag sizes (port_bench's dlrm-dcnv2-mlperf) and
+# short per-feature layouts, one with an empty bag
+DCN_SIZES = [3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12,
+             100, 27, 10, 3, 1, 1]
+_MULTIHOT = [("dcnv2", 8192, DCN_SIZES), ("short", 5, [2, 0, 7, 1, 33]),
+             ("wide_bags", 300, [3, 1, 40, 64])]
+
+
+def _multihot_case(dev, dtype, dim, batch, sizes, rows=4096):
+    """A table scaled so that a bag's sum is ~1, (batch, sum(sizes)) ids
+    with a wrapping id and NaN ids planted in sample 1's longest bag and in
+    sample 2's last column, and weights."""
+    L = sum(sizes)
+    table, idx, w = _bags(rows, dim, batch, L)
+    table /= math.sqrt(max(sizes))
+    longest = int(np.argmax(sizes))
+    start = sum(sizes[:longest])
+    idx[0, start] = -3  # counts from the end
+    idx[1, start + sizes[longest] - 1] = rows + 1  # NaN
+    idx[2, L - 1] = -rows - 1  # NaN
+    t = torch.from_numpy(table).to(dev, dtype)
+    return t, torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+
+
+def _nan_bags(sizes):
+    """The bags _multihot_case plants a NaN id in."""
+    T = len(sizes)
+    last = max(t for t, n in enumerate(sizes) if n)
+    return {1 * T + int(np.argmax(sizes)), 2 * T + last}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch,sizes", _MULTIHOT,
+                         ids=[c[0] for c in _MULTIHOT])
+@pytest.mark.parametrize("dtype,dim", [(torch.float32, 128),
+                                       (torch.float32, 13),
+                                       (torch.bfloat16, 64)])
+def test_emb_gather_per_feature_bags_match_plain(cuda_device, name, batch,
+                                                 sizes, dtype, dim):
+    """K1 over per-feature bags (one launch, the B x L real ids) against
+    its plain version: each bag's sum, NaN bags where planted, the same
+    bits on two launches, one launch a call."""
+    t, i, w = _multihot_case(cuda_device, dtype, dim, batch, sizes)
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    nan = _nan_bags(sizes)
+    before = kernels.launch_counts["emb_gather"]
+    for weights in (None, w):
+        got = emb_gather_cuda(t, i, weights, sizes)
+        again = emb_gather_cuda(t, i, weights, sizes)
+        want = emb_gather_plain(t, i, weights, sizes).float()
+        assert got.shape == (batch * len(sizes), dim)
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5,
+                                   equal_nan=True)
+        bad = got.isnan().any(-1).nonzero().reshape(-1).tolist()
+        assert set(bad) == nan
+        assert torch.equal(_bits(got), _bits(again))
+    assert kernels.launch_counts["emb_gather"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps,rows", [(k, u) for k in WARPS_PER_BAG
+                                        for u in ROWS_IN_FLIGHT])
+def test_emb_gather_per_feature_forced_schedules_match_plain(cuda_device,
+                                                             warps, rows):
+    t, i, w = _multihot_case(cuda_device, torch.float32, 128, 64,
+                             [3, 0, 41, 1, 100])
+    with forced_schedule(warps, rows):
+        got = emb_gather_cuda(t, i, w, [3, 0, 41, 1, 100])
+    torch.testing.assert_close(
+        got, emb_gather_plain(t, i, w, [3, 0, 41, 1, 100]), rtol=1e-5,
+        atol=1e-5, equal_nan=True)
+
+
+def _multihot_dedup_ids(batch, sizes, rows_of, seed=0):
+    """(batch, sum(sizes)) int32 ids in the flat view of tables of
+    ``rows_of`` rows, each feature's uniform over its table, and the drop
+    marker (the rows in all)."""
+    rng = np.random.default_rng(seed)
+    starts = np.cumsum([0] + list(rows_of[:-1]))
+    cols = [rng.integers(0, r, (batch, n)) + s
+            for r, n, s in zip(rows_of, sizes, starts)]
+    return np.concatenate(cols, 1).astype(np.int32), int(sum(rows_of))
+
+
+# the DLRM-DCNv2 cell's rows (five 40M tables capped at 10M), and short
+# tables of 3 to 40 rows, whose few rows take long runs
+DCN_ROWS = [10_000_000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
+            10_000_000, 3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14,
+            10_000_000, 10_000_000, 10_000_000, 590152, 12973, 108, 36]
+_MULTIHOT_DEDUP = [("dcnv2", 8192, DCN_SIZES, DCN_ROWS, 128),
+                   ("short", 700, [2, 0, 7, 1, 33], [3, 5, 40, 4, 9], 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, -0.01])
+@pytest.mark.parametrize("name,batch,sizes,rows_of,dim", _MULTIHOT_DEDUP,
+                         ids=[c[0] for c in _MULTIHOT_DEDUP])
+def test_dedup_sum_per_feature_bags_match_plain(cuda_device, name, batch,
+                                                sizes, rows_of, dim, scale):
+    """The dedup over per-feature bags (each lookup's bag read from the
+    layout) against its plain version in f64: rows exactly, sums within
+    rtol 1e-4 plus 1e-6 of their terms' summed magnitudes, a zero tail, the
+    same bits on two calls."""
+    ids, R = _multihot_dedup_ids(batch, sizes, rows_of)
+    T = len(sizes)
+    g = np.random.default_rng(1).standard_normal(
+        (batch * T, dim)).astype(np.float32)
+    i, gd = torch.from_numpy(ids).to(cuda_device), torch.from_numpy(g).to(
+        cuda_device)
+    rows, tot = dedup_sum(i, gd, scale, R, sizes)
+    rows2, tot2 = dedup_sum_cuda(i, gd, scale, R, sizes)
+    want_rows, want = dedup_sum_plain(i, gd.double(), scale, R, sizes)
+    mag = dedup_sum_plain(i, gd.double().abs(), None if scale is None
+                          else abs(scale), R, sizes)[1]
+    torch.cuda.synchronize()
+    u = int((want_rows != R).sum())
+    assert u == np.unique(ids).size
+    assert torch.equal(rows, want_rows)
+    err = (tot[:u].double() - want[:u]).abs()
+    bound = 1e-4 * want[:u].abs() + 1e-6 * mag[:u]
+    assert (err <= bound).all(), float((err - bound).max())
+    assert not tot[u:].any()
+    assert torch.equal(rows, rows2) and torch.equal(tot, tot2)
+
+
+@pytest.mark.cuda
+def test_dedup_sum_per_feature_bags_do_not_wait_for_the_card(cuda_device):
+    """Neither the per-feature K1 launch nor the dedup synchronises with
+    the host once the layout is on the card (CUDA's sync debug mode raises
+    on one)."""
+    sizes, rows_of = [2, 0, 7, 1, 33], [3, 5, 40, 4, 9]
+    ids, R = _multihot_dedup_ids(700, sizes, rows_of)
+    i = torch.from_numpy(ids).to(cuda_device)
+    g = torch.randn((700 * len(sizes), 64), device=cuda_device)
+    table = torch.randn((R, 64), device=cuda_device)
+    bag_layout(sizes, cuda_device)  # the one copy from the host
+    dedup_sum(i, g, -0.01, R, sizes)  # built and loaded
+    emb_gather_cuda(table, i, None, sizes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dedup_sum(i, g, -0.01, R, sizes)
+        emb_gather_cuda(table, i, None, sizes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def _max_err_tol(got, want):
