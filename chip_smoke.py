@@ -203,7 +203,8 @@ Phases (any failure exits non-zero):
      per-region bench) and with ``--optimizer sparse_adagrad``, all 21
      reference rows finite and positive and a ``QPS:`` line; its
      ``--print-comms`` pattern.  The launch counts are reset before each
-     sharded run and read after: K1 and K2 must have launched.  With two or
+     sharded run and read after: K1 and K2 must have launched, and the dot
+     interaction's kernels once each way a step.  With two or
      more cards, ``cli.dlrm`` under torchrun over all of them:
      ``--train-batches 5`` for each optimizer (rank 0's first loss equal to
      phase 6's within rtol 1e-5) and the default bench.
@@ -374,7 +375,19 @@ Phases (any failure exits non-zero):
      widths, bag sizes and batch (tables capped at 1M rows), the launch
      counts reset just before four steps: one K1, one dedup and one K2
      Adagrad launch a step and no other kernel of the port, or it fails.
-Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22, 25, 27) use CUDA events after a
+ 28. The dot interaction (``kernels/interaction.py``, one kernel each way)
+     at the shapes of the cells that run it (``tb26.sgd.zipf``: batch
+     32768, 27 rows of 128; ``rm8x1m.adagrad.uniform``: 16384, 9 of 64)
+     and of wider models (32768, 41 of 256; 32768, 33 of 128: the tiled
+     backward),
+     f32: both kernels against their plain versions in f64 (within 1e-5,
+     or n 2^-24 for a sum of n > 167 terms, of the terms' summed
+     magnitudes; the bottom output copied bitwise), the
+     same bits on two calls; each way timed beside its plain version and
+     today's torch composition (concatenation, ``bmm``, the triangle's
+     gather, and its autograd backward, issued eagerly; its device time by
+     kernel) and the byte bound (z and the output read or written once).
+Timings (phases 2-4, 7-9, 11, 13, 14, 17, 19, 22, 25, 27, 28) use CUDA events after a
 warm-up and report the median of several windows with the spread (min-max): the
 kernel and the library call replayed from a CUDA graph (the card's time,
 without the host's cost of issuing the calls; the kernel is also timed
@@ -800,6 +813,12 @@ def sharded_dlrm(smi: str, breakdown) -> dict:
                 or delta["dedup_sum"] <= 0)):
             fail(f"phase 20 sharded {opt}: K1 / K2 / the dedup not launched "
                  f"({delta})")
+        if (delta["dot_interaction"], delta["dot_interaction_bwd"]) != (
+                len(batches), len(batches)):
+            fail(f"phase 20 sharded {opt}: the dot interaction's kernels "
+                 f"launched {delta['dot_interaction']} / "
+                 f"{delta['dot_interaction_bwd']} times in {len(batches)} "
+                 f"steps, not once each way a step")
         err = max(abs(a - b) for a, b in zip(got_losses, want_losses))
         if not all(math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-6)
                    for a, b in zip(got_losses, want_losses)):
@@ -3116,6 +3135,137 @@ def multihot_tier(smi: str, iters: int = 50) -> dict:
     return rec
 
 
+# (B, m, D) of the dot interaction in the cells that run it:
+# tb26.sgd.zipf (26 features of 128, batch 32768) and
+# rm8x1m.adagrad.uniform (8 of 64, batch 16384); then a wider model, 40
+# features of 256 (the forward in two chunks of columns, the backward
+# tiled: 41 rows), and one feature past the backward's 32 rows
+INTERACTION_CELLS = {"tb26": (32768, 27, 128), "rm8x1m": (16384, 9, 64),
+                     "wide": (32768, 41, 256), "m33": (32768, 33, 128)}
+
+
+def interaction_tier(smi: str, iters: int = 50) -> dict:
+    """Phase 28: the dot interaction's kernels (``kernels/interaction.py``)
+    at the dot cells' shapes (module docstring)."""
+    import torch
+
+    from param_tpu_torch.kernels.interaction import (
+        dot_interaction_bwd_cuda, dot_interaction_bwd_plain,
+        dot_interaction_cuda, dot_interaction_plain,
+    )
+    from param_tpu_torch.utils.chip import bound_ms
+    from param_tpu_torch.utils.profiler import kernel_times
+    from param_tpu_torch.utils.timer import time_samples
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def timed(fn, n, graph=True):
+        t = time_samples(fn, n, reps=5, graph=graph)
+        return dict(ms=statistics.median(t), min=min(t), max=max(t))
+
+    def fmt(t):
+        return f"{t['ms']:.4f} ms ({t['min']:.4f}-{t['max']:.4f})"
+
+    def worst(got, want, mag, terms):
+        """Largest excess of |got - want| over 1e-5, or ``terms`` 2^-24
+        where more, of the summed magnitudes (tests/test_torch_kernels.py's
+        bound), and the largest error."""
+        err = (got.double() - want).abs()
+        bound = mag * max(1e-5, terms * 2.0 ** -24)
+        return (float((err - bound).max().item()), float(err.max().item()))
+
+    out = {}
+    for cell, (B, m, D) in INTERACTION_CELLS.items():
+        P = m * (m - 1) // 2
+        bot = torch.randn((B, D), generator=gen, device=dev) * D ** -0.5
+        pooled = torch.randn((B, m - 1, D), generator=gen,
+                             device=dev) * D ** -0.5
+        grad = torch.randn((B, D + P), generator=gen, device=dev)
+        got = dot_interaction_cuda(bot, pooled)
+        g_bot, g_pooled = dot_interaction_bwd_cuda(grad, bot, pooled)
+        same = (torch.equal(got, dot_interaction_cuda(bot, pooled))
+                and all(torch.equal(a, b) for a, b in zip(
+                    (g_bot, g_pooled),
+                    dot_interaction_bwd_cuda(grad, bot, pooled))))
+        b64, p64, g64 = bot.double(), pooled.double(), grad.double()
+        over_f, err_f = worst(got[:, D:], dot_interaction_plain(b64, p64)[
+            :, D:], dot_interaction_plain(b64.abs(), p64.abs())[:, D:], D)
+        copied = torch.equal(got[:, :D], bot)
+        want = dot_interaction_bwd_plain(g64, b64, p64)
+        mag = dot_interaction_bwd_plain(g64.abs(), b64.abs(), p64.abs())
+        res = [worst(a, w, mg, m + 1) for a, w, mg in zip((g_bot, g_pooled),
+                                                           want, mag)]
+        over_b, err_b = max(r[0] for r in res), max(r[1] for r in res)
+        del got, g_bot, g_pooled, b64, p64, g64, want, mag
+        torch.cuda.empty_cache()
+        if not (same and copied and over_f <= 0 and over_b <= 0):
+            fail(f"phase 28 interaction {cell}: same bits on two calls "
+                 f"{same}, bottom output copied {copied}, forward / "
+                 f"backward over their bounds by {over_f:.3e} / "
+                 f"{over_b:.3e}")
+        # today's composition: the plain forward with autograd, and its
+        # backward (the triangle gather's index backward, two bmm's, the
+        # concatenation's slices)
+        bt = bot.clone().requires_grad_(True)
+        pt = pooled.clone().requires_grad_(True)
+        comp = dot_interaction_plain(bt, pt)
+
+        def comp_fwd():
+            return dot_interaction_plain(bt, pt)
+
+        def comp_bwd():
+            return torch.autograd.grad(comp, (bt, pt), grad,
+                                       retain_graph=True)
+
+        shape = (f"bot_out ({B}, {D}), pooled ({B}, {m - 1}, {D}) f32, "
+                 f"{P} pairs")
+        fwd_bytes = 4 * (B * m * D + B * (D + P))
+        bwd_bytes = 4 * (B * (D + P) + 2 * B * m * D)
+        recs = {}
+        for way, kernel, op, plain, composition, nbytes, flops in (
+                ("fwd", lambda: dot_interaction_cuda(bot, pooled),
+                 lambda: torch.ops.param_tpu_torch.dot_interaction.default(
+                     bot, pooled),
+                 lambda: dot_interaction_plain(bot, pooled), comp_fwd,
+                 fwd_bytes, 2 * B * P * D),
+                ("bwd", lambda: dot_interaction_bwd_cuda(grad, bot, pooled),
+                 lambda: torch.ops.param_tpu_torch.dot_interaction_bwd.default(
+                     grad, bot, pooled),
+                 lambda: dot_interaction_bwd_plain(grad, bot, pooled),
+                 comp_bwd, bwd_bytes, 4 * B * P * D)):
+            b_ms, b_by = bound_ms(nbytes, flops)
+            rec = dict(t_kernel=timed(kernel, iters),
+                       t_kernel_eager=timed(kernel, iters, graph=False),
+                       t_op_eager=timed(op, iters, graph=False),
+                       t_plain=timed(plain, 10, graph=False),
+                       t_library=timed(composition, 10, graph=False))
+            rec.update(ms=rec["t_kernel"]["ms"], plain_ms=rec["t_plain"]["ms"],
+                       library_ms=rec["t_library"]["ms"], bound_ms=b_ms,
+                       bound_by=b_by, bytes=nbytes, flops=flops,
+                       shape=shape + (" and its gradient" if way == "bwd"
+                                      else ""),
+                       max_abs_err=err_f if way == "fwd" else err_b,
+                       share_of_bound=100.0 * b_ms / rec["t_kernel"]["ms"],
+                       composition_kernels=kernel_times(composition)[1])
+            recs[way] = rec
+            say(f"phase 28 interaction {cell} {way}: {rec['shape']} | "
+                f"kernel {fmt(rec['t_kernel'])} [issued eagerly "
+                f"{fmt(rec['t_kernel_eager'])}, through the op "
+                f"{fmt(rec['t_op_eager'])}] plain {fmt(rec['t_plain'])} "
+                f"torch composition (eager) {fmt(rec['t_library'])} | bound "
+                f"{b_ms:.4f} ms ({b_by}; {rec['share_of_bound']:.1f}%) | "
+                f"max abs err {rec['max_abs_err']:.3e}, two calls bitwise "
+                f"equal | composition by kernel " + "; ".join(
+                    f"{k} {v['ms']:.4f} ({v['launches']:g})" for k, v in
+                    list(rec["composition_kernels"].items())[:6])
+                + f" | {smi}")
+        out[cell] = recs
+        del bot, pooled, grad, bt, pt, comp
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(out_path=None) -> int:
     try:
         import torch
@@ -5053,6 +5203,10 @@ def main(out_path=None) -> int:
     mh27 = multihot_tier(smi)
     result["phases"]["multihot"] = mh27
 
+    # ---------------------------------------------------------------- 28
+    dot28 = interaction_tier(smi)
+    result["phases"]["interaction"] = dot28
+
     # ---------------------------------------------------------------- report
     def entry(name, source, replaces, n_launches, rec):
         return {"name": name, "route": "cuda", "source": source,
@@ -5180,6 +5334,22 @@ def main(out_path=None) -> int:
         entry("dedup_sum, sharded DLRM (dedup)", src + "dedup.cu",
               "param_tpu/ops/sparse_update.py:44 (XLA)",
               main20["dedup_sum"], dedup["dlrm_f32"]),
+        entry("dot_interaction forward, sharded DLRM, tb26.sgd.zipf's "
+              "shape", src + "interaction.cu",
+              "param_tpu/models/dlrm.py:105 (XLA)",
+              main20["dot_interaction"], dot28["tb26"]["fwd"]),
+        entry("dot_interaction backward, sharded DLRM, tb26.sgd.zipf's "
+              "shape", src + "interaction.cu",
+              "param_tpu/models/dlrm.py:105 (XLA)",
+              main20["dot_interaction_bwd"], dot28["tb26"]["bwd"]),
+        entry("dot_interaction forward, sharded DLRM, "
+              "rm8x1m.adagrad.uniform's shape", src + "interaction.cu",
+              "param_tpu/models/dlrm.py:105 (XLA)",
+              main20["dot_interaction"], dot28["rm8x1m"]["fwd"]),
+        entry("dot_interaction backward, sharded DLRM, "
+              "rm8x1m.adagrad.uniform's shape", src + "interaction.cu",
+              "param_tpu/models/dlrm.py:105 (XLA)",
+              main20["dot_interaction_bwd"], dot28["rm8x1m"]["bwd"]),
         entry("flash attention forward, parallel tier: ring attention, tp "
               "and pp steps (K6), wgmma path", src + "flash_fwd.cu",
               "param_tpu/ops/attention.py:251", k6_par_launches,

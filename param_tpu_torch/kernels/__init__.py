@@ -6,6 +6,8 @@
 - :mod:`.dedup` (``csrc/dedup.cu``): the sparse step's segment sum of the
   pooled gradient by row id, in sorted order (no TPU kernel: the JAX
   package leaves its dedup to XLA).
+- :mod:`.interaction` (``csrc/interaction.cu``): the DLRM dot interaction,
+  one kernel each way (no TPU kernel: the JAX package leaves it to XLA).
 - K3 and K4 :mod:`.gemm` (``csrc/gemm.cu``, ``csrc/hopper.cuh``): tiled
   GEMM (wgmma / TMA for bf16 and f16, mma.sync where TMA cannot read the
   rows, an FMA core for f32; split K for small grids); stacked GEMMs
@@ -33,10 +35,11 @@ Each wrapper adds one to ``launch_counts[<kernel>]`` where it launches its
 CUDA kernel and nowhere else, so a run can show which kernels its path went
 through; kernels with several paths (or routes) also count
 ``<kernel>_<path>``.
-Importing this package builds nothing; it registers K1, K2 and the dedup
-as the PyTorch ops ``param_tpu_torch::emb_gather``, ``param_tpu_torch::
-sparse_update`` and ``param_tpu_torch::dedup_sum`` (a generated
-execution-trace replay script imports it for that).
+Importing this package builds nothing; it registers K1, K2, the dedup and
+the interaction as the PyTorch ops ``param_tpu_torch::emb_gather``,
+``param_tpu_torch::sparse_update``, ``param_tpu_torch::dedup_sum`` and
+``param_tpu_torch::dot_interaction`` / ``::dot_interaction_bwd`` (a
+generated execution-trace replay script imports it for that).
 """
 
 launch_counts = {
@@ -44,6 +47,10 @@ launch_counts = {
     "sparse_update_sgd": 0,
     "sparse_update_adagrad": 0,
     "dedup_sum": 0,
+    "dot_interaction": 0,
+    "dot_interaction_tiled": 0,
+    "dot_interaction_bwd": 0,
+    "dot_interaction_bwd_tiled": 0,
     "gemm_f32": 0,
     "gemm_bf16": 0,
     "gemm_f16": 0,
@@ -84,7 +91,9 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-# registers param_tpu_torch::emb_gather, ::sparse_update and ::dedup_sum
+# registers param_tpu_torch::emb_gather, ::sparse_update, ::dedup_sum,
+# ::dot_interaction and ::dot_interaction_bwd
 from param_tpu_torch.kernels import emb_gather as _k1  # noqa: E402,F401
 from param_tpu_torch.kernels import sparse_update as _k2  # noqa: E402,F401
 from param_tpu_torch.kernels import dedup as _dedup  # noqa: E402,F401
+from param_tpu_torch.kernels import interaction as _dot  # noqa: E402,F401

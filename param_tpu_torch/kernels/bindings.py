@@ -65,6 +65,11 @@ _SIGNATURES = {
         "dedup_sum_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                           _I, _P, _P, _P, _P, _P, _P, _I, _P],
     },
+    "interaction": {
+        "dot_interaction_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "dot_interaction_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _P],
+    },
     "coalesce": {
         "desc_fetch_smem": [_I, _I, _I],
         "coalesced_bag_smem": [_I, _I, _I, _I],

@@ -34,6 +34,7 @@ SOURCES = {
     "ring": "ring.cu",
     "coalesce": "coalesce.cu",
     "dedup": "dedup.cu",
+    "interaction": "interaction.cu",
 }
 
 NVCC_FLAGS = [

@@ -11,8 +11,10 @@ steps return new, donated arrays).
 
 The embedding lookup of all tables is one K1 launch over the flat (T*E, D)
 view of the stacked tables, with each table's ids offset by t*E.  The
-sparse steps take the pooled-embedding gradient from autograd on a
-detached ``pooled`` tensor (the reference's ``jax.vjp`` of the dense half),
+dot interaction is one kernel each way on the card
+(:class:`_DotInteraction`, ``kernels/interaction.py``).  The sparse steps
+take the pooled-embedding gradient from autograd on a detached
+``pooled`` tensor (the reference's ``jax.vjp`` of the dense half),
 segment-sum it by row id (:func:`dedup_sum`: each lookup's row is its
 bag's row of the pooled gradient) and apply one K2 launch to the flat table
 view.
@@ -67,9 +69,10 @@ second ``dlrm.interaction``), ``dlrm.dense_update``, ``dlrm.dedup``
 (:func:`dedup_sum`) and ``dlrm.row_update`` (K2); under each DCN
 ``dlrm.interaction``, one ``dlrm.cross`` a cross layer.  Counters:
 ``dlrm.lookups`` (ids looked up), ``dlrm.bags`` (bags looked up),
-``dlrm.unique_rows`` (the dedup's runs) and ``dlrm.dedup_carried_runs``
-(runs that cross the end of one of the dedup kernel's chunks).  Without a
-profiler they do nothing.
+``dlrm.unique_rows`` (the dedup's runs), ``dlrm.dedup_carried_runs``
+(runs that cross the end of one of the dedup kernel's chunks) and
+``dlrm.interaction_rows`` (samples through the dot interaction's forward
+kernel).  Without a profiler they do nothing.
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from param_tpu_torch.kernels.interaction import (
+    dot_interaction_bwd_plain, dot_interaction_plain,
+)
 from param_tpu_torch.models.parallel import all_reduce_mean
 from param_tpu_torch.ops.embedding import embedding_bag
 from param_tpu_torch.ops.mlp import (
@@ -229,6 +235,34 @@ def init_cross(generator: torch.Generator, width: int, rank: int,
     return out
 
 
+class _DotInteraction(torch.autograd.Function):
+    """The dot interaction, its backward inside a ``dlrm.interaction``
+    span.  On the card it calls the ops ``param_tpu_torch::
+    dot_interaction`` / ``::dot_interaction_bwd`` (one kernel each way,
+    :mod:`~param_tpu_torch.kernels.interaction`); on the CPU it runs their
+    plain versions itself, so that a CPU execution-trace capture holds the
+    plain versions' aten ops (their device markers included) and not the
+    ops.  It keeps ``bot_out`` and ``pooled``, which the backward reads
+    again in place of z."""
+
+    @staticmethod
+    def forward(ctx, bot_out, pooled):
+        ctx.save_for_backward(bot_out, pooled)
+        if bot_out.is_cuda:
+            return torch.ops.param_tpu_torch.dot_interaction.default(
+                bot_out, pooled)
+        return dot_interaction_plain(bot_out, pooled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bot_out, pooled = ctx.saved_tensors
+        with annotate("dlrm.interaction"):
+            if grad.is_cuda:
+                return torch.ops.param_tpu_torch.dot_interaction_bwd.default(
+                    grad, bot_out, pooled)
+            return dot_interaction_bwd_plain(grad, bot_out, pooled)
+
+
 def dot_interaction(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
     """Pairwise-dot feature interaction.
 
@@ -236,13 +270,7 @@ def dot_interaction(bot_out: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor
     strict lower triangle in row-major order, as ``jnp.tril_indices(m,
     k=-1)`` gives them."""
     with annotate("dlrm.interaction"):
-        z = torch.cat([bot_out[:, None, :], pooled], dim=1)  # (B, m, D)
-        zz = torch.bmm(z, z.transpose(1, 2))
-        m = z.shape[1]
-        li, lj = torch.tril_indices(m, m, offset=-1, device=z.device)
-        out = torch.cat([bot_out, zz[:, li, lj]], dim=1)
-    annotate_backward("dlrm.interaction", out, z)
-    return out
+        return _DotInteraction.apply(bot_out, pooled)
 
 
 class _LowRankCross(torch.autograd.Function):

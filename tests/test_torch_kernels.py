@@ -31,7 +31,14 @@ copies equal to the plain planning stage's counts, and its output bitwise
 equal from call to call.  The dedup's segment sum (``kernels/dedup.py``)
 rtol 1e-4 plus 1e-6 of each sum's summed magnitudes (up to 30000 terms
 in another order), its rows and counters exactly, its output bitwise equal
-from call to call.  Decode
+from call to call.  The dot interaction (``kernels/interaction.py``)
+against its plain version in f64: each dot and gradient within 1e-5 of
+its terms' summed magnitudes, or n 2^-24 of them for a sum of n > 167
+terms (a chain of n f32 roundings of 2^-24 each: up to 128 products,
+or 256 at D 256, or m + 1 gradient terms), bf16 and f16 also within 2^-8
+of its value (one rounding to bf16, 2^-9, doubled; f16's is 2^-11); the
+bottom output copied bitwise; the same bits from call to call, and from
+the tiled kernels where both pairs take the shape.  Decode
 attention on the card (bf16 cache contracted with f32 accumulation)
 against the reference's output on stored inputs and against the f32
 product of the upcast operands: atol 1e-4, rtol 1e-3 (one bf16 rounding of
@@ -86,6 +93,11 @@ from param_tpu_torch.kernels.dedup import (
     dedup_sum_plain,
 )
 from param_tpu_torch.kernels.emb_gather import bag_layout
+from param_tpu_torch.kernels.interaction import (
+    MAX_ROWS, MAX_SMEM, dot_interaction_bwd_cuda, dot_interaction_bwd_plain,
+    dot_interaction_cuda, dot_interaction_plain, fwd_smem_bytes,
+    interaction_lanes, interaction_tiled,
+)
 from param_tpu_torch.kernels.sparse_update import (
     sparse_update_cuda, sparse_update_plain,
 )
@@ -2549,3 +2561,275 @@ def test_decode_attention_on_the_card_matches_the_reference(cuda_device):
     assert got.dtype == torch.float32 and q.dtype == k.dtype == torch.bfloat16
     np.testing.assert_allclose(got.cpu().numpy(), f["out"], rtol=1e-3,
                                atol=1e-4)
+
+
+# ------------------------------------------------------ the dot interaction
+# (B, m, D): the benchmark cells' shapes (tb26.sgd.zipf, then
+# rm8x1m.adagrad.uniform), then ragged ones: B no multiple of a block's
+# samples (the forward's 2, the backward's 4), the smallest triangle, a
+# width no multiple of 4 (one-element accesses), the bottom output alone
+# (m = 1), the most rows the backward holds in registers; then wider or
+# longer ones: one row past that (the tiled backward), rows in two of the
+# forward's chunks of 128 columns (and the backward's blocks of 128
+# columns), a forward block past 48 KiB of shared memory and one near its
+# 227 KiB, the tiled forward past that, and ragged ones
+INTERACTION_SHAPES = [(32768, 27, 128), (16384, 9, 64), (1001, 27, 128),
+                      (333, 9, 64), (37, 2, 16), (13, 17, 30), (5, 1, 8),
+                      (3, 32, 100), (1001, 33, 128), (4096, 27, 256),
+                      (1001, 65, 64), (7, 41, 130), (5, 1, 200),
+                      (3, 140, 100), (3, 200, 130)]
+INTERACTION_BF16 = [(32768, 27, 128), (16384, 9, 64), (1001, 27, 128),
+                    (13, 17, 30), (1001, 33, 128), (1001, 27, 256),
+                    (3, 200, 130)]
+INTERACTION_F16 = [(1001, 27, 128), (13, 17, 30), (1001, 65, 64)]
+# shapes both kernels of each way take: the tiled ones give the others' bits
+INTERACTION_BOTH = [(32768, 27, 128), (16384, 9, 64), (13, 17, 30),
+                    (5, 1, 8), (3, 32, 100), (1001, 27, 256), (5, 1, 200)]
+
+
+@pytest.mark.parametrize("dim,lanes", [(128, 32), (100, 32), (64, 16),
+                                       (33, 16), (32, 8), (16, 8), (1, 8),
+                                       (256, 32)])
+def test_interaction_lanes(dim, lanes):
+    assert interaction_lanes(dim) == lanes
+
+
+@pytest.mark.parametrize("m,dim,fwd,bwd", [
+    (27, 128, False, False), (9, 64, False, False),
+    (MAX_ROWS, 128, False, False), (MAX_ROWS + 1, 64, False, True),
+    (27, 256, False, False), (65, 256, False, True),
+    (140, 100, False, True), (144, 128, False, True),
+    (145, 128, True, True), (200, 130, True, True), (300, 8, True, True)])
+def test_interaction_tiled(m, dim, fwd, bwd):
+    """The tiled forward where the other's block would want more than
+    MAX_SMEM (144 rows of 128 columns take 229,824 bytes, 145 take
+    235,072), the tiled backward past MAX_ROWS."""
+    assert interaction_tiled(m, dim) == (fwd, bwd)
+    assert (fwd_smem_bytes(m, dim) > MAX_SMEM) == fwd
+
+
+def test_interaction_kernels_refuse_another_dtype():
+    """A dtype they do not take, or two dtypes: refused before any build or
+    launch."""
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        dot_interaction_cuda(torch.zeros(2, 8, dtype=torch.float64),
+                             torch.zeros(2, 1, 8, dtype=torch.float64))
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        dot_interaction_bwd_cuda(torch.zeros(2, 9),
+                                 torch.zeros(2, 8, dtype=torch.float16),
+                                 torch.zeros(2, 1, 8))
+
+
+def _interaction_inputs(shape, dtype, dev, seed=0):
+    """bot_out, pooled (rows of norm ~1) and an output gradient."""
+    B, m, D = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bot = torch.randn((B, D), generator=gen, device=dev) * D ** -0.5
+    pooled = torch.randn((B, m - 1, D), generator=gen, device=dev) * D ** -0.5
+    grad = torch.randn((B, D + m * (m - 1) // 2), generator=gen, device=dev)
+    return bot.to(dtype), pooled.to(dtype), grad.to(dtype)
+
+
+def assert_interaction_close(got, want, mag, dtype, terms):
+    """|got - want| within 1e-5, or ``terms`` 2^-24 where more, of the
+    terms' summed magnitudes ``mag``, and for bf16 and f16 2^-8 of |want|
+    besides (module notes)."""
+    if not want.numel():  # no pairs (m = 1)
+        return
+    bound = mag * max(1e-5, terms * 2.0 ** -24)
+    if dtype != torch.float32:
+        bound = bound + want.abs() * 2.0 ** -8
+    over = ((got.double() - want).abs() - bound).max().item()
+    assert over <= 0, f"over its bound by {over:.3e}"
+
+
+def _same_bits(a, b):
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+def _check_interaction(bot, pooled, grad):
+    """Both kernels against the plain versions in f64, the same bits on two
+    calls, one launch a call each way (of the tiled pair where the shape
+    takes it), ``dlrm.interaction_rows`` the batch."""
+    dtype, D = bot.dtype, bot.shape[1]
+    m = pooled.shape[1] + 1
+    tiled = interaction_tiled(m, D)
+    before = dict(kernels.launch_counts)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiler.reset()
+        out = dot_interaction_cuda(bot, pooled)
+        counters = profiler.counter_totals()
+    assert kernels.launch_counts["dot_interaction"] == \
+        before["dot_interaction"] + 1
+    g_bot, g_pooled = dot_interaction_bwd_cuda(grad, bot, pooled)
+    assert kernels.launch_counts["dot_interaction_bwd"] == \
+        before["dot_interaction_bwd"] + 1
+    for k, t in zip(("dot_interaction_tiled", "dot_interaction_bwd_tiled"),
+                    tiled):
+        assert kernels.launch_counts[k] == before[k] + t, k
+    out2 = dot_interaction_cuda(bot, pooled)
+    g_bot2, g_pooled2 = dot_interaction_bwd_cuda(grad, bot, pooled)
+    torch.cuda.synchronize()
+    assert counters == {"dlrm.interaction_rows": bot.shape[0]}
+    assert _same_bits(out, out2) and _same_bits(g_bot, g_bot2) and \
+        _same_bits(g_pooled, g_pooled2)
+    assert g_bot.is_contiguous() and g_pooled.is_contiguous()
+    assert _same_bits(out[:, :D].contiguous(), bot.contiguous())
+    b, p, g = bot.double(), pooled.double(), grad.double()
+    assert_interaction_close(out[:, D:], dot_interaction_plain(b, p)[:, D:],
+                             dot_interaction_plain(b.abs(), p.abs())[:, D:],
+                             dtype, D)
+    del out, out2
+    want = dot_interaction_bwd_plain(g, b, p)
+    mag = dot_interaction_bwd_plain(g.abs(), b.abs(), p.abs())
+    for got, w, mg in zip((g_bot, g_pooled), want, mag, strict=True):
+        assert got.dtype == dtype and got.shape == w.shape
+        assert_interaction_close(got, w, mg, dtype, m + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INTERACTION_SHAPES)
+def test_dot_interaction_kernels_match_plain(cuda_device, shape):
+    _check_interaction(*_interaction_inputs(shape, torch.float32,
+                                            cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INTERACTION_BF16)
+def test_dot_interaction_kernels_match_plain_bf16(cuda_device, shape):
+    _check_interaction(*_interaction_inputs(shape, torch.bfloat16,
+                                            cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INTERACTION_F16)
+def test_dot_interaction_kernels_match_plain_f16(cuda_device, shape):
+    _check_interaction(*_interaction_inputs(shape, torch.float16,
+                                            cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INTERACTION_BOTH)
+def test_dot_interaction_tiled_kernels_give_the_others_bits(cuda_device,
+                                                            shape, dtype):
+    """Where both kernels of a way take the shape, the tiled ones sum each
+    dot and gradient in the same chains as the others: the same bits, and
+    one launch of the tiled kernel each way."""
+    bot, pooled, grad = _interaction_inputs(shape, dtype, cuda_device,
+                                            seed=7)
+    before = dict(kernels.launch_counts)
+    assert _same_bits(dot_interaction_cuda(bot, pooled, tiled=True),
+                      dot_interaction_cuda(bot, pooled, tiled=False))
+    for a, b in zip(dot_interaction_bwd_cuda(grad, bot, pooled, tiled=True),
+                    dot_interaction_bwd_cuda(grad, bot, pooled, tiled=False),
+                    strict=True):
+        assert _same_bits(a, b)
+    for k in ("dot_interaction_tiled", "dot_interaction_bwd_tiled"):
+        assert kernels.launch_counts[k] == before[k] + 1, k
+
+
+@pytest.mark.cuda
+def test_dot_interaction_kernels_give_the_compositions_bits(cuda_device):
+    """In f32 at ``tb26.sgd.zipf``'s shape the kernels sum in the order of
+    the GEMMs cuBLAS picks there (one FMA chain over the contracted index):
+    the forward gives the concatenation, ``bmm`` and gather's bits, the
+    backward autograd's of them, what the benchmark's plain f32 reference
+    computes.  (At (9, 64) products cuBLAS takes a kernel that sums in
+    another order.)"""
+    bot, pooled, grad = _interaction_inputs(INTERACTION_SHAPES[0],
+                                            torch.float32, cuda_device,
+                                            seed=5)
+    want = dot_interaction_plain(bot, pooled)
+    got = dot_interaction_cuda(bot, pooled)
+    assert (got != want).sum().item() == 0
+    b = bot.clone().requires_grad_(True)
+    p = pooled.clone().requires_grad_(True)
+    want = torch.autograd.grad(dot_interaction_plain(b, p), (b, p), grad)
+    for g, w in zip(dot_interaction_bwd_cuda(grad, bot, pooled), want):
+        assert (g != w).sum().item() == 0
+
+
+@pytest.mark.cuda
+def test_dot_interaction_kernels_on_views_and_unaligned_rows(cuda_device):
+    """A non-contiguous ``pooled`` (made contiguous by the wrapper) gives
+    the contiguous input's bits; rows 4 bytes off a 16-byte boundary take
+    the one-element accesses, within the same bounds."""
+    bot, pooled, grad = _interaction_inputs((1001, 27, 128), torch.float32,
+                                            cuda_device, seed=3)
+    view = pooled.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    assert _same_bits(dot_interaction_cuda(bot, view),
+                      dot_interaction_cuda(bot, pooled))
+    for a, b in zip(dot_interaction_bwd_cuda(grad, bot, view),
+                    dot_interaction_bwd_cuda(grad, bot, pooled)):
+        assert _same_bits(a, b)
+    buf = torch.empty(pooled.numel() + 1, device=cuda_device)
+    off = buf[1:].view(pooled.shape)
+    off.copy_(pooled)
+    assert off.data_ptr() % 16
+    _check_interaction(bot, off, grad)
+
+
+@pytest.mark.cuda
+def test_dot_interaction_step_launches_each_kernel_once(cuda_device):
+    """A DLRM sparse SGD step on the card at the terabyte cell's widths (26
+    features of 128, small tables, a ragged batch): the dot interaction's
+    kernels launch once each way a step, ``dlrm.interaction_rows`` counts
+    the batch a step, and the step's gradients reach the tables."""
+    from param_tpu_torch.models.dlrm import DlrmConfig, DlrmModel
+
+    cfg = DlrmConfig(num_tables=26, rows_per_table=1000, emb_dim=128, nnz=1,
+                     dense_dim=13, bot_mlp=[64, 128], top_mlp=[64, 1],
+                     batch=1001)
+    model = DlrmModel(cfg, device=cuda_device)
+    params = model.init_params(0)
+    tables0 = params["tables"].detach().clone()
+    step = model.make_sparse_sgd_step(0.05)
+    rng = np.random.default_rng(4)
+    batch = model.place_batch((
+        rng.random((cfg.batch, 13), dtype=np.float32),
+        rng.integers(0, 1000, (cfg.batch, 26, 1)),
+        rng.integers(0, 2, cfg.batch).astype(np.float32)))
+    steps = 3
+    before = dict(kernels.launch_counts)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiler.reset()
+        for _ in range(steps):
+            params, loss = step(params, *batch)
+        torch.cuda.synchronize()
+        counters = profiler.counter_totals()
+    for k in ("dot_interaction", "dot_interaction_bwd"):
+        assert kernels.launch_counts[k] - before[k] == steps, k
+    assert counters["dlrm.interaction_rows"] == steps * cfg.batch
+    assert math.isfinite(loss.item())
+    assert not torch.equal(params["tables"].detach(), tables0)
+
+
+@pytest.mark.cuda
+def test_dlrm_cli_trains_past_the_kernels_first_limits(cuda_device, capsys):
+    """``cli.dlrm`` on the card with 40 tables of 256 columns (41 rows of z,
+    past the backward's 32; rows in two of the forward's chunks): the
+    training loop runs, its loss is finite, and each step launched the
+    forward (and the held-out forward once more) and the tiled backward
+    once."""
+    from param_tpu_torch.cli import dlrm as dlrm_cli
+
+    batches = 3
+    before = dict(kernels.launch_counts)
+    rc = dlrm_cli.main([
+        "--num-tables", "40", "--emb-dim", "256", "--rows", "1000",
+        "--nnz", "2", "--dense-dim", "16", "--arch-mlp-bot", "64-256",
+        "--arch-mlp-top", "64-1", "--batch", "256", "--optimizer",
+        "sparse_sgd", "--train-batches", str(batches), "--log", "WARNING"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "nan" not in out.lower(), out
+    for k, n in (("dot_interaction", batches + 1),
+                 ("dot_interaction_tiled", 0),
+                 ("dot_interaction_bwd", batches),
+                 ("dot_interaction_bwd_tiled", batches)):
+        assert kernels.launch_counts[k] - before[k] == n, (k, out)
